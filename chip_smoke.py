@@ -7,28 +7,48 @@ Phases, each printed as one JSON line; any failure stops the script with a
 non-zero exit and no result line:
 
 1. environment: torch, CUDA, nvcc and the card (name, power limit);
-2. build: nvcc compiles ``src/repro_torch/csrc/table_kernels.cu``, the one
-   CUDA source of this path;
+2. build: nvcc compiles the two CUDA sources of the serving path,
+   ``src/repro_torch/csrc/table_kernels.cu`` (K1-K4) and
+   ``src/repro_torch/csrc/paged_attn.cu`` (K5, K6), one process each, both
+   started together;
 3. kernels: each table kernel (K1-K4) against its plain PyTorch version on
    the card, exact, at the 4096-slot table with M in {1, 4, 16, 256}, K in
    {1, 5, 128} and seeded sweeps with collisions, cleared bias lanes, -1
-   slots and occupied slots; then each kernel's time (CUDA events, median)
-   at the engine's shapes beside its plain version's and its bound;
+   slots and occupied slots; the paged attention kernels K5 (decode) and K6
+   (chunk prefill) against theirs at the engine's shapes and in seeded
+   sweeps over the traps (-1 lanes inside and past ``cache_len``,
+   ``cache_len`` 0, a partial last page, padding columns, ``new_lens`` 0, a
+   chunk longer than the paged prefix, every q/page type pair), within the
+   stated tolerances; then each kernel's time (CUDA events, median) at the
+   engine's shapes beside its plain version's, its bound and, for K5/K6,
+   ``scaled_dot_product_attention`` over K/V already gathered dense;
 4. sync gate: one lease acquire/release pair through the registry, the
-   model-epoch store and the KV pool under
-   ``torch.cuda.set_sync_debug_mode("error")`` (no host-device sync);
+   model-epoch store and the KV pool, and one scheduler decode tick at full
+   width (both leases, the paged decode step through K5, the releases),
+   each under ``torch.cuda.set_sync_debug_mode("error")`` (no host-device
+   sync); the tick's tokens are read after the gate closes;
 5. engine: llama3.2-1b at its published width and depth (random weights
    from a seed, float32 parameters, bf16 compute), the handler-mode
    ``ServingEngine`` with weight hot-swap and compaction serving 8 requests
    of 16 prompt tokens and 16 new tokens; the table drains, every page is
    free, K1-K4 each launched during the run, and no request's greedy output
    is one token repeated;
-6. tokens: with one request per batch and no swap, the engine's tokens
-   equal a direct greedy loop through the port's prefill/decode steps;
-7. precision: full-width decode steps with a float32 cache against one
-   float32 forward pass over the same tokens (no cache), and the engine's
-   bf16 compute against float32 compute on the same parameters, each
-   within its stated tolerance.
+6. scheduler: the same model in scheduler mode (continuous batching over a
+   2.1 GB bf16 page store, prefix cache on) serving 12 requests in two
+   waves under hot-swap and compaction, the second wave repeating or
+   sharing the first wave's prompts; every request finishes, every page is
+   free with no refcount left, the table drains, the prefix cache saved
+   pages and copied a boundary page, and K1, K2, K3, K5 and K6 each
+   launched during the run;
+7. tokens: with one request per batch and no swap, the handler-mode
+   engine's tokens equal a direct greedy loop through the port's
+   prefill/decode steps;
+8. precision: full-width decode steps with a float32 cache against one
+   float32 forward pass over the same tokens (no cache); the engine's bf16
+   compute against float32 compute on the same parameters; the paged path
+   (prefill in chunks, then paged decode, float32 pages) against the same
+   forward pass; and the scheduler engine's bf16 tokens against the direct
+   greedy loop on the same prompts, each within its stated tolerance.
 
 The random weights are the reference's distributions with the (tied)
 embedding scaled by ``EMBED_SCALE``.  Unscaled, the current token's own
@@ -44,6 +64,8 @@ result, when there is no CUDA device or no ``src/repro_torch`` beside it.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import functools
 import json
 import os
 import statistics
@@ -65,13 +87,41 @@ EMBED_SCALE = 0.01
 CACHE_VS_FORWARD_REL = 1e-4
 BF16_VS_F32_REL = 0.05
 BF16_VS_F32_TOP1 = 0.9
-SOURCE = "src/repro_torch/csrc/table_kernels.cu"
+# The paged path against the forward pass (float32 compute and pages) is
+# held to the cached decode's limit, 1e-4 relative with every greedy token
+# equal.  The scheduler engine's bf16 tokens against the handler-mode greedy
+# loop: both round K/V to bf16, but the paged prefill computes a prompt's
+# K/V in chunks where the loop feeds it token by token, so bf16 rounding
+# differs and one flipped token changes the rest of its request.  Read on
+# an H100 80GB HBM3 (700 W) at seed 0: 2.6e-6 for the paged path; 0.80 of
+# the scheduler's tokens equal (4 of 12 requests diverge, at tokens 0, 1,
+# 4 and 14); the limits leave margin over those readings.
+PAGED_VS_FORWARD_REL = 1e-4
+SCHED_VS_GREEDY_SHARE = 0.6
+# K5/K6 against their plain versions: float32 outputs within 1e-5 absolute
+# (outputs are O(1); the sums run in another order; readings <= 6e-7 on an
+# H100 80GB HBM3, 700 W); bfloat16 outputs within one bf16 step at the
+# largest output (2**-7 * max |out|): both sides round float32 values that
+# differ in the last bits, and one near a rounding boundary can go either
+# way (largest reading on the same card 3.9e-3, inside that step).
+PAGED_F32_ATOL = 1e-5
+PAGED_BF16_ULP = 2.0 ** -7
+SOURCES = {"table": "src/repro_torch/csrc/table_kernels.cu",
+           "paged": "src/repro_torch/csrc/paged_attn.cu"}
 REPLACES = {
     "fused_publish_multi": "src/repro/kernels/table_publish.py:204",
     "fused_publish": "src/repro/kernels/table_publish.py:111",
     "revocation_poll": "src/repro/kernels/table_scan.py:67",
     "revocation_poll_multi": "src/repro/kernels/table_scan.py:85",
+    "paged_attention": "src/repro/kernels/paged_attn.py:42",
+    "paged_chunk_attention": "src/repro/kernels/paged_chunk_attn.py:62",
 }
+TABLE_KERNELS = list(REPLACES)[:4]
+PAGED_KERNELS = list(REPLACES)[4:]
+# the scheduler phase's configuration
+SCHED = dict(max_slots=8, page_size=16, max_seq=128, prefill_chunk=32,
+             prefill_rows=2, token_budget=64, prefix_cache=True)
+SCHED_PAGES = 4096
 
 
 def emit(obj) -> None:
@@ -124,7 +174,7 @@ def check_kernels(dev, seeds=range(8)) -> dict:
     from repro_torch.kernels import table_publish as TP
 
     out = {name: {"cases": 0, "max_abs_err": 0, "matched": True}
-           for name in REPLACES}
+           for name in TABLE_KERNELS}
 
     def agree(name, got, want):
         err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
@@ -190,6 +240,113 @@ def check_kernels(dev, seeds=range(8)) -> dict:
                       R.multi_count_ref(table, locks))
     if dev.type == "cuda":
         torch.cuda.synchronize()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 3, paged attention: K5 and K6 against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _paged_case(rng, dev, *, b, s, h, kvh, hd, ps, lanes, n_pages,
+                q_dtype, kv_dtype, traps=True, clen=None, nl=None):
+    """Seeded K5/K6 operands with distinct pages per row and -1 lanes past
+    each row's length.  With ``traps`` (b >= 4): row 0 has cache_len 0 and
+    new_lens 0, row 1 a -1 lane inside its length, row 2 a chunk that is
+    its whole prefix with a partial last page, row 3 a length past its
+    lanes.  -> (q, k_pages, v_pages, page_idx, cache_len, new_lens)."""
+    import numpy as np
+    import torch
+
+    cap = lanes * ps
+    clen = (np.asarray(clen) if clen is not None
+            else rng.integers(1, cap + 1, b)).astype(np.int32)
+    nl = (np.asarray(nl) if nl is not None
+          else np.minimum(rng.integers(1, s + 1, b), clen)).astype(np.int32)
+    if traps:
+        clen[0] = nl[0] = 0
+        clen[1] = max(int(clen[1]), ps + 1)
+        clen[2] = nl[2] = min(s, ps - 1) if s > 1 else 1
+        clen[3] = cap + 5
+    page_idx = np.full((b, lanes), -1, np.int32)
+    perm = rng.permutation(n_pages)
+    for i in range(b):
+        npg = -(-min(int(clen[i]), cap) // ps)
+        page_idx[i, :npg] = perm[i * lanes:i * lanes + npg]
+    if traps:
+        page_idx[1, 0] = -1
+    q = torch.from_numpy(rng.normal(size=(b, s, h, hd)).astype(np.float32))
+    kv = [torch.from_numpy(rng.normal(size=(n_pages, ps, kvh, hd))
+                           .astype(np.float32)).to(dev).to(kv_dtype)
+          for _ in range(2)]
+    ints = [torch.from_numpy(x).to(dev) for x in (page_idx, clen, nl)]
+    return (q.to(dev).to(q_dtype), *kv, *ints)
+
+
+def _paged_agree(out, name, got, want, zero_mask):
+    """Record one K5/K6 comparison; raise past the stated tolerance or if
+    a query with no valid position is not exactly zero."""
+    import torch
+
+    err = float((got.float() - want.float()).abs().max())
+    if got.dtype == torch.float32:
+        tol = PAGED_F32_ATOL
+    else:
+        tol = PAGED_BF16_ULP * float(want.float().abs().max())
+    o = out[name]
+    o["cases"] += 1
+    o["max_abs_err"] = max(o["max_abs_err"], err)
+    if err > tol:
+        raise AssertionError(f"{name}: kernel differs from its plain "
+                             f"version by {err} > {tol}")
+    if zero_mask is not None and bool(got[zero_mask].any()):
+        raise AssertionError(f"{name}: a query with no valid position is "
+                             f"not zero")
+
+
+def check_paged_kernels(dev, seeds=range(3)) -> dict:
+    """K5 and K6 against their plain versions on the same inputs on the
+    card: the engine's shapes (decode B=8, prefill B=2 x 32 columns; H 32,
+    KVH 8, hd 64, page 16, 8 lanes) and seeded sweeps over the traps and
+    every (q, page) type pair."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import ref as R
+
+    out = {name: {"cases": 0, "max_abs_err": 0.0, "matched": True,
+                  "tolerance": {"float32": PAGED_F32_ATOL,
+                                "bfloat16": "2**-7 * max |out|"}}
+           for name in PAGED_KERNELS}
+    engine = dict(h=32, kvh=8, hd=64, ps=16, lanes=8, n_pages=4096)
+    shapes = [dict(engine, b=8, s=32), dict(b=5, s=5, h=8, kvh=2, hd=16,
+                                            ps=4, lanes=6, n_pages=64),
+              dict(b=4, s=7, h=12, kvh=4, hd=128, ps=8, lanes=9,
+                   n_pages=64)]
+    types = [(torch.float32, torch.bfloat16), (torch.float32, torch.float32),
+             (torch.bfloat16, torch.bfloat16), (torch.bfloat16,
+                                                torch.float32)]
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        cases = [(dict(engine, b=8, s=1), types[0], False),
+                 (dict(engine, b=2, s=32), types[0], False)]
+        cases += [(sh, ty, True) for sh in shapes for ty in types]
+        for sh, (qd, kd), traps in cases:
+            q, kp, vp, pi, cl, nl = _paged_case(
+                rng, dev, q_dtype=qd, kv_dtype=kd, traps=traps, **sh)
+            s = q.shape[1]
+            col = torch.arange(s, device=dev)
+            pad = ((col[None, :] < s - nl[:, None])
+                   | (cl[:, None] - s + col[None, :] < 0))
+            _paged_agree(out, "paged_chunk_attention",
+                         K.paged_chunk_attention(q, kp, vp, pi, cl, nl),
+                         R.paged_chunk_attn_ref(q, kp, vp, pi, cl, nl), pad)
+            q1 = q[:, -1].contiguous()
+            _paged_agree(out, "paged_attention",
+                         K.paged_attention(q1, kp, vp, pi, cl),
+                         R.paged_attn_ref(q1, kp, vp, pi, cl), cl <= 0)
+    torch.cuda.synchronize()
     return out
 
 
@@ -324,19 +481,113 @@ def time_kernels(dev, batch: int, n_locks: int) -> dict:
     return out
 
 
+def _valid_positions(pi, cl, ps):
+    """Per row, the KV positions a query may read: t < min(cache_len,
+    lanes * ps) whose lane holds a page."""
+    import torch
+
+    t = torch.arange(pi.shape[1] * ps, device=pi.device)
+    lane_ok = (pi >= 0).repeat_interleave(ps, dim=1)
+    return lane_ok & (t[None, :] < cl[:, None])
+
+
+def time_paged_kernels(dev, seed=0) -> dict:
+    """K5 and K6 times at the engine's shapes: a decode tick of the
+    scheduler phase (B = 8 rows, lengths 24-88 of 128 positions, float32
+    q, bf16 pages in a 4096-page store) and a prefill tick (2 rows x 32
+    columns: a first chunk, and a chunk on a 40-token prefix).
+
+    The bound counts what one call must move, in 32-byte sectors at the
+    HBM rate: each valid K and V row once per KV head (hd bf16 = 4
+    sectors), q and out, the page indices and lengths; and the float32
+    operations outside the tensor cores (4 * hd per query head and KV
+    position it attends to) at 67 TFLOP/s.  ``library_ms`` is
+    ``scaled_dot_product_attention`` over the same K/V already gathered
+    dense (the gather not timed), with a boolean mask and GQA: a
+    yardstick only, the port never calls it."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import ref as R
+
+    rng = np.random.default_rng(seed)
+    base = dict(h=32, kvh=8, hd=64, ps=16, lanes=8, n_pages=SCHED_PAGES,
+                q_dtype=torch.float32, kv_dtype=torch.bfloat16, traps=False)
+    dec = _paged_case(rng, dev, b=8, s=1, clen=rng.integers(24, 89, 8),
+                      nl=np.ones(8), **base)
+    pre = _paged_case(rng, dev, b=2, s=32, clen=[32, 72], nl=[32, 32],
+                      **base)
+    out = {}
+    for name, (q, kp, vp, pi, cl, nl) in (("paged_attention", dec),
+                                          ("paged_chunk_attention", pre)):
+        b, s, h, hd = q.shape
+        kvh, ps = kp.shape[2], kp.shape[1]
+        valid = _valid_positions(pi, cl, ps)                    # (B, T)
+        q_pos = cl[:, None] - s + torch.arange(s, device=dev)[None, :]
+        real = (torch.arange(s, device=dev)[None, :] >= s - nl[:, None]) \
+            & (q_pos >= 0)                                      # (B, S)
+        seen = (valid[:, None, :] & real[:, :, None]
+                & (torch.arange(valid.shape[1], device=dev)[None, None, :]
+                   <= q_pos[:, :, None]))                       # (B, S, T)
+        rows = int(valid[real.any(dim=1)].sum())
+        row_sec = _span(hd, kp.element_size())
+        qsec = _span(q.numel(), q.element_size())
+        sectors = (2 * rows * kvh * row_sec + 2 * qsec
+                   + _span(pi.numel()) + _span(b) * (1 if s == 1 else 2))
+        flops = 4 * hd * h * int(seen.sum())
+        if s == 1:
+            args = (q[:, 0].contiguous(), kp, vp, pi, cl)
+            kern = functools.partial(K.paged_attention, *args)
+            plain = functools.partial(R.paged_attn_ref, *args)
+        else:
+            args = (q, kp, vp, pi, cl, nl)
+            kern = functools.partial(K.paged_chunk_attention, *args)
+            plain = functools.partial(R.paged_chunk_attn_ref, *args)
+        idx = torch.where(pi >= 0, pi, 0).long()
+        kd, vd = (x[idx].reshape(b, -1, kvh, hd).transpose(1, 2).to(q.dtype)
+                  .contiguous() for x in (kp, vp))
+        qd = q.transpose(1, 2).contiguous()                     # (B, H, S, hd)
+        lib = functools.partial(F.scaled_dot_product_attention, qd, kd, vd,
+                                attn_mask=seen[:, None], enable_gqa=True)
+        want = R.paged_chunk_attn_ref(q, kp, vp, pi, cl, nl)
+        err = float((lib().transpose(1, 2).float() - want.float()).abs().max())
+        t_bytes = sectors * SECTOR / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / INT_OPS_PER_S * 1e3
+        k, p, lb = _median_ms(kern), _median_ms(plain), _median_ms(lib)
+        out[name] = {"ms": k["graph_ms"], "plain_ms": p["graph_ms"],
+                     "library_ms": lb["graph_ms"], "call_ms": k["call_ms"],
+                     "plain_call_ms": p["call_ms"],
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations",
+                     "bytes": sectors * SECTOR, "ops": flops,
+                     "kv_rows": rows, "library_max_abs_err": err,
+                     "shape": {"B": b, "S": s, "H": h, "KVH": kvh, "hd": hd,
+                               "page": ps, "lanes": pi.shape[1],
+                               "cache_len": cl.tolist()}}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the lease fast path moves nothing between host and device
 # ---------------------------------------------------------------------------
 
 
-def sync_gate(dev) -> dict:
+def sync_gate(dev, cfg, params) -> dict:
+    """A lease acquire/release pair, and one scheduler decode tick at full
+    width, each under ``set_sync_debug_mode("error")``: any host-device
+    synchronization inside raises."""
+    import numpy as np
     import torch
 
     from repro_torch.core.atomics import LiveMem
     from repro_torch.core.factory import LockEnv
     from repro_torch.core.registry import BravoRegistry
-    from repro_torch.serving.engine import ModelStore
+    from repro_torch.serving.engine import ModelStore, Request, ServingEngine
     from repro_torch.serving.kv_pool import KVPool
+    from repro_torch.serving.scheduler import Phase, SchedulerConfig
 
     reg = BravoRegistry(device=dev)
     store = ModelStore({}, LockEnv(LiveMem()).make("bravo-ba"),
@@ -350,18 +601,54 @@ def sync_gate(dev) -> dict:
         pool.done_read_batch(ptok)
         store.done_read_batch(tok, ids)
 
+    def gated(fn):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return res
+
     pair()                                    # warm-up outside the gate
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        pair()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
+    gated(pair)
     held = reg.held_multi([store.leases] + pool.locks).tolist()
     if any(held):
         raise AssertionError(f"leases left after the gated pair: {held}")
-    return {"pairs": 1, "held_after": held}
+
+    # the scheduler tick: admit and prefill two requests outside the gate
+    # (admission and the prefill's token read synchronize by design), then
+    # one warm-up decode tick and one gated tick
+    eng = ServingEngine(cfg, params, n_pages=64, device=dev,
+                        scheduler=SchedulerConfig(**SCHED))
+    for i, p in enumerate(_prompts(7, 2, 20, cfg.vocab)):
+        eng.submit(Request(rid=i, prompt=p, max_new=4))
+    for _ in range(8):
+        eng._schedule_tick()
+        if all(s.phase is Phase.DECODE
+               for s in eng.scheduler.running.values()):
+            break
+    rows = sorted(eng.scheduler.running)
+    if len(rows) != 2:
+        raise AssertionError(f"gate: {len(rows)} slots reached decode")
+    eng._decode_tick()
+    nxt = gated(eng._decode_tick)
+    toks = nxt[:, 0].cpu().numpy()           # read after the gate closes
+    if not ((toks[rows] >= 0) & (toks[rows] < cfg.vocab)).all():
+        raise AssertionError(f"gate: tokens out of range {toks.tolist()}")
+    locks = [eng.store.leases] + eng.kv_pool.locks
+    tick_held = eng.registry.held_multi(locks).tolist()
+    if any(tick_held):
+        raise AssertionError(f"leases left after the gated tick: "
+                             f"{tick_held}")
+    # the same tick's device time and busy share, profiled (two active rows
+    # of max_slots; the step computes every row)
+    prof = _profile(eng._decode_tick, steps=4)
+    return {"pairs": 1, "held_after": held, "decode_ticks": 1,
+            "tick_rows": len(rows), "tick_tokens": np.asarray(
+                toks)[rows].tolist(), "tick_held_after": tick_held,
+            "tick_profile": prof}
 
 
 # ---------------------------------------------------------------------------
@@ -417,8 +704,10 @@ def run_engine(cfg, params, dev, *, n_req, prompt_len, max_new, handlers,
     assert st["device_leases"]["revocations"] >= 1, st["device_leases"]
     assert free == eng.kv_pool.n_pages, free
     assert not held.any(), held.tolist()
-    # the plain versions (CPU tensors) count no launch
-    assert dev.type != "cuda" or all(counts.values()), counts
+    # the plain versions (CPU tensors) count no launch; this path runs the
+    # table kernels only (no paged attention in handler mode)
+    assert dev.type != "cuda" or all(counts[k] for k in TABLE_KERNELS), \
+        counts
 
     def share(s):
         tot = s["fast_acquires"] + s["slow_acquires"]
@@ -472,10 +761,27 @@ def decode_step_ms(cfg, params, dev, batch, steps, max_seq) -> dict:
 
 
 def _profile_steps(step, params, caches, cur, batch, dev, steps=4) -> dict:
-    """torch.profiler over a few decode steps: device time per step (the
-    sum of kernel times), wall time per step (profiler on), the device's
-    busy share and the kernels that take the most device time.  Device
-    numbers are None where the profiler recorded no device time."""
+    """torch.profiler over a few handler-mode decode steps at positions
+    40 and on (see :func:`_profile`)."""
+    import torch
+
+    state = {"cur": cur, "caches": caches, "i": 0}
+
+    def one():
+        clen = torch.full((batch,), 40 + state["i"], dtype=torch.int32,
+                          device=dev)
+        state["cur"], _, state["caches"] = step(params, state["caches"],
+                                                state["cur"], clen)
+        state["i"] += 1
+
+    return _profile(one, steps)
+
+
+def _profile(fn, steps=4) -> dict:
+    """torch.profiler over ``steps`` calls of ``fn``: device time per call
+    (the sum of kernel times), wall time per call (profiler on), the
+    device's busy share and the kernels that take the most device time.
+    Device numbers are None where the profiler recorded no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -484,10 +790,8 @@ def _profile_steps(step, params, caches, cur, batch, dev, steps=4) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(steps):
-            clen = torch.full((batch,), 40 + i, dtype=torch.int32,
-                              device=dev)
-            cur, _, caches = step(params, caches, cur, clen)
+        for _ in range(steps):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
 
@@ -605,12 +909,8 @@ def precision_check(cfg, params, dev, *, batch, length, seed) -> dict:
         full = M.forward(params, cfg32, {"tokens": toks},
                          make_caches=False)[0].float()
 
-    def reading(a, b):
-        return {"rel": float((a - b).abs().max() / b.abs().max()),
-                "top1": float((a.argmax(-1) == b.argmax(-1)).float().mean())}
-
-    cache = reading(f32, full)
-    half = reading(bf16, f32)
+    cache = _reading(f32, full)
+    half = _reading(bf16, f32)
     out = {"batch": batch, "steps": length,
            "cache_vs_forward": cache, "bf16_vs_f32": half,
            "tolerance": {"cache_vs_forward_rel": CACHE_VS_FORWARD_REL,
@@ -625,6 +925,218 @@ def precision_check(cfg, params, dev, *, batch, length, seed) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: the scheduler-mode engine at full width
+# ---------------------------------------------------------------------------
+
+
+def _sched_prompts(seed, vocab, ps=16):
+    """Wave 1: six prompts of 24-72 tokens (the last three at least 33).
+    Wave 2: exact repeats of the first three, whose lengths are not one
+    more than a multiple of the page (the last prompt token is always
+    recomputed, so such a repeat takes its full pages by reference and
+    copies its boundary page), and three prompts that share the first 32
+    tokens (two full pages) of the last three and then diverge."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(24, 73, 6)
+    lens[3:] = rng.integers(33, 73, 3)
+    lens[:3] += lens[:3] % ps == 1
+    wave1 = [rng.integers(1, vocab, int(n)).astype(np.int32) for n in lens]
+    share = [np.concatenate([p[:32], rng.integers(
+        1, vocab, int(rng.integers(8, 41)))]).astype(np.int32)
+        for p in wave1[3:]]
+    return wave1, wave1[:3] + share
+
+
+def run_scheduler(cfg, params, dev, *, seed, max_new=16) -> dict:
+    """Two waves of six requests through ``ServingEngine(scheduler=...)``
+    under hot-swap (every 0.25 s) and compaction (every 0.2 s).  Wave 2 is
+    submitted once wave 1 has finished, since a prefix enters the index
+    only when its request has finished prefill."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    eng = ServingEngine(cfg, params, n_pages=SCHED_PAGES, device=dev,
+                        scheduler=SchedulerConfig(**SCHED))
+    ticks = {"prefill": [], "decode": []}
+    for kind, acc in ticks.items():         # host wall time of each tick
+        def timed(plan, fn=getattr(eng, f"_run_{kind}"), acc=acc):
+            t0 = time.perf_counter()
+            fn(plan)
+            acc.append((time.perf_counter() - t0) * 1e3)
+        setattr(eng, f"_run_{kind}", timed)
+    wave1, wave2 = _sched_prompts(seed, cfg.vocab)
+    waves = [[Request(rid=base + i, prompt=p, max_new=max_new)
+              for i, p in enumerate(w)]
+             for base, w in ((0, wave1), (len(wave1), wave2))]
+    K.reset_launch_counts()
+    t0 = time.monotonic()
+    eng.start(swap_period_s=0.25, compact_period_s=0.2)
+    for wave in waves:
+        for r in wave:
+            eng.submit(r)
+        for r in wave:
+            if not r.done.wait(timeout=600):
+                eng.stop()
+                raise AssertionError(f"request {r.rid} timed out")
+    wall = time.monotonic() - t0
+    eng.stop()
+    counts = K.launch_counts()               # read right after the path
+    reqs = waves[0] + waves[1]
+    st = eng.lock_stats()
+    pool = st["kv_pool"]
+    locks = [eng.store.leases] + eng.kv_pool.locks
+    held = eng.registry.held_multi(locks)
+    free = eng.kv_pool.free_count()
+    for r in reqs:
+        assert r.out is not None and len(r.out) == max_new, r.rid
+        assert ((r.out >= 0) & (r.out < cfg.vocab)).all(), r.out
+    _check_varied([r.out.tolist() for r in reqs])
+    es = st["engine"]
+    assert free == SCHED_PAGES, free
+    assert pool["refcount_total"] == 0 and pool["shared_pages"] == 0, pool
+    assert not held.any(), held.tolist()
+    assert es["pages_saved"] >= 1 and es["cow_copies"] >= 1, es
+    assert es["weight_swaps"] >= 1, es
+    path = ["fused_publish_multi", "fused_publish", "revocation_poll",
+            "paged_attention", "paged_chunk_attention"]
+    # the plain versions (CPU tensors) count no launch
+    assert dev.type != "cuda" or all(counts[k] for k in path), counts
+    ttft = eng.metrics.histogram("engine.ttft_ns")
+    tokens = sum(len(r.out) for r in reqs)
+    return {"config": SCHED, "n_pages": SCHED_PAGES,
+            "page_store_bytes": sum(x.numel() * x.element_size()
+                                    for x in eng._pages_kv.values()),
+            "requests": len(reqs), "prompt_lens": [len(r.prompt)
+                                                   for r in reqs],
+            "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+            "decode_ticks": len(ticks["decode"]),
+            "decode_tick_median_ms": statistics.median(ticks["decode"]),
+            "prefill_ticks": len(ticks["prefill"]),
+            "prefill_tick_median_ms": statistics.median(ticks["prefill"]),
+            "ttft_median_ms": ttft.quantile(0.5) / 1e6,
+            "weight_swaps": es["weight_swaps"],
+            "compactions": es["compactions"],
+            "pages_saved": es["pages_saved"], "cow_copies": es["cow_copies"],
+            "cached_tokens": es["cached_tokens"],
+            "prefix_hits": pool["prefix_hits"],
+            "scheduler": st["scheduler"], "pages_free": free,
+            "held_after": held.tolist(), "launches": counts,
+            "prompts": [r.prompt.tolist() for r in reqs],
+            "outputs": [r.out.tolist() for r in reqs]}
+
+
+def _reading(a, b) -> dict:
+    """max |a - b| / max |b| over logits, and the share of positions whose
+    greedy token agrees."""
+    return {"rel": float((a - b).abs().max() / b.abs().max()),
+            "top1": float((a.argmax(-1) == b.argmax(-1)).float().mean())}
+
+
+def paged_precision(cfg, params, dev, *, seed) -> dict:
+    """The paged data plane at full width in float32 (compute and pages):
+    two rows of 40 prompt tokens prefilled in two right-aligned chunks of
+    width 32 (row 0: 32 then 8 tokens, row 1: 8 then 32, so both chunks
+    have padding columns), then 24 paged decode steps, teacher-forced,
+    against ONE float32 forward pass with no cache over the same 64
+    tokens: logits at every position within ``PAGED_VS_FORWARD_REL``,
+    every greedy token equal."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model as M
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    b, prompt_len, steps, ps, width = 2, 40, 24, 16, 32
+    total = prompt_len + steps
+    toks_h = np.stack(_prompts(seed, b, total, cfg.vocab))
+    toks = torch.from_numpy(toks_h).to(dev)
+    lanes = -(-total // ps)
+    n_pages = 2 * b * lanes
+    store = M.init_paged_caches(cfg32, n_pages, ps, dtype=torch.float32,
+                                device=dev)
+    perm = np.random.default_rng(seed).permutation(n_pages)[:b * lanes]
+    pages = torch.from_numpy(perm.reshape(b, lanes).astype(np.int32)).to(dev)
+    logits = []
+    done = np.zeros(b, np.int32)
+    with torch.no_grad():
+        for chunk in ([32, 8], [8, 32]):
+            chunk = np.asarray(chunk, np.int32)
+            x = np.zeros((b, width), np.int32)
+            for i in range(b):
+                x[i, width - chunk[i]:] = toks_h[i, done[i]:done[i] + chunk[i]]
+            done = done + chunk
+            lg, _, _ = M.forward(
+                params, cfg32, {"tokens": torch.from_numpy(x).to(dev)},
+                caches=store, cache_len=torch.from_numpy(done).to(dev),
+                pages=pages, new_lens=torch.from_numpy(chunk).to(dev))
+            logits.append([lg[i, width - chunk[i]:].float()
+                           for i in range(b)])
+        rows = [torch.cat([c[i] for c in logits]) for i in range(b)]
+        paged = [torch.stack(rows)]                     # (B, 40, V)
+        for pos in range(prompt_len, total):
+            clen = torch.full((b,), pos + 1, dtype=torch.int32, device=dev)
+            lg, _, _ = M.forward(params, cfg32,
+                                 {"tokens": toks[:, pos:pos + 1]},
+                                 caches=store, cache_len=clen, pages=pages)
+            paged.append(lg.float())
+        paged = torch.cat(paged, dim=1)                 # (B, 64, V)
+        full = M.forward(params, cfg32, {"tokens": toks},
+                         make_caches=False)[0].float()
+    r = _reading(paged, full)
+    out = {"batch": b, "prompt": prompt_len, "decode_steps": steps,
+           "paged_vs_forward": r,
+           "tolerance": {"rel": PAGED_VS_FORWARD_REL, "top1": 1.0}}
+    if r["rel"] > PAGED_VS_FORWARD_REL or r["top1"] < 1.0:
+        raise AssertionError(f"paged path outside tolerance: {out}")
+    return out
+
+
+def scheduler_vs_greedy(cfg, params, dev, sched) -> dict:
+    """The scheduler engine's bf16 tokens against the handler-mode direct
+    greedy loop (``greedy_reference``) on the same prompts: the share of
+    positions whose token is equal, at least ``SCHED_VS_GREEDY_SHARE``."""
+    want = {}
+    equal = total = 0
+    first_diff = []
+    for prompt, got in zip(sched["prompts"], sched["outputs"]):
+        key = tuple(prompt)
+        if key not in want:
+            want[key] = greedy_reference(cfg, params, prompt, len(got),
+                                         SCHED["max_seq"], dev)
+        ref = want[key]
+        same = [a == b for a, b in zip(got, ref)]
+        equal += sum(same)
+        total += len(same)
+        first_diff.append(same.index(False) if not all(same) else None)
+    share = equal / total
+    out = {"requests": len(first_diff), "equal_share": share,
+           "first_difference": first_diff,
+           "tolerance": SCHED_VS_GREEDY_SHARE}
+    if share < SCHED_VS_GREEDY_SHARE:
+        raise AssertionError(f"scheduler vs greedy loop: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+
+def build_all() -> dict:
+    """Compile both CUDA sources, one nvcc each, started together."""
+    from repro_torch.kernels import _build
+
+    t0 = time.monotonic()
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as ex:
+        futs = {k: ex.submit(_build.compile_source,
+                             _build.CSRC / os.path.basename(src))
+                for k, src in SOURCES.items()}
+        nvcc_s = {SOURCES[k]: f.result()[1] for k, f in futs.items()}
+    return {"sources": list(SOURCES.values()),
+            "seconds": time.monotonic() - t0, "nvcc_seconds": nvcc_s}
 
 
 def main(argv=None) -> int:
@@ -639,13 +1151,13 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs import llama3_2_1b
     from repro_torch.kernels import _build
-    from repro_torch.kernels import table_publish as TP
     from repro_torch.models import model as M
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.monotonic()
     card = run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"]).splitlines()[0]
     emit({"phase": "environment", "torch": torch.__version__,
@@ -654,23 +1166,21 @@ def main(argv=None) -> int:
           "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": card})
 
-    t0 = time.monotonic()
-    _, nvcc_s = _build.compile_source(_build.CSRC / TP.SOURCE)
-    emit({"phase": "build", "source": SOURCE,
-          "seconds": time.monotonic() - t0, "nvcc_seconds": nvcc_s})
+    emit({"phase": "build", **build_all()})
 
     checks = check_kernels(dev)
+    checks.update(check_paged_kernels(dev))
     emit({"phase": "kernels", "checks": checks})
 
     cfg = llama3_2_1b.CONFIG
     handlers, slots = 2, 4
     held_locks = 5                    # the model lock + 4 KV stripes
     times = time_kernels(dev, batch=slots, n_locks=held_locks)
+    times.update(time_paged_kernels(dev, seed=args.seed))
     emit({"phase": "kernel_times", "card": card, "batch": slots,
-          "bound_assumes": "32-byte sectors at the HBM rate, 3.35 TB/s",
+          "bound_assumes": "32-byte sectors at the HBM rate, 3.35 TB/s; "
+                           "float32 operations at 67 TFLOP/s",
           "times": times})
-
-    emit({"phase": "sync_gate", **sync_gate(dev)})
 
     t0 = time.monotonic()
     params = M.init_params(args.seed, cfg, device=dev)
@@ -680,6 +1190,9 @@ def main(argv=None) -> int:
           "layers": cfg.n_layers, "d_model": cfg.d_model,
           "params": sum(int(x.numel()) for x in _leaves(params)),
           "embed_scale": EMBED_SCALE, "seconds": time.monotonic() - t0})
+
+    emit({"phase": "sync_gate", **sync_gate(dev, cfg, params)})
+
     eng = run_engine(cfg, params, dev, n_req=8, prompt_len=16, max_new=16,
                      handlers=handlers, slots=slots, max_seq=64,
                      swap_s=0.25, compact_s=0.2, seed=args.seed)
@@ -687,19 +1200,36 @@ def main(argv=None) -> int:
                           max_seq=64)
     emit({"phase": "engine", "card": card, **eng, "decode_step": step})
 
+    sched = run_scheduler(cfg, params, dev, seed=args.seed + 3)
+    emit({"phase": "scheduler", "card": card, **sched})
+
     emit({"phase": "tokens", **token_check(cfg, params, dev, n_req=2,
                                            prompt_len=16, max_new=8,
                                            max_seq=64, seed=args.seed + 1)})
     emit({"phase": "precision", **precision_check(
-        cfg, params, dev, batch=2, length=24, seed=args.seed + 2)})
+        cfg, params, dev, batch=2, length=24, seed=args.seed + 2),
+        "paged": paged_precision(cfg, params, dev, seed=args.seed + 4),
+        "scheduler_vs_greedy": scheduler_vs_greedy(cfg, params, dev,
+                                                   sched)})
 
+    # launches: the scheduler run (the serving path) for every kernel it
+    # runs; K4 runs on the handler run's drained-table check
+    launches = {name: (eng["launches"][name] if name ==
+                       "revocation_poll_multi" else sched["launches"][name])
+                for name in REPLACES}
+    emit({"phase": "summary", "seconds": time.monotonic() - t_start,
+          "launches_from": {name: "handler" if name ==
+                            "revocation_poll_multi" else "scheduler"
+                            for name in REPLACES}})
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[name], "launches": eng["launches"][name],
+        {"name": name, "route": "cuda",
+         "source": SOURCES["paged" if name in PAGED_KERNELS else "table"],
+         "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": checks[name]["max_abs_err"],
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"],
-         "bound_by": times[name]["bound_by"], "library_ms": None}
+         "bound_by": times[name]["bound_by"],
+         "library_ms": times[name].get("library_ms")}
         for name in REPLACES]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

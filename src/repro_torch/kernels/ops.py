@@ -1,11 +1,14 @@
-"""Public wrappers for the table kernels: the names and argument order of
-``repro.kernels.ops`` for the four kernels this port has (K1-K4).
+"""Public wrappers for the kernels: the names and argument order of
+``repro.kernels.ops`` for the six kernels this port has, the table kernels
+K1-K4 and the paged attention kernels K5/K6.
 
 Where ``repro``'s wrappers consumed the table buffer (donation and
 ``input_output_aliases``), these update the caller's table tensor in place
 and return that same tensor.  A CPU tensor takes the plain version
 (``kernels.ref``); a CUDA tensor launches the hand-written kernel in
-``csrc/table_kernels.cu`` or raises.
+``csrc/table_kernels.cu`` or ``csrc/paged_attn.cu``, or raises.  There is no
+autotune table yet: ``repro``'s paged kernels read their tiling knobs from
+one, and the CUDA kernels choose their own tiling.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ from typing import Dict
 
 import torch
 
+from . import paged_attn as _pa
+from . import paged_chunk_attn as _pca
 from . import table_publish as _pub
 from . import table_scan as _scan
 from .table_publish import LANES
@@ -25,7 +30,9 @@ __all__ = ["as_table2d", "revocation_poll", "revocation_poll_multi",
 # one launch counter per kernel, keyed by the ``repro.kernels.ops`` name
 COUNTERS = {c.name: c for c in (_pub.FUSED_PUBLISH_MULTI, _pub.FUSED_PUBLISH,
                                 _scan.REVOCATION_POLL,
-                                _scan.REVOCATION_POLL_MULTI)}
+                                _scan.REVOCATION_POLL_MULTI,
+                                _pa.PAGED_ATTENTION,
+                                _pca.PAGED_CHUNK_ATTENTION)}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -80,3 +87,25 @@ def revocation_poll_multi(table2d: torch.Tensor,
                           lock_ids: torch.Tensor) -> torch.Tensor:
     """Exact hold counts for a vector of lock values in ONE table pass."""
     return _scan.revocation_poll_multi(table2d, lock_ids)
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, page_idx: torch.Tensor,
+                    cache_len: torch.Tensor) -> torch.Tensor:
+    """Decode attention by page index (K5).  q: (B, H, hd); k/v_pages:
+    (n_pages, page_size, KVH, hd); page_idx: (B, P) int32 (-1 = unused
+    lane); cache_len: (B,) int32.  -> (B, H, hd); the dense (B, S, KVH, hd)
+    cache is never built."""
+    return _pa.paged_attention(q, k_pages, v_pages, page_idx, cache_len)
+
+
+def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, page_idx: torch.Tensor,
+                          cache_len: torch.Tensor,
+                          new_lens: torch.Tensor) -> torch.Tensor:
+    """Chunk-prefill attention by page index (K6).  q: (B, S, H, hd)
+    right-aligned chunks; cache_len: (B,) total valid length AFTER the
+    chunk; new_lens: (B,) valid trailing columns.  -> (B, S, H, hd),
+    padding columns zero."""
+    return _pca.paged_chunk_attention(q, k_pages, v_pages, page_idx,
+                                      cache_len, new_lens)

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the table kernels K1-K4.
+"""Plain PyTorch versions of the table kernels K1-K4 and of the paged
+attention kernels K5/K6.
 
 They define what each CUDA kernel computes: the CPU tests hold them against
 ``repro``'s Pallas kernels in interpret mode, ``chip_smoke.py`` holds each
@@ -14,6 +15,8 @@ readers to slot -1 so that they clear nothing.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -143,3 +146,65 @@ def release_hashed_ref(table2d: torch.Tensor, lock_vals: torch.Tensor,
     if mask is not None:
         slots = torch.where(mask, slots, -1)
     return clear_ref(table2d, slots)
+
+
+# ---------------------------------------------------------------------------
+# Paged attention over the KV pool's page store (K5 decode, K6 chunk prefill)
+# ---------------------------------------------------------------------------
+
+
+def paged_chunk_attn_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                         v_pages: torch.Tensor, page_idx: torch.Tensor,
+                         cache_len: torch.Tensor,
+                         new_lens: torch.Tensor) -> torch.Tensor:
+    """K6.  q: (B, S, H, hd) right-aligned chunks; k/v_pages: (n_pages, ps,
+    KVH, hd); page_idx: (B, P) int32; cache_len: (B,) valid length AFTER
+    the chunk; new_lens: (B,) valid trailing columns.  -> (B, S, H, hd) in
+    q's dtype, computed in float32.
+
+    Column ``j`` of row ``b`` sits at position ``cache_len - S + j`` and is
+    a query only if ``j >= S - new_lens`` and that position is >= 0.  KV
+    position ``t`` counts if ``t < cache_len``, ``t <= q_pos`` and its lane
+    ``page_idx[b, t // ps]`` names a page of the store (a -1 lane is
+    masked).  Query heads are grouped by KV head (GQA); a row with no valid
+    position emits zeros (the denominator is floored at 1e-20, as in the
+    Pallas kernel).  Vectorised through a dense (B, P * ps, KVH, hd)
+    gather, which the CUDA kernel never builds."""
+    b, s, h, hd = q.shape
+    n_pages, ps, kvh, _ = k_pages.shape
+    n_lanes = page_idx.shape[1]
+    g = h // kvh
+    lane_ok = (page_idx >= 0) & (page_idx < n_pages)
+    idx = torch.where(lane_ok, page_idx, 0).long()
+    k = k_pages[idx].float().reshape(b, n_lanes * ps, kvh, hd)
+    v = v_pages[idx].float().reshape(b, n_lanes * ps, kvh, hd)
+    t = torch.arange(n_lanes * ps, device=q.device)
+    col = torch.arange(s, device=q.device)
+    clen = cache_len.long()
+    q_pos = clen[:, None] - s + col[None, :]                       # (B, S)
+    valid_q = (col[None, :] >= s - new_lens.long()[:, None]) & (q_pos >= 0)
+    valid = ((t[None, None, :] < clen[:, None, None])
+             & lane_ok.repeat_interleave(ps, dim=1)[:, None, :]
+             & (t[None, None, :] <= q_pos[:, :, None])
+             & valid_q[:, :, None])[:, :, None, None, :]     # (B,S,1,1,T)
+    qh = q.float().reshape(b, s, kvh, g, hd)
+    sc = torch.einsum("bskgd,btkd->bskgt", qh, k) / math.sqrt(hd)
+    sc = torch.where(valid, sc, -math.inf)
+    m = sc.amax(dim=-1, keepdim=True)
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.where(valid, torch.exp(sc - m_safe), 0.0)
+    den = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-20)
+    o = torch.einsum("bskgt,btkd->bskgd", p, v) / den
+    return o.reshape(b, s, h, hd).to(q.dtype)
+
+
+def paged_attn_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                   v_pages: torch.Tensor, page_idx: torch.Tensor,
+                   cache_len: torch.Tensor) -> torch.Tensor:
+    """K5.  q: (B, H, hd) one decode token per request; pages as K6;
+    cache_len: (B,) valid lengths.  -> (B, H, hd) in q's dtype.  It is K6
+    with one column that is always real: positions ``t < cache_len`` whose
+    lane holds a page, zeros where there are none (``cache_len == 0``)."""
+    ones = torch.ones_like(cache_len)
+    return paged_chunk_attn_ref(q[:, None], k_pages, v_pages, page_idx,
+                                cache_len, ones)[:, 0]

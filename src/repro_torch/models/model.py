@@ -5,8 +5,9 @@ The port of ``repro.models.model`` for those families.  Parameters keep
 ``repro``'s pytree layout (nested dicts; layer stacks with a leading ``L``
 dim), so :func:`from_jax_params` carries a JAX parameter tree across leaf
 by leaf, and the layer stack is a Python loop where ``repro`` used
-``lax.scan``.  MoE, SSM, hybrid and audio families, and the paged page
-store (``init_paged_caches``), come with later slices.
+``lax.scan``.  The paged page store (:func:`init_paged_caches`) is the
+scheduler's data plane; its quantized layout and the MoE, SSM, hybrid and
+audio families come with later slices.
 """
 
 from __future__ import annotations
@@ -103,15 +104,26 @@ def lm_logits(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def forward(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             caches: Optional[Dict[str, torch.Tensor]] = None,
             cache_len: Optional[torch.Tensor] = None,
-            make_caches: bool = True) -> Tuple[torch.Tensor, Any, Any]:
+            make_caches: bool = True,
+            pages: Optional[torch.Tensor] = None,
+            new_lens: Optional[torch.Tensor] = None,
+            ) -> Tuple[torch.Tensor, Any, Any]:
     """Full forward pass -> (logits, aux loss, caches).
 
     Without ``caches``: positions 0..S-1; returns the stacked new K/V
     (``(L, B, S, KVH, hd)`` each) unless ``make_caches`` is False.  With
     ``caches`` from :func:`init_caches` and a per-request ``cache_len``
     (B,): one decode step at position ``cache_len - 1``, whose K/V is
-    written into ``caches`` in place."""
+    written into ``caches`` in place.
+
+    ``pages`` switches attention to the paged data plane: ``caches`` is
+    the pool's page store from :func:`init_paged_caches` and ``pages`` the
+    batch's (B, P) int32 page-index matrix.  Column ``j`` sits at position
+    ``cache_len - S + j`` (right-aligned chunks; ``new_lens`` marks each
+    row's valid tail; padding columns take position 0)."""
     _check_family(cfg)
+    if pages is not None and caches is None:
+        raise ValueError("paged forward needs the page store as caches")
     x = embed_inputs(p, cfg, batch)
     S = x.shape[1]
     if cache_len is None:
@@ -126,10 +138,10 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     for i in range(cfg.n_layers):
         lp = {name: {k: w[i] for k, w in sub.items()}
               for name, sub in layers.items()}
-        lc = None if caches is None else {"k": caches["k"][i],
-                                          "v": caches["v"][i]}
+        lc = None if caches is None else {k: c[i] for k, c in caches.items()}
         x, a, nc = block_forward(lp, x, cfg, positions=positions, cache=lc,
-                                 cache_len=cache_len)
+                                 cache_len=cache_len, pages=pages,
+                                 new_lens=new_lens)
         aux = aux + a
         if caches is None and make_caches:
             ks.append(nc["k"])
@@ -154,3 +166,27 @@ def init_caches(cfg: ModelConfig, batch_size: int, max_seq: int,
     dev = resolve(device)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def init_paged_caches(cfg: ModelConfig, n_pages: int, page_size: int,
+                      dtype=torch.bfloat16, quantized: bool = False,
+                      device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Zero page STORE for the paged data plane: one pool of ``n_pages`` KV
+    pages shared by every request, ``{"k"/"v": (L, n_pages, page_size,
+    KVH, hd)}`` on ``device`` (default: the CUDA card, raising if there is
+    none).  The (request -> pages) map lives in ``serving.kv_pool.KVPool``;
+    requests address the store through their (B, P) page-index vectors.
+
+    Each layer keeps one more page behind the ``n_pages`` it shows, the
+    sink that takes the K/V of invalid chunk columns
+    (``transformer.with_sink``); the views returned hide it.
+    ``quantized=True`` (int8 pages with per-page scales) is not ported."""
+    _check_family(cfg)
+    if quantized:
+        raise NotImplementedError(
+            "the quantized page store (int8 pages, the kernels K7/K8) is not "
+            "ported yet: ROADMAP.md, M9")
+    shape = (cfg.n_layers, n_pages + 1, page_size, cfg.n_kv_heads, cfg.hd)
+    dev = resolve(device)
+    return {name: torch.zeros(shape, dtype=dtype, device=dev)[:, :n_pages]
+            for name in ("k", "v")}

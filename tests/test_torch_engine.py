@@ -102,7 +102,15 @@ def test_engine_end_to_end_under_swap_and_compaction(lock_name):
 
 
 def test_scheduler_mode_is_not_ported_yet():
+    """Scheduler mode is ported (tests/test_torch_scheduler.py); what it
+    does not have yet, the latency-feedback controller and the quantized
+    page store, raises and names its place in ROADMAP.md."""
+    from repro_torch.serving.scheduler import (ControllerConfig,
+                                               SchedulerConfig)
     cfg = TC.get_smoke("llama3.2-1b")
     params = TM.init_params(0, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TE.ServingEngine(cfg, params, scheduler=object(), device="cpu")
+        TE.ServingEngine(cfg, params, device="cpu", scheduler=SchedulerConfig(
+            controller=ControllerConfig()))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TE.ServingEngine(cfg, params, quant_kv=True, device="cpu")

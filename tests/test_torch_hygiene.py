@@ -19,7 +19,7 @@ REF = ROOT / "src" / "repro"
 COPIES = ["core/errors.py", "core/atomics.py", "core/table.py",
           "core/rwlocks.py", "core/bravo.py", "core/factory.py",
           "obs/__init__.py", "obs/trace.py", "obs/metrics.py",
-          "obs/chrome.py", "obs/slo.py"]
+          "obs/chrome.py", "obs/slo.py", "serving/scheduler.py"]
 
 
 def _port_files():
@@ -61,7 +61,8 @@ def test_package_imports_without_jax_in_a_fresh_process():
 # the originals' change-history tags, which the port's text leaves out
 HISTORY_TAGS = [(r" \((?:PR|ISSUE) \d+\)", ""),
                 (r"(?: of| —) (?:PR|ISSUE) \d+(?: satellite)?", ""),
-                (r"until (?:PR|ISSUE) \d+ ", "until recently ")]
+                (r"until (?:PR|ISSUE) \d+ ", "until recently "),
+                (r"the pre-(?:PR|ISSUE)-\d+ ", "the earlier ")]
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -83,22 +84,26 @@ def test_default_device_entry_points_raise_without_cuda(no_cuda):
     from repro_torch.models import model as M
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.kv_pool import KVPool
+    from repro_torch.serving.scheduler import SchedulerConfig
 
     cfg = configs.get_smoke("llama3.2-1b")
     for make in (BravoRegistry, lambda: KVPool(16),
                  lambda: M.init_params(0, cfg),
                  lambda: M.init_caches(cfg, 1, 8),
+                 lambda: M.init_paged_caches(cfg, 8, 4),
                  lambda: M.from_jax_params({}, cfg),
-                 lambda: ServingEngine(cfg, {})):
+                 lambda: ServingEngine(cfg, {}),
+                 lambda: ServingEngine(cfg, {}, scheduler=SchedulerConfig())):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
 
 
 def test_cuda_sources_are_listed_for_the_build():
-    from repro_torch.kernels import _build, table_publish
+    from repro_torch.kernels import _build, paged_attn, table_publish
 
-    assert (_build.CSRC / table_publish.SOURCE).exists()
     assert "sm_90a" in " ".join(_build.ARCH_FLAGS)
-    text = (_build.CSRC / table_publish.SOURCE).read_text()
-    for fn in table_publish.SIGNATURES:
-        assert f"int {fn}(" in text, fn
+    for mod in (table_publish, paged_attn):
+        assert (_build.CSRC / mod.SOURCE).exists()
+        text = (_build.CSRC / mod.SOURCE).read_text()
+        for fn in mod.SIGNATURES:
+            assert f"int {fn}(" in text, fn

@@ -103,3 +103,85 @@ def test_decode_steps_and_greedy_tokens_match(models):
             ttoks.append(tn.numpy())
             jcur, tcur = jnp.asarray(jn[:, None]), tn[:, None]
     np.testing.assert_array_equal(np.stack(ttoks), np.stack(jtoks))
+
+
+def _jax_store(cj, n_pages, ps):
+    return JM.init_paged_caches(cj, n_pages, ps, dtype=jnp.float32)
+
+
+def test_paged_prefill_chunks_and_decode_match(models):
+    """The paged data plane on both sides: a prompt prefilled in two
+    right-aligned chunks into scattered pages (one row padded, one row
+    short), then paged decode steps, against ``repro``'s forward with
+    ``pages=``.  Logits and the page store after every step match within
+    the tolerance above; greedy tokens are equal.  The JAX store is carried
+    into the port's store (which keeps its sink page) through numpy."""
+    cj, ct, jp, tp, mesh = models
+    ps, lanes, n_pages, b = 4, 6, 20, 2
+    rng = np.random.default_rng(5)
+    perm = rng.permutation(n_pages)
+    pages = np.full((b, lanes), -1, np.int32)
+    pages[0, :5] = perm[:5]
+    pages[1, :4] = perm[5:9]
+    prompt = rng.integers(0, cj.vocab, (b, 11)).astype(np.int32)
+    lens = np.asarray([11, 6], np.int32)          # row 1: a shorter prompt
+    jstore = _jax_store(cj, n_pages, ps)
+    jstore = jax.tree.map(lambda x: x + 0.5, jstore)   # stale page content
+    tstore = TM.init_paged_caches(ct, n_pages, ps, dtype=torch.float32,
+                                  device="cpu")
+    for k in ("k", "v"):
+        tstore[k].copy_(torch.from_numpy(np.array(jstore[k])))
+    tpages = torch.from_numpy(pages)
+
+    def both(tokens, clen, nl):
+        nonlocal jstore
+        jl, _, jstore = JM.forward(
+            jp, cj, {"tokens": jnp.asarray(tokens)}, mesh=mesh,
+            rules=MeshRules(), caches=jstore, cache_len=jnp.asarray(clen),
+            pages=jnp.asarray(pages),
+            new_lens=None if nl is None else jnp.asarray(nl))
+        tl, _, _ = TM.forward(
+            tp, ct, {"tokens": torch.from_numpy(tokens)}, caches=tstore,
+            cache_len=torch.from_numpy(clen), pages=tpages,
+            new_lens=None if nl is None else torch.from_numpy(nl))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL,
+                                   rtol=RTOL)
+        for k in ("k", "v"):
+            np.testing.assert_allclose(tstore[k].numpy(),
+                                       np.asarray(jstore[k]), atol=ATOL,
+                                       rtol=RTOL)
+        return tl, jl
+
+    # two chunks of width 8: row 0 takes 8 + 3 tokens, row 1 takes 6 + 0
+    width = 8
+    done = np.zeros(b, np.int32)
+    for _ in range(2):
+        chunk = np.minimum(lens - done, width)
+        toks = np.zeros((b, width), np.int32)
+        for i in range(b):
+            toks[i, width - chunk[i]:] = prompt[i, done[i]:done[i] + chunk[i]]
+        done = done + chunk
+        tl, jl = both(toks, done.copy(), chunk.astype(np.int32))
+    cur = np.asarray(jl)[:, -1].argmax(-1).astype(np.int32)
+    assert (tl[:, -1].argmax(-1).numpy() == cur).all()
+    clen = lens.copy()
+    for _ in range(4):
+        clen = clen + 1
+        tl, jl = both(cur[:, None], clen.copy(), None)
+        nxt = np.asarray(jl)[:, -1].argmax(-1).astype(np.int32)
+        np.testing.assert_array_equal(tl[:, -1].argmax(-1).numpy(), nxt)
+        cur = nxt
+
+
+def test_paged_store_shape_and_sink():
+    ct = TC.get_smoke("llama3.2-1b")
+    store = TM.init_paged_caches(ct, 8, 4, device="cpu")
+    assert tuple(store["k"].shape) == (ct.n_layers, 8, 4, ct.n_kv_heads,
+                                       ct.hd)
+    assert store["k"].dtype == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="M9"):
+        TM.init_paged_caches(ct, 8, 4, quantized=True, device="cpu")
+    from repro_torch.models.transformer import with_sink
+    assert with_sink(store["k"][0]).shape[0] == 9
+    with pytest.raises(ValueError, match="sink"):
+        with_sink(torch.zeros(8, 4, ct.n_kv_heads, ct.hd))
