@@ -9,7 +9,7 @@ non-zero exit and no result line:
 1. environment: torch, CUDA, nvcc and the card (name, power limit);
 2. build: nvcc compiles the two CUDA sources of the serving path,
    ``src/repro_torch/csrc/table_kernels.cu`` (K1-K4) and
-   ``src/repro_torch/csrc/paged_attn.cu`` (K5, K6), one process each, both
+   ``src/repro_torch/csrc/paged_attn.cu`` (K5-K8), one process each, both
    started together;
 3. kernels: each table kernel (K1-K4) against its plain PyTorch version on
    the card, exact, at the 4096-slot table with M in {1, 4, 16, 256}, K in
@@ -19,14 +19,21 @@ non-zero exit and no result line:
    sweeps over the traps (-1 lanes inside and past ``cache_len``,
    ``cache_len`` 0, a partial last page, padding columns, ``new_lens`` 0, a
    chunk longer than the paged prefix, every q/page type pair), within the
-   stated tolerances; then each kernel's time (CUDA events, median) at the
-   engine's shapes beside its plain version's, its bound and, for K5/K6,
-   ``scaled_dot_product_attention`` over K/V already gathered dense;
+   stated tolerances; K7 and K8 (the same over int8 pages with per-page
+   scales) against theirs over the same traps plus an all-zero page and a
+   page whose group max saturates, and against the float32 K5/K6 on the
+   pages before quantization; ``requant_scatter`` (the quantized store's
+   write path) on the card byte for byte against the CPU; then each
+   kernel's time (CUDA events, median) at the engine's shapes beside its
+   plain version's, its bound and, for K5-K8,
+   ``scaled_dot_product_attention`` over K/V already gathered dense (and
+   dequantized, for K7/K8);
 4. sync gate: one lease acquire/release pair through the registry, the
-   model-epoch store and the KV pool, and one scheduler decode tick at full
-   width (both leases, the paged decode step through K5, the releases),
-   each under ``torch.cuda.set_sync_debug_mode("error")`` (no host-device
-   sync); the tick's tokens are read after the gate closes;
+   model-epoch store and the KV pool, one scheduler decode tick at full
+   width (both leases, the paged decode step through K5, the releases) and
+   one on the quantized store (``requant_scatter`` into the int8 pages,
+   then K7), each under ``torch.cuda.set_sync_debug_mode("error")`` (no
+   host-device sync); the ticks' tokens are read after the gate closes;
 5. engine: llama3.2-1b at its published width and depth (random weights
    from a seed, float32 parameters, bf16 compute), the handler-mode
    ``ServingEngine`` with weight hot-swap and compaction serving 8 requests
@@ -39,7 +46,11 @@ non-zero exit and no result line:
    sharing the first wave's prompts; every request finishes, every page is
    free with no refcount left, the table drains, the prefix cache saved
    pages and copied a boundary page, and K1, K2, K3, K5 and K6 each
-   launched during the run;
+   launched during the run; then the same run on the quantized store
+   (``quant_kv=True``, int8 pages with float32 scales, 1.07 GB of K/V),
+   which must launch K7 and K8 and neither K5 nor K6, count its quantized
+   tokens and prefix hits, hold exactly half the bf16 run's K/V bytes and
+   agree with the bf16 run's tokens on at least the stated share;
 7. tokens: with one request per batch and no swap, the handler-mode
    engine's tokens equal a direct greedy loop through the port's
    prefill/decode steps;
@@ -47,8 +58,10 @@ non-zero exit and no result line:
    float32 forward pass over the same tokens (no cache); the engine's bf16
    compute against float32 compute on the same parameters; the paged path
    (prefill in chunks, then paged decode, float32 pages) against the same
-   forward pass; and the scheduler engine's bf16 tokens against the direct
-   greedy loop on the same prompts, each within its stated tolerance.
+   forward pass; the same over the quantized store (int8 pages, float32
+   compute, through K8 and K7); and the scheduler engine's bf16 tokens
+   against the direct greedy loop on the same prompts, each within its
+   stated tolerance.
 
 The random weights are the reference's distributions with the (tied)
 embedding scaled by ``EMBED_SCALE``.  Unscaled, the current token's own
@@ -106,6 +119,24 @@ SCHED_VS_GREEDY_SHARE = 0.6
 # way (largest reading on the same card 3.9e-3, inside that step).
 PAGED_F32_ATOL = 1e-5
 PAGED_BF16_ULP = 2.0 ** -7
+# K7/K8 are held to the same tolerances against their plain versions, and
+# against the float32 plain K5/K6 on the pages before quantization to
+# ``repro``'s bound on the quantized attention output at unit-variance
+# inputs (0.05 absolute; tests/test_quant_kv.py, ROADMAP R2).  Readings on
+# an H100 80GB HBM3 (700 W): 0.023 (K7) and 0.029 (K8).
+QUANT_VS_F32_ATOL = 0.05
+# The paged path over the quantized store against the float32 forward pass
+# (float32 compute, int8 pages), and the quantized scheduler run's tokens
+# against the bf16 scheduler run's on the same prompts.  int8 pages round
+# each K/V element by up to amax / 254 of its (page, KV head) group, so the
+# logits move far more than float32 sums do, and one flipped greedy token
+# changes the rest of its request.  Read on an H100 80GB HBM3 (700 W) at
+# seed 0: 0.022 relative with 0.96 of the greedy tokens equal; 0.64 of the
+# quantized run's tokens equal to the bf16 run's (7 of 12 requests
+# diverge); the limits leave margin over those readings.
+QUANT_PAGED_VS_FORWARD_REL = 0.05
+QUANT_PAGED_VS_FORWARD_TOP1 = 0.9
+QUANT_VS_BF16_SHARE = 0.5
 SOURCES = {"table": "src/repro_torch/csrc/table_kernels.cu",
            "paged": "src/repro_torch/csrc/paged_attn.cu"}
 REPLACES = {
@@ -115,9 +146,16 @@ REPLACES = {
     "revocation_poll_multi": "src/repro/kernels/table_scan.py:85",
     "paged_attention": "src/repro/kernels/paged_attn.py:42",
     "paged_chunk_attention": "src/repro/kernels/paged_chunk_attn.py:62",
+    "paged_attention_quant": "src/repro/kernels/paged_attn.py:42 "
+                             "(quantized=True; _paged_attn_quant_call, "
+                             "paged_attn.py:188)",
+    "paged_chunk_attention_quant": "src/repro/kernels/paged_chunk_attn.py:62"
+                                   " (quantized=True; _chunk_attn_quant_call,"
+                                   " paged_chunk_attn.py:200)",
 }
 TABLE_KERNELS = list(REPLACES)[:4]
-PAGED_KERNELS = list(REPLACES)[4:]
+PAGED_KERNELS = list(REPLACES)[4:6]
+QUANT_KERNELS = list(REPLACES)[6:]
 # the scheduler phase's configuration
 SCHED = dict(max_slots=8, page_size=16, max_seq=128, prefill_chunk=32,
              prefill_rows=2, token_budget=64, prefix_cache=True)
@@ -350,6 +388,148 @@ def check_paged_kernels(dev, seeds=range(3)) -> dict:
     return out
 
 
+def _quantized(kp, vp, pi, traps):
+    """Quantize a case's float pages on the card (``kernels.quant``).  With
+    ``traps``, first make one page the rows read all zero (its scale is
+    1e-6 / 127 and it dequantizes to exact zeros) and give another one
+    element per KV head that saturates to +-127 while the rest of its
+    group quantizes coarsely.  The spike is 6, twice the largest of a
+    unit-normal page, so outputs stay O(1) and the absolute float32
+    tolerance keeps its meaning (a spike of 40 made outputs of ~40, whose
+    float32 rounding alone reaches 1e-5).
+    -> (k_pages, v_pages before quantization, kq, vq, k_scale, v_scale)."""
+    import torch
+
+    from repro_torch.kernels import quant as Q
+
+    kp, vp = kp.float().clone(), vp.float().clone()
+    if traps:
+        used = torch.unique(pi[pi >= 0]).tolist()
+        zero, sat = used[0], used[-1]
+        for x in (kp, vp):
+            x[zero] = 0.0
+            x[sat, 0, :, 0] = 6.0
+    (kq, ks), (vq, vs) = Q.quantize_pages(kp), Q.quantize_pages(vp)
+    return kp, vp, kq, vq, ks, vs
+
+
+def check_quant_kernels(dev, seeds=range(3)) -> dict:
+    """K7 and K8 against their plain versions on the card, over the cases
+    of :func:`check_paged_kernels` with int8 pages (q float32 and bf16),
+    plus an all-zero page and a saturating page where the traps are; and,
+    on the engine-shape cases (unit-variance pages, float32 q), against the
+    float32 plain K5/K6 on the pages before quantization, within
+    ``QUANT_VS_F32_ATOL``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import ref as R
+
+    out = {name: {"cases": 0, "max_abs_err": 0.0, "matched": True,
+                  "tolerance": {"float32": PAGED_F32_ATOL,
+                                "bfloat16": "2**-7 * max |out|",
+                                "vs_float32_pages": QUANT_VS_F32_ATOL},
+                  "vs_f32_cases": 0, "vs_f32_max_abs_err": 0.0}
+           for name in QUANT_KERNELS}
+    engine = dict(h=32, kvh=8, hd=64, ps=16, lanes=8, n_pages=4096)
+    shapes = [dict(b=5, s=5, h=8, kvh=2, hd=16, ps=4, lanes=6, n_pages=64),
+              dict(b=4, s=7, h=12, kvh=4, hd=128, ps=8, lanes=9,
+                   n_pages=64)]
+    q_types = (torch.float32, torch.bfloat16)
+    for seed in seeds:
+        rng = np.random.default_rng(100 + seed)
+        cases = [(dict(engine, b=8, s=1), torch.float32, False),
+                 (dict(engine, b=2, s=32), torch.float32, False)]
+        cases += [(sh, qd, True) for sh in [dict(engine, b=8, s=32)]
+                  + shapes for qd in q_types]
+        for sh, qd, traps in cases:
+            q, kp, vp, pi, cl, nl = _paged_case(
+                rng, dev, q_dtype=qd, kv_dtype=torch.float32, traps=traps,
+                **sh)
+            kp, vp, kq, vq, ks, vs = _quantized(kp, vp, pi, traps)
+            s = q.shape[1]
+            col = torch.arange(s, device=dev)
+            pad = ((col[None, :] < s - nl[:, None])
+                   | (cl[:, None] - s + col[None, :] < 0))
+            q1 = q[:, -1].contiguous()
+            got = {
+                "paged_chunk_attention_quant": K.paged_chunk_attention_quant(
+                    q, kq, vq, ks, vs, pi, cl, nl),
+                "paged_attention_quant": K.paged_attention_quant(
+                    q1, kq, vq, ks, vs, pi, cl)}
+            _paged_agree(out, "paged_chunk_attention_quant",
+                         got["paged_chunk_attention_quant"],
+                         R.paged_chunk_attn_quant_ref(q, kq, vq, ks, vs, pi,
+                                                      cl, nl), pad)
+            _paged_agree(out, "paged_attention_quant",
+                         got["paged_attention_quant"],
+                         R.paged_attn_quant_ref(q1, kq, vq, ks, vs, pi, cl),
+                         cl <= 0)
+            if traps:
+                continue
+            f32 = {"paged_chunk_attention_quant": R.paged_chunk_attn_ref(
+                       q, kp, vp, pi, cl, nl),
+                   "paged_attention_quant": R.paged_attn_ref(
+                       q1, kp, vp, pi, cl)}
+            for name, want in f32.items():
+                err = float((got[name].float() - want.float()).abs().max())
+                o = out[name]
+                o["vs_f32_cases"] += 1
+                o["vs_f32_max_abs_err"] = max(o["vs_f32_max_abs_err"], err)
+                if err > QUANT_VS_F32_ATOL:
+                    raise AssertionError(
+                        f"{name}: {err} from the float32 pages > "
+                        f"{QUANT_VS_F32_ATOL}")
+    torch.cuda.synchronize()
+    return out
+
+
+def check_requant(dev, seeds=range(3)) -> dict:
+    """``requant_scatter``, the quantized store's write path, on the card
+    against the same call on the CPU (whose bytes the CPU tests hold equal
+    to ``repro``'s), at the engine's shapes: a decode tick (B = 8, S = 1)
+    and a prefill tick (2 rows x 32 columns, one with padding), over a
+    store of stale bytes.  The int8 pages and float32 scales must be equal
+    byte for byte."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import quant as Q
+
+    n_pages, ps, kvh, hd, lanes = 256, 16, 8, 64, 8
+    cases = 0
+    for seed in seeds:
+        rng = np.random.default_rng(200 + seed)
+        for b, s, nl, clen in ((8, 1, None, rng.integers(1, 129, 8)),
+                               (2, 32, [32, 20], [32, 72])):
+            perm = rng.permutation(n_pages)
+            pages = np.full((b, lanes), -1, np.int32)
+            for i in range(b):
+                npg = -(-int(clen[i]) // ps)
+                pages[i, :npg] = perm[i * lanes:i * lanes + npg]
+            host = [rng.integers(-127, 128, (n_pages + 1, ps, kvh, hd))
+                    .astype(np.int8) for _ in range(2)]
+            host += [rng.uniform(0.001, 0.1, (n_pages + 1, kvh))
+                     .astype(np.float32) for _ in range(2)]
+            new = [rng.normal(size=(b, s, kvh, hd)).astype(np.float32)
+                   for _ in range(2)]
+            ints = [pages, np.asarray(clen, np.int32)] + (
+                [] if nl is None else [np.asarray(nl, np.int32)])
+            res = []
+            for d in ("cpu", dev):
+                store = [torch.tensor(x, device=d)[:n_pages] for x in host]
+                args = [torch.tensor(x, device=d) for x in new + ints]
+                Q.requant_scatter(*store, *args)
+                res.append([x.cpu() for x in store])
+            for a, c in zip(*res):
+                if a.numpy().tobytes() != c.numpy().tobytes():
+                    raise AssertionError("requant_scatter: the card's bytes "
+                                         "differ from the CPU's")
+            cases += 1
+    return {"cases": cases, "bytes_equal": True}
+
+
 # ---------------------------------------------------------------------------
 # Phase 3b: kernel times at the engine's shapes
 # ---------------------------------------------------------------------------
@@ -491,37 +671,47 @@ def _valid_positions(pi, cl, ps):
     return lane_ok & (t[None, :] < cl[:, None])
 
 
-def time_paged_kernels(dev, seed=0) -> dict:
+def time_paged_kernels(dev, seed=0, quant=False) -> dict:
     """K5 and K6 times at the engine's shapes: a decode tick of the
     scheduler phase (B = 8 rows, lengths 24-88 of 128 positions, float32
     q, bf16 pages in a 4096-page store) and a prefill tick (2 rows x 32
-    columns: a first chunk, and a chunk on a 40-token prefix).
+    columns: a first chunk, and a chunk on a 40-token prefix); with
+    ``quant``, K7 and K8 at the same shapes over int8 pages and their
+    scales (the quantized scheduler phase's store).
 
     The bound counts what one call must move, in 32-byte sectors at the
     HBM rate: each valid K and V row once per KV head (hd bf16 = 4
-    sectors), q and out, the page indices and lengths; and the float32
-    operations outside the tensor cores (4 * hd per query head and KV
-    position it attends to) at 67 TFLOP/s.  ``library_ms`` is
+    sectors, hd int8 = 2), for int8 pages the sectors of the (page, KV
+    head) scales those rows need, q and out, the page indices and lengths;
+    and the float32 operations outside the tensor cores (4 * hd per query
+    head and KV position it attends to) at 67 TFLOP/s.  ``library_ms`` is
     ``scaled_dot_product_attention`` over the same K/V already gathered
-    dense (the gather not timed), with a boolean mask and GQA: a
-    yardstick only, the port never calls it."""
+    dense (and dequantized; neither step timed), with a boolean mask and
+    GQA: a yardstick only, the port never calls it."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops as K
+    from repro_torch.kernels import quant as Q
     from repro_torch.kernels import ref as R
 
     rng = np.random.default_rng(seed)
     base = dict(h=32, kvh=8, hd=64, ps=16, lanes=8, n_pages=SCHED_PAGES,
-                q_dtype=torch.float32, kv_dtype=torch.bfloat16, traps=False)
+                q_dtype=torch.float32,
+                kv_dtype=torch.float32 if quant else torch.bfloat16,
+                traps=False)
     dec = _paged_case(rng, dev, b=8, s=1, clen=rng.integers(24, 89, 8),
                       nl=np.ones(8), **base)
     pre = _paged_case(rng, dev, b=2, s=32, clen=[32, 72], nl=[32, 32],
                       **base)
+    names = QUANT_KERNELS if quant else PAGED_KERNELS
     out = {}
-    for name, (q, kp, vp, pi, cl, nl) in (("paged_attention", dec),
-                                          ("paged_chunk_attention", pre)):
+    for name, (q, kp, vp, pi, cl, nl) in zip(names, (dec, pre)):
+        scales = ()
+        if quant:
+            _, _, kp, vp, ks, vs = _quantized(kp, vp, pi, traps=False)
+            scales = (ks, vs)
         b, s, h, hd = q.shape
         kvh, ps = kp.shape[2], kp.shape[1]
         valid = _valid_positions(pi, cl, ps)                    # (B, T)
@@ -531,27 +721,43 @@ def time_paged_kernels(dev, seed=0) -> dict:
         seen = (valid[:, None, :] & real[:, :, None]
                 & (torch.arange(valid.shape[1], device=dev)[None, None, :]
                    <= q_pos[:, :, None]))                       # (B, S, T)
-        rows = int(valid[real.any(dim=1)].sum())
+        used = valid[real.any(dim=1)]
+        rows = int(used.sum())
         row_sec = _span(hd, kp.element_size())
         qsec = _span(q.numel(), q.element_size())
         sectors = (2 * rows * kvh * row_sec + 2 * qsec
                    + _span(pi.numel()) + _span(b) * (1 if s == 1 else 2))
+        if quant:        # each scale array: the (page, KV head) entries read
+            lane_pg = pi[real.any(dim=1)].repeat_interleave(ps, dim=1)[used]
+            sidx = (lane_pg.long()[:, None] * kvh
+                    + torch.arange(kvh, device=dev)[None, :])
+            sectors += 2 * _sectors(sidx)
         flops = 4 * hd * h * int(seen.sum())
         if s == 1:
-            args = (q[:, 0].contiguous(), kp, vp, pi, cl)
-            kern = functools.partial(K.paged_attention, *args)
-            plain = functools.partial(R.paged_attn_ref, *args)
+            args = (q[:, 0].contiguous(), kp, vp, *scales, pi, cl)
+            kern = functools.partial(
+                K.paged_attention_quant if quant else K.paged_attention,
+                *args)
+            plain = functools.partial(
+                R.paged_attn_quant_ref if quant else R.paged_attn_ref, *args)
         else:
-            args = (q, kp, vp, pi, cl, nl)
-            kern = functools.partial(K.paged_chunk_attention, *args)
-            plain = functools.partial(R.paged_chunk_attn_ref, *args)
+            args = (q, kp, vp, *scales, pi, cl, nl)
+            kern = functools.partial(
+                K.paged_chunk_attention_quant if quant
+                else K.paged_chunk_attention, *args)
+            plain = functools.partial(
+                R.paged_chunk_attn_quant_ref if quant
+                else R.paged_chunk_attn_ref, *args)
         idx = torch.where(pi >= 0, pi, 0).long()
-        kd, vd = (x[idx].reshape(b, -1, kvh, hd).transpose(1, 2).to(q.dtype)
-                  .contiguous() for x in (kp, vp))
+        dense = [x[idx] if not quant else Q.dequantize_pages(x[idx], sc[idx])
+                 for x, sc in zip((kp, vp), scales or (None, None))]
+        kd, vd = (x.reshape(b, -1, kvh, hd).transpose(1, 2).to(q.dtype)
+                  .contiguous() for x in dense)
         qd = q.transpose(1, 2).contiguous()                     # (B, H, S, hd)
         lib = functools.partial(F.scaled_dot_product_attention, qd, kd, vd,
                                 attn_mask=seen[:, None], enable_gqa=True)
-        want = R.paged_chunk_attn_ref(q, kp, vp, pi, cl, nl)
+        want = (R.paged_chunk_attn_quant_ref(q, kp, vp, *scales, pi, cl, nl)
+                if quant else R.paged_chunk_attn_ref(q, kp, vp, pi, cl, nl))
         err = float((lib().transpose(1, 2).float() - want.float()).abs().max())
         t_bytes = sectors * SECTOR / HBM_BYTES_PER_S * 1e3
         t_ops = flops / INT_OPS_PER_S * 1e3
@@ -576,9 +782,10 @@ def time_paged_kernels(dev, seed=0) -> dict:
 
 
 def sync_gate(dev, cfg, params) -> dict:
-    """A lease acquire/release pair, and one scheduler decode tick at full
-    width, each under ``set_sync_debug_mode("error")``: any host-device
-    synchronization inside raises."""
+    """A lease acquire/release pair, one scheduler decode tick at full
+    width on the bf16 store and one on the quantized store, each under
+    ``set_sync_debug_mode("error")``: any host-device synchronization
+    inside raises."""
     import numpy as np
     import torch
 
@@ -617,38 +824,45 @@ def sync_gate(dev, cfg, params) -> dict:
     if any(held):
         raise AssertionError(f"leases left after the gated pair: {held}")
 
-    # the scheduler tick: admit and prefill two requests outside the gate
-    # (admission and the prefill's token read synchronize by design), then
-    # one warm-up decode tick and one gated tick
-    eng = ServingEngine(cfg, params, n_pages=64, device=dev,
-                        scheduler=SchedulerConfig(**SCHED))
-    for i, p in enumerate(_prompts(7, 2, 20, cfg.vocab)):
-        eng.submit(Request(rid=i, prompt=p, max_new=4))
-    for _ in range(8):
-        eng._schedule_tick()
-        if all(s.phase is Phase.DECODE
-               for s in eng.scheduler.running.values()):
-            break
-    rows = sorted(eng.scheduler.running)
-    if len(rows) != 2:
-        raise AssertionError(f"gate: {len(rows)} slots reached decode")
-    eng._decode_tick()
-    nxt = gated(eng._decode_tick)
-    toks = nxt[:, 0].cpu().numpy()           # read after the gate closes
-    if not ((toks[rows] >= 0) & (toks[rows] < cfg.vocab)).all():
-        raise AssertionError(f"gate: tokens out of range {toks.tolist()}")
-    locks = [eng.store.leases] + eng.kv_pool.locks
-    tick_held = eng.registry.held_multi(locks).tolist()
-    if any(tick_held):
-        raise AssertionError(f"leases left after the gated tick: "
-                             f"{tick_held}")
-    # the same tick's device time and busy share, profiled (two active rows
-    # of max_slots; the step computes every row)
-    prof = _profile(eng._decode_tick, steps=4)
-    return {"pairs": 1, "held_after": held, "decode_ticks": 1,
-            "tick_rows": len(rows), "tick_tokens": np.asarray(
-                toks)[rows].tolist(), "tick_held_after": tick_held,
-            "tick_profile": prof}
+    def tick(quant_kv):
+        # the scheduler tick: admit and prefill two requests outside the
+        # gate (admission and the prefill's token read synchronize by
+        # design), then one warm-up decode tick and one gated tick
+        eng = ServingEngine(cfg, params, n_pages=64, device=dev,
+                            quant_kv=quant_kv,
+                            scheduler=SchedulerConfig(**SCHED))
+        for i, p in enumerate(_prompts(7, 2, 20, cfg.vocab)):
+            eng.submit(Request(rid=i, prompt=p, max_new=4))
+        for _ in range(8):
+            eng._schedule_tick()
+            if all(s.phase is Phase.DECODE
+                   for s in eng.scheduler.running.values()):
+                break
+        rows = sorted(eng.scheduler.running)
+        if len(rows) != 2:
+            raise AssertionError(f"gate: {len(rows)} slots reached decode")
+        eng._decode_tick()
+        nxt = gated(eng._decode_tick)
+        toks = nxt[:, 0].cpu().numpy()       # read after the gate closes
+        if not ((toks[rows] >= 0) & (toks[rows] < cfg.vocab)).all():
+            raise AssertionError(f"gate: tokens out of range "
+                                 f"{toks.tolist()}")
+        locks = [eng.store.leases] + eng.kv_pool.locks
+        tick_held = eng.registry.held_multi(locks).tolist()
+        if any(tick_held):
+            raise AssertionError(f"leases left after the gated tick: "
+                                 f"{tick_held}")
+        # the same tick's device time and busy share, profiled (two active
+        # rows of max_slots; the step computes every row)
+        prof = _profile(eng._decode_tick, steps=4)
+        return {"tick_rows": len(rows),
+                "tick_tokens": np.asarray(toks)[rows].tolist(),
+                "tick_held_after": tick_held, "tick_profile": prof}
+
+    bf16 = tick(quant_kv=False)
+    quant = tick(quant_kv=True)
+    return {"pairs": 1, "held_after": held, "decode_ticks": 2, **bf16,
+            "quant": quant}
 
 
 # ---------------------------------------------------------------------------
@@ -949,16 +1163,19 @@ def _sched_prompts(seed, vocab, ps=16):
     return wave1, wave1[:3] + share
 
 
-def run_scheduler(cfg, params, dev, *, seed, max_new=16) -> dict:
+def run_scheduler(cfg, params, dev, *, seed, max_new=16,
+                  quant_kv=False) -> dict:
     """Two waves of six requests through ``ServingEngine(scheduler=...)``
     under hot-swap (every 0.25 s) and compaction (every 0.2 s).  Wave 2 is
     submitted once wave 1 has finished, since a prefix enters the index
-    only when its request has finished prefill."""
+    only when its request has finished prefill.  ``quant_kv``: the same on
+    the quantized store, whose attention must run in K7/K8 alone."""
     from repro_torch.kernels import ops as K
     from repro_torch.serving.engine import Request, ServingEngine
     from repro_torch.serving.scheduler import SchedulerConfig
 
     eng = ServingEngine(cfg, params, n_pages=SCHED_PAGES, device=dev,
+                        quant_kv=quant_kv,
                         scheduler=SchedulerConfig(**SCHED))
     ticks = {"prefill": [], "decode": []}
     for kind, acc in ticks.items():         # host wall time of each tick
@@ -1000,15 +1217,25 @@ def run_scheduler(cfg, params, dev, *, seed, max_new=16) -> dict:
     assert not held.any(), held.tolist()
     assert es["pages_saved"] >= 1 and es["cow_copies"] >= 1, es
     assert es["weight_swaps"] >= 1, es
-    path = ["fused_publish_multi", "fused_publish", "revocation_poll",
-            "paged_attention", "paged_chunk_attention"]
+    attn, other = ((QUANT_KERNELS, PAGED_KERNELS) if quant_kv
+                   else (PAGED_KERNELS, QUANT_KERNELS))
+    path = ["fused_publish_multi", "fused_publish", "revocation_poll", *attn]
     # the plain versions (CPU tensors) count no launch
     assert dev.type != "cuda" or all(counts[k] for k in path), counts
+    assert not any(counts[k] for k in other), counts
+    quant = {name: eng.metrics.counter(name).value
+             for name in ("pool.quant_tokens", "pool.quant_hits")}
+    assert all(quant.values()) if quant_kv else not any(quant.values()), \
+        quant
     ttft = eng.metrics.histogram("engine.ttft_ns")
     tokens = sum(len(r.out) for r in reqs)
-    return {"config": SCHED, "n_pages": SCHED_PAGES,
-            "page_store_bytes": sum(x.numel() * x.element_size()
-                                    for x in eng._pages_kv.values()),
+    leaf_bytes = {name: x.numel() * x.element_size()
+                  for name, x in eng._pages_kv.items()}
+    return {"config": SCHED, "n_pages": SCHED_PAGES, "quant_kv": quant_kv,
+            "page_store_bytes": sum(leaf_bytes.values()),
+            "leaf_bytes": leaf_bytes,
+            "hbm_bytes_gauge": eng.metrics.gauge("pool.hbm_bytes").value,
+            **quant,
             "requests": len(reqs), "prompt_lens": [len(r.prompt)
                                                    for r in reqs],
             "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
@@ -1035,14 +1262,16 @@ def _reading(a, b) -> dict:
             "top1": float((a.argmax(-1) == b.argmax(-1)).float().mean())}
 
 
-def paged_precision(cfg, params, dev, *, seed) -> dict:
+def paged_precision(cfg, params, dev, *, seed, quant=False) -> dict:
     """The paged data plane at full width in float32 (compute and pages):
     two rows of 40 prompt tokens prefilled in two right-aligned chunks of
     width 32 (row 0: 32 then 8 tokens, row 1: 8 then 32, so both chunks
     have padding columns), then 24 paged decode steps, teacher-forced,
     against ONE float32 forward pass with no cache over the same 64
     tokens: logits at every position within ``PAGED_VS_FORWARD_REL``,
-    every greedy token equal."""
+    every greedy token equal.  ``quant``: the same over the quantized
+    store (int8 pages, float32 compute; K8 then K7), within
+    ``QUANT_PAGED_VS_FORWARD_REL`` and ``QUANT_PAGED_VS_FORWARD_TOP1``."""
     import dataclasses
 
     import numpy as np
@@ -1058,7 +1287,7 @@ def paged_precision(cfg, params, dev, *, seed) -> dict:
     lanes = -(-total // ps)
     n_pages = 2 * b * lanes
     store = M.init_paged_caches(cfg32, n_pages, ps, dtype=torch.float32,
-                                device=dev)
+                                quantized=quant, device=dev)
     perm = np.random.default_rng(seed).permutation(n_pages)[:b * lanes]
     pages = torch.from_numpy(perm.reshape(b, lanes).astype(np.int32)).to(dev)
     logits = []
@@ -1088,11 +1317,39 @@ def paged_precision(cfg, params, dev, *, seed) -> dict:
         full = M.forward(params, cfg32, {"tokens": toks},
                          make_caches=False)[0].float()
     r = _reading(paged, full)
+    rel, top1 = ((QUANT_PAGED_VS_FORWARD_REL, QUANT_PAGED_VS_FORWARD_TOP1)
+                 if quant else (PAGED_VS_FORWARD_REL, 1.0))
     out = {"batch": b, "prompt": prompt_len, "decode_steps": steps,
-           "paged_vs_forward": r,
-           "tolerance": {"rel": PAGED_VS_FORWARD_REL, "top1": 1.0}}
-    if r["rel"] > PAGED_VS_FORWARD_REL or r["top1"] < 1.0:
+           "quantized": quant, "paged_vs_forward": r,
+           "tolerance": {"rel": rel, "top1": top1}}
+    if r["rel"] > rel or r["top1"] < top1:
         raise AssertionError(f"paged path outside tolerance: {out}")
+    return out
+
+
+def quant_vs_bf16(sched, qsched) -> dict:
+    """The quantized scheduler run against the bf16 one on the same
+    prompts: the int8 K/V leaves hold exactly half the bf16 leaves' bytes
+    (read from each run's ``pool.hbm_bytes`` gauge, less the scales), and
+    at least ``QUANT_VS_BF16_SHARE`` of the generated tokens are equal."""
+    scales = sum(qsched["leaf_bytes"][k] for k in ("k_scale", "v_scale"))
+    kv_int8 = qsched["hbm_bytes_gauge"] - scales
+    if 2 * kv_int8 != sched["hbm_bytes_gauge"]:
+        raise AssertionError(f"int8 K/V {kv_int8} B is not half the bf16 "
+                             f"store's {sched['hbm_bytes_gauge']} B")
+    if qsched["prompts"] != sched["prompts"]:
+        raise AssertionError("the two scheduler runs served other prompts")
+    same = [[a == b for a, b in zip(q, f)]
+            for q, f in zip(qsched["outputs"], sched["outputs"])]
+    share = sum(map(sum, same)) / sum(map(len, same))
+    out = {"kv_bytes_int8": kv_int8, "scale_bytes": scales,
+           "kv_bytes_bf16": sched["hbm_bytes_gauge"],
+           "equal_token_share": share,
+           "first_difference": [s.index(False) if not all(s) else None
+                                for s in same],
+           "tolerance": QUANT_VS_BF16_SHARE}
+    if share < QUANT_VS_BF16_SHARE:
+        raise AssertionError(f"quantized vs bf16 scheduler run: {out}")
     return out
 
 
@@ -1170,13 +1427,16 @@ def main(argv=None) -> int:
 
     checks = check_kernels(dev)
     checks.update(check_paged_kernels(dev))
-    emit({"phase": "kernels", "checks": checks})
+    checks.update(check_quant_kernels(dev))
+    emit({"phase": "kernels", "checks": checks,
+          "requant_scatter": check_requant(dev)})
 
     cfg = llama3_2_1b.CONFIG
     handlers, slots = 2, 4
     held_locks = 5                    # the model lock + 4 KV stripes
     times = time_kernels(dev, batch=slots, n_locks=held_locks)
     times.update(time_paged_kernels(dev, seed=args.seed))
+    times.update(time_paged_kernels(dev, seed=args.seed, quant=True))
     emit({"phase": "kernel_times", "card": card, "batch": slots,
           "bound_assumes": "32-byte sectors at the HBM rate, 3.35 TB/s; "
                            "float32 operations at 67 TFLOP/s",
@@ -1202,6 +1462,10 @@ def main(argv=None) -> int:
 
     sched = run_scheduler(cfg, params, dev, seed=args.seed + 3)
     emit({"phase": "scheduler", "card": card, **sched})
+    qsched = run_scheduler(cfg, params, dev, seed=args.seed + 3,
+                           quant_kv=True)
+    emit({"phase": "scheduler_quant", "card": card, **qsched,
+          "vs_bf16": quant_vs_bf16(sched, qsched)})
 
     emit({"phase": "tokens", **token_check(cfg, params, dev, n_req=2,
                                            prompt_len=16, max_new=8,
@@ -1209,21 +1473,25 @@ def main(argv=None) -> int:
     emit({"phase": "precision", **precision_check(
         cfg, params, dev, batch=2, length=24, seed=args.seed + 2),
         "paged": paged_precision(cfg, params, dev, seed=args.seed + 4),
+        "paged_quant": paged_precision(cfg, params, dev, seed=args.seed + 4,
+                                       quant=True),
         "scheduler_vs_greedy": scheduler_vs_greedy(cfg, params, dev,
                                                    sched)})
 
     # launches: the scheduler run (the serving path) for every kernel it
-    # runs; K4 runs on the handler run's drained-table check
-    launches = {name: (eng["launches"][name] if name ==
-                       "revocation_poll_multi" else sched["launches"][name])
-                for name in REPLACES}
+    # runs, the quantized scheduler run for K7/K8; K4 runs on the handler
+    # run's drained-table check
+    runs = {"handler": eng, "scheduler": sched, "scheduler_quant": qsched}
+    launches_from = {name: "handler" if name == "revocation_poll_multi"
+                     else "scheduler_quant" if name in QUANT_KERNELS
+                     else "scheduler" for name in REPLACES}
+    launches = {name: runs[run]["launches"][name]
+                for name, run in launches_from.items()}
     emit({"phase": "summary", "seconds": time.monotonic() - t_start,
-          "launches_from": {name: "handler" if name ==
-                            "revocation_poll_multi" else "scheduler"
-                            for name in REPLACES}})
+          "launches_from": launches_from})
     emit({"kernels": [
         {"name": name, "route": "cuda",
-         "source": SOURCES["paged" if name in PAGED_KERNELS else "table"],
+         "source": SOURCES["table" if name in TABLE_KERNELS else "paged"],
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": checks[name]["max_abs_err"],
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],

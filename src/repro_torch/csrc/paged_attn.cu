@@ -8,6 +8,11 @@
 //                     _make_chunk_attn_kernel(False): a right-aligned prompt
 //                     chunk per request, causal at the chunk boundary, against
 //                     the already-paged prefix and its own freshly written K/V
+//   K7, K8            replace the same two Pallas kernels built with
+//                     quantized=True (_paged_attn_quant_call,
+//                     _chunk_attn_quant_call): K5 and K6 over the quantized
+//                     page store, int8 pages with one float32 scale per
+//                     (page, KV head), dequantized in the kernel
 //
 // Both compute, for each (request b, query column j, query head h), softmax
 // attention over the KV positions t that are valid for it:
@@ -41,12 +46,22 @@
 // Scores use expf (not __expf); sums run in another order than the Pallas
 // kernel's, so results agree to float32 rounding, not bit for bit.
 //
-// Types: q in {float32, bfloat16}, pages in {bfloat16, float32}; all
-// arithmetic in float32; the output has q's type.  Limits: hd <= 128,
-// g * qb <= 16 warps.  Every entry point enqueues on the caller's stream,
+// K7/K8 are the same kernel body instantiated for int8 pages.  Where the
+// CTA loads a tile's page indices it also loads that page's K and V scale
+// for its KV head, once per staged position, and the staging loop writes
+// float(int8) * scale into the float32 tile: the order of ``repro``'s
+// dequantization (cast, then one multiply), so the plain version and the
+// kernel see the same float32 K/V.  An int8 row is a quarter of a float32
+// one and half a bf16 one, so the bytes that bound the kernel halve against
+// K5/K6 on the bf16 store.
+//
+// Types: q in {float32, bfloat16}, pages in {bfloat16, float32, int8 with
+// scales}; all arithmetic in float32; the output has q's type.  Limits:
+// hd <= 128, g * qb <= 16 warps.  Every entry point enqueues on the caller's stream,
 // allocates nothing and returns cudaGetLastError() after the launch.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -63,6 +78,9 @@ constexpr unsigned kFull = 0xffffffffu;
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>
@@ -92,22 +110,28 @@ struct Shape {
 };
 
 // Shared memory: K tile [kTile][hd + 1] (the +1 keeps lane j's row reads on
-// distinct banks), V tile [kTile][hd], the warps' queries [warps][hd] and the
-// tile's page per position [kTile].
-__host__ __device__ inline size_t smem_bytes(int hd, int warps) {
+// distinct banks), V tile [kTile][hd], the warps' queries [warps][hd], the
+// tile's page per position [kTile] and, for int8 pages, its K and V scales
+// [2][kTile].
+__host__ __device__ inline size_t smem_bytes(int hd, int warps, bool quant) {
   return sizeof(float) * (size_t(kTile) * (hd + 1) + size_t(kTile) * hd +
-                          size_t(warps) * hd) +
+                          size_t(warps) * hd + (quant ? 2 * kTile : 0)) +
          sizeof(int) * kTile;
 }
 
+// k_scale / v_scale: (n_pages, KVH) float32 for int8 pages, unused (null)
+// otherwise.
 template <typename TQ, typename TKV>
 __global__ void paged_attn_kernel(const TQ* __restrict__ q,
                                   const TKV* __restrict__ k_pages,
                                   const TKV* __restrict__ v_pages,
+                                  const float* __restrict__ k_scale,
+                                  const float* __restrict__ v_scale,
                                   const int32_t* __restrict__ page_idx,
                                   const int32_t* __restrict__ cache_len,
                                   const int32_t* __restrict__ new_lens,
                                   TQ* __restrict__ out, Shape sh) {
+  constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   extern __shared__ float smem[];
   const int g = sh.H / sh.KVH;
   const int hd = sh.hd;
@@ -124,6 +148,8 @@ __global__ void paged_attn_kernel(const TQ* __restrict__ q,
   float* vs = ks + kTile * (hd + 1);
   float* qs = vs + kTile * hd;
   int* tpage = reinterpret_cast<int*>(qs + nwarps * hd);
+  float* tks = reinterpret_cast<float*>(tpage + kTile);  // int8 pages only
+  float* tvs = tks + kTile;
 
   const int clen = cache_len[b];
   const int nl = new_lens == nullptr ? 1 : new_lens[b];
@@ -157,6 +183,12 @@ __global__ void paged_attn_kernel(const TQ* __restrict__ q,
         if (pg >= sh.n_pages) pg = -1;
       }
       tpage[threadIdx.x] = pg < 0 ? -1 : pg;
+      if constexpr (kQuant) {
+        if (pg >= 0) {
+          tks[threadIdx.x] = k_scale[size_t(pg) * sh.KVH + kh];
+          tvs[threadIdx.x] = v_scale[size_t(pg) * sh.KVH + kh];
+        }
+      }
     }
     __syncthreads();
     for (int i = threadIdx.x; i < kTile * hd; i += blockDim.x) {
@@ -166,8 +198,13 @@ __global__ void paged_attn_kernel(const TQ* __restrict__ q,
       if (pg >= 0) {
         const size_t off =
             ((size_t(pg) * sh.ps + (t0 + j) % sh.ps) * sh.KVH + kh) * hd + d;
-        ks[j * (hd + 1) + d] = to_f32(k_pages[off]);
-        vs[j * hd + d] = to_f32(v_pages[off]);
+        if constexpr (kQuant) {  // cast, then one multiply: repro's order
+          ks[j * (hd + 1) + d] = to_f32(k_pages[off]) * tks[j];
+          vs[j * hd + d] = to_f32(v_pages[off]) * tvs[j];
+        } else {
+          ks[j * (hd + 1) + d] = to_f32(k_pages[off]);
+          vs[j * hd + d] = to_f32(v_pages[off]);
+        }
       }
     }
     __syncthreads();
@@ -214,42 +251,63 @@ __global__ void paged_attn_kernel(const TQ* __restrict__ q,
   }
 }
 
+// The page store's element type, as the entry points name it.
+enum KvType { kKvF32 = 0, kKvBf16 = 1, kKvInt8 = 2 };
+
 template <typename TQ, typename TKV>
 cudaError_t launch(const void* q, const void* k, const void* v,
+                   const float* k_scale, const float* v_scale,
                    const int32_t* page_idx, const int32_t* cache_len,
                    const int32_t* new_lens, void* out, Shape sh,
                    cudaStream_t stream) {
   const int g = sh.H / sh.KVH;
   const int warps = g * sh.qb;
-  const size_t smem = smem_bytes(sh.hd, warps);
+  const size_t smem =
+      smem_bytes(sh.hd, warps, std::is_same<TKV, int8_t>::value);
   const dim3 grid(sh.B, (sh.S + sh.qb - 1) / sh.qb, sh.KVH);
   paged_attn_kernel<TQ, TKV><<<grid, warps * kWarp, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),
-      static_cast<const TKV*>(v), page_idx, cache_len, new_lens,
-      static_cast<TQ*>(out), sh);
+      static_cast<const TKV*>(v), k_scale, v_scale, page_idx, cache_len,
+      new_lens, static_cast<TQ*>(out), sh);
   return cudaGetLastError();
 }
 
+template <typename TQ>
+cudaError_t launch_q(const void* q, const void* k, const void* v,
+                     const float* k_scale, const float* v_scale,
+                     const int32_t* page_idx, const int32_t* cache_len,
+                     const int32_t* new_lens, void* out, Shape sh, int kv,
+                     cudaStream_t st) {
+  switch (kv) {
+    case kKvBf16:
+      return launch<TQ, __nv_bfloat16>(q, k, v, k_scale, v_scale, page_idx,
+                                       cache_len, new_lens, out, sh, st);
+    case kKvInt8:
+      return launch<TQ, int8_t>(q, k, v, k_scale, v_scale, page_idx,
+                                cache_len, new_lens, out, sh, st);
+    default:
+      return launch<TQ, float>(q, k, v, k_scale, v_scale, page_idx,
+                               cache_len, new_lens, out, sh, st);
+  }
+}
+
 cudaError_t dispatch(const void* q, const void* k, const void* v,
+                     const float* k_scale, const float* v_scale,
                      const int32_t* page_idx, const int32_t* cache_len,
                      const int32_t* new_lens, void* out, Shape sh,
-                     int q_bf16, int kv_bf16, void* stream) {
+                     int q_bf16, int kv, void* stream) {
   if (sh.B <= 0 || sh.S <= 0 || sh.KVH <= 0) return cudaSuccess;
   if (sh.H % sh.KVH != 0 || sh.hd <= 0 || sh.hd > kMaxHd || sh.ps <= 0 ||
       sh.qb <= 0 || (sh.H / sh.KVH) * sh.qb > kMaxWarps)
     return cudaErrorInvalidValue;
+  if (kv == kKvInt8 && (k_scale == nullptr || v_scale == nullptr))
+    return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (q_bf16 && kv_bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, page_idx, cache_len,
-                                                new_lens, out, sh, st);
   if (q_bf16)
-    return launch<__nv_bfloat16, float>(q, k, v, page_idx, cache_len,
-                                        new_lens, out, sh, st);
-  if (kv_bf16)
-    return launch<float, __nv_bfloat16>(q, k, v, page_idx, cache_len,
-                                        new_lens, out, sh, st);
-  return launch<float, float>(q, k, v, page_idx, cache_len, new_lens, out, sh,
-                              st);
+    return launch_q<__nv_bfloat16>(q, k, v, k_scale, v_scale, page_idx,
+                                   cache_len, new_lens, out, sh, kv, st);
+  return launch_q<float>(q, k, v, k_scale, v_scale, page_idx, cache_len,
+                         new_lens, out, sh, kv, st);
 }
 
 }  // namespace
@@ -263,8 +321,10 @@ int bravo_paged_attn(const void* q, const void* k_pages, const void* v_pages,
                      void* out, int B, int H, int KVH, int hd, int ps, int P,
                      int n_pages, int q_bf16, int kv_bf16, void* stream) {
   const Shape sh{B, 1, H, KVH, hd, ps, P, n_pages, 1};
-  return static_cast<int>(dispatch(q, k_pages, v_pages, page_idx, cache_len,
-                                   nullptr, out, sh, q_bf16, kv_bf16, stream));
+  return static_cast<int>(dispatch(q, k_pages, v_pages, nullptr, nullptr,
+                                   page_idx, cache_len, nullptr, out, sh,
+                                   q_bf16, kv_bf16 ? kKvBf16 : kKvF32,
+                                   stream));
 }
 
 // K6: q (B, S, H, hd) right-aligned chunks; new_lens (B,) int32 valid
@@ -277,9 +337,40 @@ int bravo_paged_chunk_attn(const void* q, const void* k_pages,
                            int ps, int P, int n_pages, int qb, int q_bf16,
                            int kv_bf16, void* stream) {
   const Shape sh{B, S, H, KVH, hd, ps, P, n_pages, qb};
-  return static_cast<int>(dispatch(q, k_pages, v_pages, page_idx, cache_len,
-                                   new_lens, out, sh, q_bf16, kv_bf16,
+  return static_cast<int>(dispatch(q, k_pages, v_pages, nullptr, nullptr,
+                                   page_idx, cache_len, new_lens, out, sh,
+                                   q_bf16, kv_bf16 ? kKvBf16 : kKvF32,
                                    stream));
+}
+
+// K7: K5 over int8 k/v pages (n_pages, ps, KVH, hd) with float32 k/v_scale
+// (n_pages, KVH).
+int bravo_paged_attn_quant(const void* q, const void* k_pages,
+                           const void* v_pages, const float* k_scale,
+                           const float* v_scale, const int32_t* page_idx,
+                           const int32_t* cache_len, void* out, int B, int H,
+                           int KVH, int hd, int ps, int P, int n_pages,
+                           int q_bf16, void* stream) {
+  const Shape sh{B, 1, H, KVH, hd, ps, P, n_pages, 1};
+  return static_cast<int>(dispatch(q, k_pages, v_pages, k_scale, v_scale,
+                                   page_idx, cache_len, nullptr, out, sh,
+                                   q_bf16, kKvInt8, stream));
+}
+
+// K8: K6 over int8 k/v pages with float32 k/v_scale (n_pages, KVH).
+int bravo_paged_chunk_attn_quant(const void* q, const void* k_pages,
+                                 const void* v_pages, const float* k_scale,
+                                 const float* v_scale,
+                                 const int32_t* page_idx,
+                                 const int32_t* cache_len,
+                                 const int32_t* new_lens, void* out, int B,
+                                 int S, int H, int KVH, int hd, int ps, int P,
+                                 int n_pages, int qb, int q_bf16,
+                                 void* stream) {
+  const Shape sh{B, S, H, KVH, hd, ps, P, n_pages, qb};
+  return static_cast<int>(dispatch(q, k_pages, v_pages, k_scale, v_scale,
+                                   page_idx, cache_len, new_lens, out, sh,
+                                   q_bf16, kKvInt8, stream));
 }
 
 const char* bravo_error_string(int err) {

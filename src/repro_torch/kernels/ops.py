@@ -1,6 +1,7 @@
 """Public wrappers for the kernels: the names and argument order of
-``repro.kernels.ops`` for the six kernels this port has, the table kernels
-K1-K4 and the paged attention kernels K5/K6.
+``repro.kernels.ops`` for the eight kernels this port has, the table
+kernels K1-K4, the paged attention kernels K5/K6 and their variants over the
+quantized page store, K7/K8.
 
 Where ``repro``'s wrappers consumed the table buffer (donation and
 ``input_output_aliases``), these update the caller's table tensor in place
@@ -24,7 +25,9 @@ from . import table_scan as _scan
 from .table_publish import LANES
 
 __all__ = ["as_table2d", "revocation_poll", "revocation_poll_multi",
-           "fused_publish", "fused_publish_multi", "fused_clear", "LANES",
+           "fused_publish", "fused_publish_multi", "fused_clear",
+           "paged_attention", "paged_attention_quant",
+           "paged_chunk_attention", "paged_chunk_attention_quant", "LANES",
            "COUNTERS", "launch_counts", "reset_launch_counts"]
 
 # one launch counter per kernel, keyed by the ``repro.kernels.ops`` name
@@ -32,7 +35,9 @@ COUNTERS = {c.name: c for c in (_pub.FUSED_PUBLISH_MULTI, _pub.FUSED_PUBLISH,
                                 _scan.REVOCATION_POLL,
                                 _scan.REVOCATION_POLL_MULTI,
                                 _pa.PAGED_ATTENTION,
-                                _pca.PAGED_CHUNK_ATTENTION)}
+                                _pca.PAGED_CHUNK_ATTENTION,
+                                _pa.PAGED_ATTENTION_QUANT,
+                                _pca.PAGED_CHUNK_ATTENTION_QUANT)}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -109,3 +114,27 @@ def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
     padding columns zero."""
     return _pca.paged_chunk_attention(q, k_pages, v_pages, page_idx,
                                       cache_len, new_lens)
+
+
+def paged_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, k_scale: torch.Tensor,
+                          v_scale: torch.Tensor, page_idx: torch.Tensor,
+                          cache_len: torch.Tensor) -> torch.Tensor:
+    """Quantized-pool decode attention (K7): the contract of
+    :func:`paged_attention` with int8 k/v_pages and (n_pages, KVH) float32
+    per-page scales (``kernels.quant`` layout), dequantized in the kernel."""
+    return _pa.paged_attention_quant(q, k_pages, v_pages, k_scale, v_scale,
+                                     page_idx, cache_len)
+
+
+def paged_chunk_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
+                                v_pages: torch.Tensor, k_scale: torch.Tensor,
+                                v_scale: torch.Tensor, page_idx: torch.Tensor,
+                                cache_len: torch.Tensor,
+                                new_lens: torch.Tensor) -> torch.Tensor:
+    """Quantized-pool chunk-prefill attention (K8): the contract of
+    :func:`paged_chunk_attention` with int8 k/v_pages and (n_pages, KVH)
+    float32 per-page scales, dequantized in the kernel."""
+    return _pca.paged_chunk_attention_quant(q, k_pages, v_pages, k_scale,
+                                            v_scale, page_idx, cache_len,
+                                            new_lens)

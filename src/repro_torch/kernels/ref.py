@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the table kernels K1-K4 and of the paged
-attention kernels K5/K6.
+attention kernels K5/K6 and their quantized variants K7/K8.
 
 They define what each CUDA kernel computes: the CPU tests hold them against
 ``repro``'s Pallas kernels in interpret mode, ``chip_smoke.py`` holds each
@@ -149,7 +149,8 @@ def release_hashed_ref(table2d: torch.Tensor, lock_vals: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Paged attention over the KV pool's page store (K5 decode, K6 chunk prefill)
+# Paged attention over the KV pool's page store (K5 decode, K6 chunk prefill;
+# K7, K8 the same over the quantized store)
 # ---------------------------------------------------------------------------
 
 
@@ -170,14 +171,38 @@ def paged_chunk_attn_ref(q: torch.Tensor, k_pages: torch.Tensor,
     position emits zeros (the denominator is floored at 1e-20, as in the
     Pallas kernel).  Vectorised through a dense (B, P * ps, KVH, hd)
     gather, which the CUDA kernel never builds."""
+    return _chunk_attn(q, k_pages, v_pages, None, page_idx, cache_len,
+                       new_lens)
+
+
+def paged_chunk_attn_quant_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor, k_scale: torch.Tensor,
+                               v_scale: torch.Tensor, page_idx: torch.Tensor,
+                               cache_len: torch.Tensor,
+                               new_lens: torch.Tensor) -> torch.Tensor:
+    """K8: :func:`paged_chunk_attn_ref` over int8 k/v_pages with (n_pages,
+    KVH) float32 scales, each page dequantized as ``repro`` does it (cast
+    to float32, then one multiply by its scale per KV head)."""
+    return _chunk_attn(q, k_pages, v_pages, (k_scale, v_scale), page_idx,
+                       cache_len, new_lens)
+
+
+def _chunk_attn(q, k_pages, v_pages, scales, page_idx, cache_len, new_lens):
     b, s, h, hd = q.shape
     n_pages, ps, kvh, _ = k_pages.shape
     n_lanes = page_idx.shape[1]
     g = h // kvh
     lane_ok = (page_idx >= 0) & (page_idx < n_pages)
     idx = torch.where(lane_ok, page_idx, 0).long()
-    k = k_pages[idx].float().reshape(b, n_lanes * ps, kvh, hd)
-    v = v_pages[idx].float().reshape(b, n_lanes * ps, kvh, hd)
+
+    def gathered(pages, scale):
+        x = pages[idx].float()                      # (B, P, ps, KVH, hd)
+        if scale is not None:
+            x = x * scale[idx][:, :, None, :, None]
+        return x.reshape(b, n_lanes * ps, kvh, hd)
+
+    k_scale, v_scale = scales or (None, None)
+    k, v = gathered(k_pages, k_scale), gathered(v_pages, v_scale)
     t = torch.arange(n_lanes * ps, device=q.device)
     col = torch.arange(s, device=q.device)
     clen = cache_len.long()
@@ -208,3 +233,15 @@ def paged_attn_ref(q: torch.Tensor, k_pages: torch.Tensor,
     ones = torch.ones_like(cache_len)
     return paged_chunk_attn_ref(q[:, None], k_pages, v_pages, page_idx,
                                 cache_len, ones)[:, 0]
+
+
+def paged_attn_quant_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                         v_pages: torch.Tensor, k_scale: torch.Tensor,
+                         v_scale: torch.Tensor, page_idx: torch.Tensor,
+                         cache_len: torch.Tensor) -> torch.Tensor:
+    """K7: :func:`paged_attn_ref` over int8 k/v_pages with (n_pages, KVH)
+    float32 scales, dequantized as in :func:`paged_chunk_attn_quant_ref`."""
+    ones = torch.ones_like(cache_len)
+    return paged_chunk_attn_quant_ref(q[:, None], k_pages, v_pages, k_scale,
+                                      v_scale, page_idx, cache_len,
+                                      ones)[:, 0]

@@ -177,16 +177,24 @@ def init_paged_caches(cfg: ModelConfig, n_pages: int, page_size: int,
     none).  The (request -> pages) map lives in ``serving.kv_pool.KVPool``;
     requests address the store through their (B, P) page-index vectors.
 
-    Each layer keeps one more page behind the ``n_pages`` it shows, the
-    sink that takes the K/V of invalid chunk columns
-    (``transformer.with_sink``); the views returned hide it.
-    ``quantized=True`` (int8 pages with per-page scales) is not ported."""
+    ``quantized=True`` stores the pages int8 with float32 per-(page, KV
+    head) scales (``kernels.quant`` layout) as sibling leaves ``k_scale``
+    / ``v_scale`` of shape (L, n_pages, KVH); ``dtype`` is then unused.
+    The layer loop slices them alongside the content, and the engine's
+    copy-on-write page copy moves content and scale as one unit.
+
+    Each layer of every leaf keeps one more page behind the ``n_pages`` it
+    shows, the sink that takes the writes of invalid chunk columns and
+    lanes (``transformer.with_sink``); the views returned hide it."""
     _check_family(cfg)
-    if quantized:
-        raise NotImplementedError(
-            "the quantized page store (int8 pages, the kernels K7/K8) is not "
-            "ported yet: ROADMAP.md, M9")
-    shape = (cfg.n_layers, n_pages + 1, page_size, cfg.n_kv_heads, cfg.hd)
+    kvh = cfg.n_kv_heads
+    shape = (cfg.n_layers, n_pages + 1, page_size, kvh, cfg.hd)
     dev = resolve(device)
-    return {name: torch.zeros(shape, dtype=dtype, device=dev)[:, :n_pages]
-            for name in ("k", "v")}
+    if quantized:
+        shapes = {"k": (shape, torch.int8), "v": (shape, torch.int8),
+                  "k_scale": (shape[:2] + (kvh,), torch.float32),
+                  "v_scale": (shape[:2] + (kvh,), torch.float32)}
+    else:
+        shapes = {"k": (shape, dtype), "v": (shape, dtype)}
+    return {name: torch.zeros(sh, dtype=dt, device=dev)[:, :n_pages]
+            for name, (sh, dt) in shapes.items()}

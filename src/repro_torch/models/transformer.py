@@ -5,9 +5,10 @@ The port of ``repro.models.transformer``'s dense branches: attention with
 no cache (prefill, through :func:`~.common.flash_attention`), with a
 per-request cache (decode, through :func:`~.common.decode_attention`) and
 over the KV pool's page store (the scheduler's data plane, through the
-kernels K5 and K6).  The quantized page store and the MoE layer come with
-later slices.  Where JAX returned a new cache, the cached branches write the
-new K/V into the caller's cache tensors in place and return them.
+kernels K5 and K6, or K7 and K8 over the quantized page store).  The MoE
+layer comes with a later slice.  Where JAX returned a new cache, the cached
+branches write the new K/V into the caller's cache tensors in place and
+return them.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels import ops as K
+from ..kernels.quant import requant_scatter
 from .common import (ModelConfig, Params, act_fn, apply_rope, decode_attention,
                      dense_init, flash_attention, matmul, rms_norm)
 
@@ -49,8 +51,9 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, n: int,
 
 
 def with_sink(pages: torch.Tensor) -> torch.Tensor:
-    """The view of one layer's page store ``(n_pages, ps, KVH, hd)`` that
-    also reaches the sink page ``n_pages`` behind it.
+    """The view of one layer's page store ``(n_pages, ps, KVH, hd)`` (or
+    of its scales, ``(n_pages, KVH)``) that also reaches the sink page
+    ``n_pages`` behind it.
 
     ``repro`` drops the K/V of invalid chunk columns with a scatter in
     ``mode="drop"`` aimed at page ``n_pages``.  PyTorch's indexed store
@@ -69,6 +72,25 @@ def with_sink(pages: torch.Tensor) -> torch.Tensor:
         raise ValueError("paged attention needs a page store with a sink "
                          "page: make it with models.model.init_paged_caches")
     return pages.as_strided(shape, pages.stride(), pages.storage_offset())
+
+
+def _paged_attn_quant(q, k, v, cache, pages, cache_len, new_lens):
+    """The quantized data plane: merge the chunk's K/V into the touched
+    int8 pages in place (``requant_scatter``: dequantize, scatter,
+    re-quantize; shared prefix pages lie below the touched window and are
+    never rewritten), then attend by page index with the dequantization in
+    the kernel — K7 for one decode token, K8 for a chunk."""
+    B, S = q.shape[:2]
+    kc, vc, ksc, vsc = requant_scatter(
+        cache["k"], cache["v"], cache["k_scale"], cache["v_scale"], k, v,
+        pages, cache_len, new_lens)
+    if S == 1 and new_lens is None:
+        return K.paged_attention_quant(q[:, 0].contiguous(), kc, vc, ksc, vsc,
+                                       pages, cache_len)[:, None]
+    nl = new_lens if new_lens is not None \
+        else torch.full((B,), S, dtype=torch.int32, device=q.device)
+    return K.paged_chunk_attention_quant(q.contiguous(), kc, vc, ksc, vsc,
+                                         pages, cache_len, nl)
 
 
 def _paged_attn(q, k, v, cache, pages, cache_len, new_lens):
@@ -120,7 +142,10 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     page_size``.  Column ``j`` sits at position ``cache_len - S + j``
     (right-aligned, with ``new_lens`` valid trailing columns per row).  The
     chunk's K/V go into the pages in place, then attention reads by page
-    index (K5 for one decode token, K6 for a chunk)."""
+    index (K5 for one decode token, K6 for a chunk).  A store that also
+    holds ``k_scale``/``v_scale`` is the quantized store (int8 pages with
+    per-(page, KV head) scales): writes go through ``requant_scatter`` and
+    attention through K7/K8."""
     B, S, _ = x.shape
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     q = matmul(h, p["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
@@ -130,14 +155,11 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     if pages is not None:
-        if "k_scale" in cache:
-            raise NotImplementedError(
-                "the quantized page store (int8 pages, the kernels K7/K8) "
-                "is not ported yet: ROADMAP.md, M9")
         if cache_len is None or cache_len.dim() != 1:
             raise ValueError("paged attention needs a per-request (B,) "
                              "cache_len")
-        o = _paged_attn(q, k, v, cache, pages, cache_len, new_lens)
+        paged = _paged_attn_quant if "k_scale" in cache else _paged_attn
+        o = paged(q, k, v, cache, pages, cache_len, new_lens)
         new_cache = cache
     elif cache is None:
         o = flash_attention(q, k, v, causal=cfg.causal,

@@ -22,6 +22,11 @@ Two modes:
   page-stripe leases and the model-epoch lease for the WHOLE batch in one
   publish each, holds them across the step, and the step reads pages in
   place through the attention kernels K5 (decode) and K6 (chunk prefill).
+  With ``quant_kv=True`` the store holds int8 pages with float32
+  per-(page, KV head) scales (about half the bytes of the bf16 store): the
+  step re-quantizes the pages it writes (``kernels.quant.requant_scatter``)
+  and reads them through K7 and K8, prefix keys carry the layout tag, and
+  the copy-on-write page copy moves data and scale together.
   The device batch state (page-index matrix, cache lengths, current tokens)
   changes only on control-plane events, so a decode tick moves no bytes
   between host and device except the generated tokens.
@@ -30,8 +35,8 @@ Two modes:
   against a dense per-batch cache, beside the pool's page map.
 
 Not ported: the latency-feedback controller (``SchedulerConfig(controller=
-...)``, M11), the quantized page store (``quant_kv=True``, M9) and
-``stage_checkpoint`` (M11) raise ``NotImplementedError``; ``repro``'s
+...)``, M11) and ``stage_checkpoint`` (M11) raise ``NotImplementedError``;
+``repro``'s
 host-only mode (``device_leases=False``) is not ported: every lock here
 mirrors its readers on the device.
 """
@@ -52,6 +57,7 @@ from ..core.errors import DrainTimeout
 from ..core.factory import LockEnv
 from ..core.registry import BravoRegistry, RegistryHandle
 from ..device import DeviceLike, resolve
+from ..kernels.quant import quant_layout_tag
 from ..models import model as M
 from ..models.common import ModelConfig
 from ..obs import TRACER as _TR
@@ -333,7 +339,9 @@ def _perturb(params):
 class ServingEngine:
     """The serving engine on ``device`` (default: the CUDA card, raising if
     there is none); ``params`` must lie on that device.  Scheduler mode
-    with ``scheduler=SchedulerConfig(...)``, handler mode without."""
+    with ``scheduler=SchedulerConfig(...)``, handler mode without.
+    ``quant_kv=True`` selects the quantized page store in scheduler mode
+    and, as in ``repro``, changes nothing in handler mode."""
 
     def __init__(self, cfg: ModelConfig, params, *,
                  lock_name: str = "bravo-ba", handlers: int = 4,
@@ -343,9 +351,6 @@ class ServingEngine:
                  scheduler: Optional[SchedulerConfig] = None,
                  engine_cfg: Optional[EngineConfig] = None,
                  quant_kv: bool = False, device: DeviceLike = None):
-        if quant_kv:
-            raise _not_ported("the quantized page store (quant_kv=True, "
-                              "the kernels K7/K8)", "M9")
         if scheduler is not None and scheduler.controller is not None:
             raise _not_ported("the latency-feedback controller "
                               "(SchedulerConfig(controller=...))", "M11")
@@ -391,15 +396,28 @@ class ServingEngine:
         sc = scheduler
         dev = self.device
         self.scheduler = Scheduler(sc, n_pages)
-        # the page STORE (contents); the pool above holds the MAP
+        # the page STORE (contents); the pool above holds the MAP.
+        # quant_kv=True stores pages int8 + per-(page, head) scales as
+        # sibling leaves; the step, the COW page copy and the gauge below
+        # treat the store as a dict of leaves, so the layout rides through
+        self.quant_kv = quant_kv
         self._pages_kv = M.init_paged_caches(cfg, n_pages, sc.page_size,
-                                             device=dev)
+                                             quantized=quant_kv, device=dev)
+        # quantized pages dedup by their int8 bytes: prefix keys carry a
+        # layout tag, so a quantized page key never aliases a bf16 one
+        self._quant_tag = (quant_layout_tag(sc.page_size, cfg.n_kv_heads,
+                                            cfg.hd) if quant_kv else 0)
         hbm = sum(x.numel() * x.element_size()
                   for x in self._pages_kv.values())
         self._g_hbm = self.metrics.gauge("pool.hbm_bytes")
         self._g_hbm.set(hbm)
         if _TR.enabled:
-            _TR.emit("pool", "hbm_bytes", bytes=hbm, quantized=0)
+            _TR.emit("pool", "hbm_bytes", bytes=hbm,
+                     quantized=int(quant_kv))
+        # quant write/hit volume: O(1) increments from host-known tick
+        # shapes, applied after the lease windows close
+        self._c_quant_tok = self.metrics.counter("pool.quant_tokens")
+        self._c_quant_hit = self.metrics.counter("pool.quant_hits")
         ms, lanes = sc.max_slots, sc.lanes
         # device-resident batch state: touched only on control-plane events
         # (admission, growth, eviction, first token); the decode tick reads
@@ -536,7 +554,8 @@ class ServingEngine:
 
     def _copy_page(self, src: int, dst: int) -> None:
         """Copy-on-write: duplicate one page of the store (all layers, K
-        and V) into a private page, in place."""
+        and V, and on the quantized store their scales) into a private
+        page, in place."""
         for x in self._pages_kv.values():
             x[:, dst] = x[:, src]
 
@@ -601,7 +620,8 @@ class ServingEngine:
         if st.cache_plan is not None and st.cache_plan[0] == pool.version:
             return st.cache_plan[4]   # pool unchanged since the last peek
         if st.keys is None:
-            st.keys = page_keys(st.prefix, sc.page_size, pad_to=sc.lanes)
+            st.keys = page_keys(st.prefix, sc.page_size, pad_to=sc.lanes,
+                                quant_tag=self._quant_tag)
         _, n_run, free_hit = self.pages.match_prefix(*st.keys)
         lens = st.keys[2]
         # usable coverage: the hit run's tokens, capped so the LAST prompt
@@ -667,6 +687,8 @@ class ServingEngine:
         self.stats.inc("pages_saved", k_ref)
         self.stats.inc("cow_copies", int(cow))
         self.stats.inc("cached_tokens", cov)
+        if self.quant_kv and cov:
+            self._c_quant_hit.add(cov)   # tokens ridden as shared int8
         if _TR.enabled:
             _TR.emit("req", "admit", rid=st.rid, cached=cov,
                      pages=len(pages), shared=k_ref)
@@ -768,6 +790,8 @@ class ServingEngine:
         self.stats.inc("prefills")
         self.stats.inc("read_acquires")
         self.stats.inc("tokens_out", first_toks)
+        if self.quant_kv:
+            self._c_quant_tok.add(int(np.sum(newls)))
 
     def _decode_tick(self) -> torch.Tensor:
         """The data plane of one decode tick, with no host-device traffic:
@@ -819,6 +843,8 @@ class ServingEngine:
         self.stats.inc("decode_steps")
         self.stats.inc("read_acquires")
         self.stats.inc("tokens_out", len(slots))
+        if self.quant_kv:
+            self._c_quant_tok.add(len(slots))
 
     def _schedule_tick(self) -> bool:
         """One policy round: service compaction, admit, run the plan.

@@ -44,7 +44,10 @@ in ``repro``: refcounts never change a live rid's page mask or any page a
 leased reader can address.
 
 The quantized pool's ``scale_gen`` epoch is kept (allocation bumps it for
-every page it takes) although the quantized store itself is not ported.
+every page it takes).  The quantized store's contents (int8 pages and their
+scales) live in the engine's page store, beside the bf16 one's; the pool's
+map is the same for both, and ``page_keys(quant_tag=)`` keeps their prefix
+keys apart.
 """
 
 from __future__ import annotations

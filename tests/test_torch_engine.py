@@ -102,9 +102,10 @@ def test_engine_end_to_end_under_swap_and_compaction(lock_name):
 
 
 def test_scheduler_mode_is_not_ported_yet():
-    """Scheduler mode is ported (tests/test_torch_scheduler.py); what it
-    does not have yet, the latency-feedback controller and the quantized
-    page store, raises and names its place in ROADMAP.md."""
+    """Scheduler mode is ported (tests/test_torch_scheduler.py), the
+    quantized page store with it (tests/test_torch_quant_kv.py); what it
+    does not have yet, the latency-feedback controller, raises and names
+    its place in ROADMAP.md."""
     from repro_torch.serving.scheduler import (ControllerConfig,
                                                SchedulerConfig)
     cfg = TC.get_smoke("llama3.2-1b")
@@ -112,5 +113,3 @@ def test_scheduler_mode_is_not_ported_yet():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TE.ServingEngine(cfg, params, device="cpu", scheduler=SchedulerConfig(
             controller=ControllerConfig()))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TE.ServingEngine(cfg, params, quant_kv=True, device="cpu")

@@ -91,9 +91,12 @@ def test_default_device_entry_points_raise_without_cuda(no_cuda):
                  lambda: M.init_params(0, cfg),
                  lambda: M.init_caches(cfg, 1, 8),
                  lambda: M.init_paged_caches(cfg, 8, 4),
+                 lambda: M.init_paged_caches(cfg, 8, 4, quantized=True),
                  lambda: M.from_jax_params({}, cfg),
                  lambda: ServingEngine(cfg, {}),
-                 lambda: ServingEngine(cfg, {}, scheduler=SchedulerConfig())):
+                 lambda: ServingEngine(cfg, {}, scheduler=SchedulerConfig()),
+                 lambda: ServingEngine(cfg, {}, scheduler=SchedulerConfig(),
+                                       quant_kv=True)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
 

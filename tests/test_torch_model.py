@@ -179,9 +179,22 @@ def test_paged_store_shape_and_sink():
     assert tuple(store["k"].shape) == (ct.n_layers, 8, 4, ct.n_kv_heads,
                                        ct.hd)
     assert store["k"].dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="M9"):
-        TM.init_paged_caches(ct, 8, 4, quantized=True, device="cpu")
     from repro_torch.models.transformer import with_sink
     assert with_sink(store["k"][0]).shape[0] == 9
+    # the quantized store: int8 pages, float32 scales per (page, KV head),
+    # and a sink page behind every leaf, scale rows included
+    qs = TM.init_paged_caches(ct, 8, 4, quantized=True, device="cpu")
+    kv_shape = (ct.n_layers, 8, 4, ct.n_kv_heads, ct.hd)
+    for name, shape, dt in (("k", kv_shape, torch.int8),
+                            ("v", kv_shape, torch.int8),
+                            ("k_scale", kv_shape[:2] + kv_shape[3:4],
+                             torch.float32),
+                            ("v_scale", kv_shape[:2] + kv_shape[3:4],
+                             torch.float32)):
+        assert tuple(qs[name].shape) == shape and qs[name].dtype == dt
+        sink = with_sink(qs[name][1])
+        assert sink.shape[0] == 9
+        sink[8] = 1                       # the sink is past every shown page
+        assert not qs[name].any()
     with pytest.raises(ValueError, match="sink"):
         with_sink(torch.zeros(8, 4, ct.n_kv_heads, ct.hd))

@@ -7,6 +7,7 @@ page is free, no refcount is left and no lease is held."""
 
 import dataclasses
 import itertools
+import time
 
 import jax
 import jax.numpy as jnp
@@ -61,6 +62,12 @@ def _serve(eng, mod, prompts, max_new, warm=0, **start_kw):
     reqs = [mod.Request(rid=i, prompt=p, max_new=max_new)
             for i, p in enumerate(prompts)]
     eng.start(**start_kw)
+    if "swap_period_s" in start_kw:
+        # the updater swaps once before the traffic and goes on swapping
+        # during it: a short run could otherwise finish before any swap
+        deadline = time.monotonic() + 60
+        while eng.stats.weight_swaps < 1 and time.monotonic() < deadline:
+            time.sleep(0.005)
     for r in reqs[:warm]:
         eng.submit(r)
         assert r.done.wait(timeout=600), "request timed out"
@@ -202,9 +209,12 @@ def test_scheduler_mode_refuses_what_is_not_ported(models):
     with pytest.raises(NotImplementedError, match="M11"):
         TE.ServingEngine(ct, tp, device="cpu", scheduler=TS.SchedulerConfig(
             controller=TS.ControllerConfig()))
-    with pytest.raises(NotImplementedError, match="M9"):
-        TE.ServingEngine(ct, tp, device="cpu",
-                         scheduler=TS.SchedulerConfig(), quant_kv=True)
+    # the quantized page store is ported: four leaves, int8 pages
+    qeng = TE.ServingEngine(ct, tp, device="cpu", n_pages=16,
+                            scheduler=TS.SchedulerConfig(), quant_kv=True)
+    assert set(qeng._pages_kv) == {"k", "v", "k_scale", "v_scale"}
+    assert qeng._pages_kv["k"].dtype == qeng._pages_kv["v"].dtype \
+        == torch.int8
     eng = TE.ServingEngine(ct, tp, device="cpu", n_pages=16,
                            scheduler=TS.SchedulerConfig(max_seq=16))
     with pytest.raises(ValueError, match="max_seq"):
