@@ -7,18 +7,22 @@ Phases, each printed as one JSON line; any failure stops the script with a
 non-zero exit and no result line:
 
 1. environment: torch, CUDA, nvcc and the card (name, power limit);
-2. build: nvcc compiles the two CUDA sources of the serving path,
-   ``src/repro_torch/csrc/table_kernels.cu`` (K1-K4) and
+2. build: nvcc compiles the two CUDA sources,
+   ``src/repro_torch/csrc/table_kernels.cu`` (K1-K4, K9, K10) and
    ``src/repro_torch/csrc/paged_attn.cu`` (K5-K8), one process each, both
    started together;
 3. kernels: each table kernel (K1-K4) against its plain PyTorch version on
    the card, exact, at the 4096-slot table with M in {1, 4, 16, 256}, K in
    {1, 5, 128} and seeded sweeps with collisions, cleared bias lanes, -1
-   slots and occupied slots; the paged attention kernels K5 (decode) and K6
-   (chunk prefill) against theirs at the engine's shapes and in seeded
-   sweeps over the traps (-1 lanes inside and past ``cache_len``,
-   ``cache_len`` 0, a partial last page, padding columns, ``new_lens`` 0, a
-   chunk longer than the paged prefix, every q/page type pair), within the
+   slots and occupied slots; the legacy table kernels K9 (the revocation
+   scan) and K10 (the sequential publish) the same way, exact, with K10's
+   sequential edge cases (duplicate unconditional stores, id 0, slots
+   outside the table, a table past 48 KiB); the paged attention kernels
+   K5 (decode) and K6 (chunk prefill) against theirs at the engine's
+   shapes and in seeded sweeps over the traps (-1 lanes inside and past
+   ``cache_len``, ``cache_len`` 0, a partial last page, padding columns,
+   ``new_lens`` 0, a chunk longer than the paged prefix, every q/page type
+   pair), within the
    stated tolerances; K7 and K8 (the same over int8 pages with per-page
    scales) against theirs over the same traps plus an all-zero page and a
    page whose group max saturates, and against the float32 K5/K6 on the
@@ -28,6 +32,15 @@ non-zero exit and no result line:
    plain version's, its bound and, for K5-K8,
    ``scaled_dot_product_attention`` over K/V already gathered dense (and
    dequantized, for K7/K8);
+3c. device_bravo: the port's device-BRAVO benchmark
+   (``repro_torch.benchmarks.device_bravo``, batch 64, 100 iterations):
+   the single-lock ``DeviceLeaseTable`` (K2 acquire and release, K3 drain
+   polls) against the legacy host-looped path (K10 publish and clear, 5
+   host transfers a pair), K9 and K10 against their plain versions, the
+   in-place proof and the sync gate of its pair; registry_bench: the
+   port's registry benchmark (``repro_torch.benchmarks.registry``, 24
+   rounds), with the shared-bias flap of the scalar table against the
+   registry's per-lock lanes; each fails the script on any failed check;
 4. sync gate: one lease acquire/release pair through the registry, the
    model-epoch store and the KV pool, one scheduler decode tick at full
    width (both leases, the paged decode step through K5, the releases) and
@@ -78,6 +91,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import functools
 import json
 import os
@@ -152,10 +166,13 @@ REPLACES = {
     "paged_chunk_attention_quant": "src/repro/kernels/paged_chunk_attn.py:62"
                                    " (quantized=True; _chunk_attn_quant_call,"
                                    " paged_chunk_attn.py:200)",
+    "revocation_scan": "src/repro/kernels/table_scan.py:28",
+    "publish": "src/repro/kernels/table_publish.py:52",
 }
 TABLE_KERNELS = list(REPLACES)[:4]
 PAGED_KERNELS = list(REPLACES)[4:6]
-QUANT_KERNELS = list(REPLACES)[6:]
+QUANT_KERNELS = list(REPLACES)[6:8]
+LEGACY_KERNELS = list(REPLACES)[8:]
 # the scheduler phase's configuration
 SCHED = dict(max_slots=8, page_size=16, max_seq=128, prefill_chunk=32,
              prefill_rows=2, token_budget=64, prefix_cache=True)
@@ -212,7 +229,7 @@ def check_kernels(dev, seeds=range(8)) -> dict:
     from repro_torch.kernels import table_publish as TP
 
     out = {name: {"cases": 0, "max_abs_err": 0, "matched": True}
-           for name in TABLE_KERNELS}
+           for name in TABLE_KERNELS + LEGACY_KERNELS}
 
     def agree(name, got, want):
         err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
@@ -263,6 +280,14 @@ def check_kernels(dev, seeds=range(8)) -> dict:
                                           c["mask"])
             TP.release_hashed(t, c["vals"], lidx, c["rids"], c["mask"])
             agree("fused_publish", t, want_t)
+            # K10, conditional and unconditional (-1 slots, collisions)
+            for unc in (False, True):
+                got = TP.publish(c["table"], c["slots"], c["ids"],
+                                 unconditional=unc)
+                want = R.publish_seq_ref(c["table"], c["slots"], c["ids"],
+                                         unconditional=unc)
+                agree("publish", got[0], want[0])
+                agree("publish", got[1], want[1])
         # K3 and K4 on this seed's table, plus a full table
         c = _case(rng, 4, dev)
         full = torch.full((32, 128), 7, dtype=torch.int32, device=dev)
@@ -276,9 +301,51 @@ def check_kernels(dev, seeds=range(8)) -> dict:
                 agree("revocation_poll_multi",
                       K.revocation_poll_multi(table, locks),
                       R.multi_count_ref(table, locks))
+            # K9 on the same tables
+            for lock in (0, 7, int(c["table"].max()), 10_000):
+                mask, cnt = K.revocation_scan(table, lock)
+                want_m, want_c = R.scan_ref(table, lock)
+                agree("revocation_scan", mask, want_m)
+                agree("revocation_scan", cnt, want_c)
+        _check_legacy_edges(rng, dev, agree)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     return out
+
+
+def _check_legacy_edges(rng, dev, agree) -> None:
+    """K9 on tables of 8 and 64 rows; K10's sequential cases on small
+    slots (duplicate unconditional stores with different ids, id 0, slots
+    outside the table) and on a 128-row table (64 KiB of shared memory,
+    past the 48 KiB a block has without opting in)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import table_publish as TP
+
+    def dev_t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    for rows in (8, 64):
+        table = dev_t(rng.integers(0, 4, (rows, 128)).astype(np.int32))
+        for lock in (0, 3, 9):
+            mask, cnt = K.revocation_scan(table, lock)
+            want_m, want_c = R.scan_ref(table, lock)
+            agree("revocation_scan", mask, want_m)
+            agree("revocation_scan", cnt, want_c)
+    for rows, span in ((32, 16), (128, 16384)):
+        table = np.zeros((rows, 128), np.int32)
+        table.reshape(-1)[rng.choice(rows * 128, 9, replace=False)] = 4
+        slots = rng.integers(-2, span + 2, 200).astype(np.int32)
+        ids = rng.integers(0, 3, 200).astype(np.int32)
+        for unc in (False, True):
+            args = (dev_t(table), dev_t(slots), dev_t(ids))
+            got = TP.publish(*args, unconditional=unc)
+            want = R.publish_seq_ref(*args, unconditional=unc)
+            agree("publish", got[0], want[0])
+            agree("publish", got[1], want[1])
 
 
 # ---------------------------------------------------------------------------
@@ -596,7 +663,14 @@ def time_kernels(dev, batch: int, n_locks: int) -> dict:
     it writes, once.  K1 and K2 touch only the batch's slots, lanes and
     request vectors (a few sectors), not the whole table; K3 and K4 read
     the whole table.  The table stays in L2 between calls, so the bound
-    is lower still against L2's rate."""
+    is lower still against L2's rate.
+
+    K9 (the revocation scan) reads the table and writes its int8 mask and
+    the count; K10 (the legacy publish) at the legacy path's batch of 64
+    reads the table and the request vectors and writes a new table and the
+    grants.  Both run one request or slot per thread in one CTA.  K10's
+    plain version loops over the requests in Python, a few launches each,
+    so its windows hold 10 calls instead of 100."""
     import numpy as np
     import torch
 
@@ -623,6 +697,8 @@ def time_kernels(dev, batch: int, n_locks: int) -> dict:
     k2 = (req - _sectors(lidx) + _span(batch, 1)  # no rbias; the mask
           + _sectors(slots[granted]))             # stores
     tsec = _span(table.numel())
+    seq_m = 64                                    # the legacy path's batch
+    seq = _case(rng, seq_m, dev)
     shapes = {
         # (kernel, plain, bytes in + out, integer operations)
         "fused_publish_multi": (
@@ -646,12 +722,23 @@ def time_kernels(dev, batch: int, n_locks: int) -> dict:
             lambda: R.multi_count_ref(table, locks),
             (tsec + 2 * _span(n_locks)) * SECTOR,
             2 * table.numel() * n_locks),
+        "revocation_scan": (
+            lambda: K.revocation_scan(table, lock0),
+            lambda: R.scan_ref(table, lock0),
+            (tsec + _span(table.numel(), 1) + 1) * SECTOR,
+            2 * table.numel()),
+        "publish": (
+            lambda: K.publish(table, seq["slots"], seq["ids"]),
+            lambda: R.publish_seq_ref(table, seq["slots"], seq["ids"]),
+            (2 * tsec + 2 * _span(seq_m) + _span(seq_m, 1)) * SECTOR,
+            2 * seq_m),
     }
     out = {}
     for name, (kern, plain, nbytes, ops) in shapes.items():
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / INT_OPS_PER_S * 1e3
-        k, p = _median_ms(kern), _median_ms(plain)
+        k = _median_ms(kern)
+        p = _median_ms(plain, n=10 if name == "publish" else 100)
         out[name] = {"ms": k["graph_ms"], "plain_ms": p["graph_ms"],
                      "call_ms": k["call_ms"], "plain_call_ms": p["call_ms"],
                      "bound_ms": max(t_bytes, t_ops),
@@ -773,6 +860,45 @@ def time_paged_kernels(dev, seed=0, quant=False) -> dict:
                      "shape": {"B": b, "S": s, "H": h, "KVH": kvh, "hd": hd,
                                "page": ps, "lanes": pi.shape[1],
                                "cache_len": cl.tolist()}}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 3c: the lease microbenchmarks
+# ---------------------------------------------------------------------------
+
+
+def lease_benchmarks(dev) -> dict:
+    """The port's two lease benchmarks at their full settings, each with
+    the launch counts set to 0 just before it and read just after (their
+    check lines go to stderr); raises if a check of either failed, if a
+    kernel of its path never ran, or if the lease table's pair was not
+    gated clean."""
+    from repro_torch.benchmarks import device_bravo as DBB
+    from repro_torch.benchmarks import registry as RB
+    from repro_torch.kernels import ops as K
+
+    out = {}
+    for phase, run, kernels in (
+            ("device_bravo", lambda: DBB.run(dev, batch=64, iters=100),
+             ["fused_publish", "revocation_poll"] + LEGACY_KERNELS),
+            ("registry_bench", lambda: RB.run(dev), TABLE_KERNELS)):
+        K.reset_launch_counts()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(sys.stderr):   # its [ok] lines
+            rec = run()
+        counts = K.launch_counts()
+        if rec["failures"]:
+            raise AssertionError(f"{phase}: failed checks {rec['failures']}")
+        idle = [k for k in kernels if not counts[k]]
+        if idle:
+            raise AssertionError(f"{phase}: {idle} never launched")
+        rec.update(launches=counts, seconds=time.monotonic() - t0)
+        out[phase] = rec
+    gate = out["device_bravo"]["transfers"]["fused_sync_gate"]
+    if gate != "passed":
+        raise AssertionError(f"device_bravo: the fused pair's sync gate "
+                             f"{gate}")
     return out
 
 
@@ -1442,6 +1568,11 @@ def main(argv=None) -> int:
                            "float32 operations at 67 TFLOP/s",
           "times": times})
 
+    bench = lease_benchmarks(dev)
+    emit({"phase": "device_bravo", "card": card, **bench["device_bravo"]})
+    emit({"phase": "registry_bench", "card": card,
+          **bench["registry_bench"]})
+
     t0 = time.monotonic()
     params = M.init_params(args.seed, cfg, device=dev)
     params["embed"].mul_(EMBED_SCALE)
@@ -1479,11 +1610,14 @@ def main(argv=None) -> int:
                                                    sched)})
 
     # launches: the scheduler run (the serving path) for every kernel it
-    # runs, the quantized scheduler run for K7/K8; K4 runs on the handler
-    # run's drained-table check
-    runs = {"handler": eng, "scheduler": sched, "scheduler_quant": qsched}
+    # runs, the quantized scheduler run for K7/K8, the device_bravo
+    # benchmark for K9/K10; K4 runs on the handler run's drained-table
+    # check
+    runs = {"handler": eng, "scheduler": sched, "scheduler_quant": qsched,
+            "device_bravo": bench["device_bravo"]}
     launches_from = {name: "handler" if name == "revocation_poll_multi"
                      else "scheduler_quant" if name in QUANT_KERNELS
+                     else "device_bravo" if name in LEGACY_KERNELS
                      else "scheduler" for name in REPLACES}
     launches = {name: runs[run]["launches"][name]
                 for name, run in launches_from.items()}
@@ -1491,7 +1625,8 @@ def main(argv=None) -> int:
           "launches_from": launches_from})
     emit({"kernels": [
         {"name": name, "route": "cuda",
-         "source": SOURCES["table" if name in TABLE_KERNELS else "paged"],
+         "source": SOURCES["paged" if name in PAGED_KERNELS + QUANT_KERNELS
+                           else "table"],
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": checks[name]["max_abs_err"],
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],

@@ -1,7 +1,7 @@
 // Visible-readers-table kernels for Hopper (sm_90a): the BRAVO lease path.
 //
 // The table is one (rows, 128) int32 buffer of 4096 slots (16 KiB); a slot
-// holds 0 or the value of the lock a reader published.  Four kernels:
+// holds 0 or the value of the lock a reader published.  Six kernels:
 //
 //   K1 publish_multi  replaces repro/kernels/table_publish.py
 //                     _fused_publish_multi_kernel (batched CAS 0 -> id, each
@@ -11,6 +11,11 @@
 //                     store = release)
 //   K3 poll           replaces repro/kernels/table_scan.py _poll_kernel
 //   K4 multi_poll     replaces repro/kernels/table_scan.py _multi_poll_kernel
+//   K9 scan           replaces repro/kernels/table_scan.py _scan_kernel
+//                     (int8 match mask plus exact count)
+//   K10 publish_seq   replaces repro/kernels/table_publish.py _publish_kernel
+//                     (the legacy one-request-at-a-time CAS loop, writing a
+//                     new table)
 //
 // What bounds them on this card: nothing in the arithmetic.  Each call moves
 // at most the 16 KiB table plus a few hundred bytes of request vectors, which
@@ -38,6 +43,20 @@
 //   when zero, a lower bound >= 1 otherwise); the TPU version stopped early
 //   because its grid ran in order, which CTAs do not.  K4 keeps its K <= 128
 //   counters in shared memory.
+// * The hashed K2 entries are the single-lock lease table's acquire
+//   (conditional, under the scalar bias, id = the lock value) and the
+//   release (unconditional, id 0, denied readers masked to slot -1).
+// * K9 is K3 that also writes the int8 mask.  Its count is exact, as the
+//   TPU kernel's was: that one scanned every block in order.
+// * K10 keeps the TPU kernel's SEQUENTIAL semantics, which no parallel CAS
+//   race reproduces: an unconditional store to one slot twice keeps the
+//   LAST id, a conditional publish of id 0 leaves the slot free for a later
+//   request, and every decision sees the stores of the requests before it.
+//   So the CTA stages the table in shared memory (16 KiB at 4096 slots),
+//   one thread walks the requests in order there, and the CTA writes the
+//   whole table to a NEW output, as the TPU kernel copied its table block
+//   input to output on every call.  A slot outside [0, n_slots) reads as
+//   free and stores nothing, as in K1/K2.
 //
 // Every entry point enqueues on the caller's stream, allocates nothing and
 // returns cudaGetLastError() after the launch.
@@ -50,6 +69,10 @@ namespace {
 constexpr int kMaxRequests = 1024;
 constexpr int kMaxLocks = 128;
 constexpr int kScanThreads = 1024;
+constexpr int kSeqChunk = 1024;   // K10 requests staged per pass
+// K10's dynamic shared memory (the staged table) beyond which the kernel
+// needs the opt-in attribute: 48 KiB per block less its static arrays
+constexpr size_t kSeqDefaultSmem = 48 * 1024 - 2 * kSeqChunk * sizeof(int);
 
 // splitmix64 finalizer over (lock, reader), as repro.core.table.mix_hash:
 // both ids are 32-bit values zero-extended to 64 bits.
@@ -142,8 +165,9 @@ publish_multi_kernel(int32_t* __restrict__ table, int n_slots,
 
 // K2: batched publish against one scalar bias.  The first request per slot
 // (over all requests) wins; unless `unconditional`, only into a free slot;
-// with `check_rbias`, only while *rbias != 0.  Hashed mode is the release:
-// id 0 into each reader's slot, or slot -1 where mask[i] is false.
+// with `check_rbias`, only while *rbias != 0.  Hashed mode publishes the
+// lock value into each reader's slot or, when `unconditional`, is the
+// release: id 0 into each reader's slot, or slot -1 where mask[i] is false.
 template <bool kHashed>
 __global__ void __launch_bounds__(kMaxRequests)
 publish_kernel(int32_t* __restrict__ table, int n_slots,
@@ -166,8 +190,8 @@ publish_kernel(int32_t* __restrict__ table, int n_slots,
     load_request<kHashed>(i, n_slots, n_locks, lock_vals, slots, lock_idx,
                           lidx_stride, ids, reader_ids, &lane, &lane_ok,
                           &slot, &id);
-    if (kHashed) {
-      id = 0;
+    if (kHashed && unconditional) {   // the release: store 0, and never
+      id = 0;                          // into a denied reader's slot
       if (mask != nullptr && !mask[i]) slot = -1;
     }
     s_slot[i] = slot;
@@ -239,6 +263,56 @@ multi_poll_kernel(const int32_t* __restrict__ table, int n_slots,
   for (int t = threadIdx.x; t < k; t += kScanThreads) counts[t] = s_counts[t];
 }
 
+// K9: int8 mask of the slots publishing lock_id, and their exact count.
+__global__ void __launch_bounds__(kScanThreads)
+scan_kernel(const int32_t* __restrict__ table, int n_slots, int32_t lock_id,
+            int8_t* __restrict__ mask, int32_t* __restrict__ count) {
+  int local = 0;
+  for (int s = threadIdx.x; s < n_slots; s += kScanThreads) {
+    const int hit = table[s] == lock_id;
+    mask[s] = static_cast<int8_t>(hit);
+    local += hit;
+  }
+  const int total = block_sum(local);
+  if (threadIdx.x == 0) *count = total;
+}
+
+// K10: the requests in order, each `cur = t[slot]; ok = unconditional ||
+// cur == 0; if (ok) t[slot] = id; granted[i] = ok`, on a copy of the table
+// in shared memory, then the copy to `out`.
+__global__ void __launch_bounds__(kScanThreads)
+publish_seq_kernel(const int32_t* __restrict__ table, int n_slots,
+                   int32_t* __restrict__ out,
+                   const int32_t* __restrict__ slots,
+                   const int32_t* __restrict__ ids,
+                   bool* __restrict__ granted, int m, int unconditional) {
+  extern __shared__ int32_t s_table[];
+  __shared__ int s_slot[kSeqChunk];
+  __shared__ int s_id[kSeqChunk];
+  for (int s = threadIdx.x; s < n_slots; s += blockDim.x) s_table[s] = table[s];
+  for (int base = 0; base < m; base += kSeqChunk) {
+    const int n = min(kSeqChunk, m - base);
+    __syncthreads();  // the table is staged; the previous chunk is walked
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+      s_slot[j] = slots[base + j];
+      s_id[j] = ids[base + j];
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int j = 0; j < n; ++j) {
+        const int slot = s_slot[j];
+        const bool in = in_table(slot, n_slots);
+        const int cur = in ? s_table[slot] : 0;
+        const bool ok = unconditional || cur == 0;
+        if (ok && in) s_table[slot] = s_id[j];
+        granted[base + j] = ok;
+      }
+    }
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < n_slots; s += blockDim.x) out[s] = s_table[s];
+}
+
 inline int request_threads(int m) { return ((m + 31) / 32) * 32; }
 
 }  // namespace
@@ -306,6 +380,22 @@ int bravo_release_hashed(void* table, int n_slots, const void* lock_vals,
   return static_cast<int>(cudaGetLastError());
 }
 
+int bravo_publish_hashed(void* table, int n_slots, const void* rbias,
+                         const void* lock_vals, int n_locks,
+                         const void* lock_idx, int lidx_stride,
+                         const void* reader_ids, void* granted, int m,
+                         void* stream) {
+  publish_kernel<true>
+      <<<1, request_threads(m), 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<int32_t*>(table), n_slots,
+          static_cast<const int32_t*>(rbias), 1, 0, nullptr, nullptr,
+          static_cast<const int32_t*>(lock_vals), n_locks,
+          static_cast<const int32_t*>(lock_idx), lidx_stride,
+          static_cast<const int32_t*>(reader_ids), nullptr,
+          static_cast<bool*>(granted), m);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int bravo_poll(const void* table, int n_slots, int lock_id, void* count,
                void* stream) {
   poll_kernel<<<1, kScanThreads, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -320,6 +410,33 @@ int bravo_multi_poll(const void* table, int n_slots, const void* lock_ids,
       static_cast<const int32_t*>(table), n_slots,
       static_cast<const int32_t*>(lock_ids), k,
       static_cast<int32_t*>(counts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int bravo_scan(const void* table, int n_slots, int lock_id, void* mask,
+               void* count, void* stream) {
+  scan_kernel<<<1, kScanThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(table), n_slots, lock_id,
+      static_cast<int8_t*>(mask), static_cast<int32_t*>(count));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int bravo_publish_seq(const void* table, int n_slots, void* out,
+                      const void* slots, const void* ids, void* granted,
+                      int m, int unconditional, void* stream) {
+  const size_t smem = static_cast<size_t>(n_slots) * sizeof(int32_t);
+  if (smem > kSeqDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        publish_seq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  publish_seq_kernel<<<1, kScanThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(table), n_slots,
+      static_cast<int32_t*>(out), static_cast<const int32_t*>(slots),
+      static_cast<const int32_t*>(ids), static_cast<bool*>(granted), m,
+      unconditional);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,11 +1,13 @@
 """Public wrappers for the kernels: the names and argument order of
-``repro.kernels.ops`` for the eight kernels this port has, the table
-kernels K1-K4, the paged attention kernels K5/K6 and their variants over the
-quantized page store, K7/K8.
+``repro.kernels.ops`` for all ten, the table kernels K1-K4, the paged
+attention kernels K5/K6 and their variants over the quantized page store,
+K7/K8, and the legacy table kernels K9 (``revocation_scan``) and K10
+(``publish``, ``clear``).
 
 Where ``repro``'s wrappers consumed the table buffer (donation and
 ``input_output_aliases``), these update the caller's table tensor in place
-and return that same tensor.  A CPU tensor takes the plain version
+and return that same tensor; ``publish`` and ``clear`` return a new table,
+as ``repro``'s legacy kernel did.  A CPU tensor takes the plain version
 (``kernels.ref``); a CUDA tensor launches the hand-written kernel in
 ``csrc/table_kernels.cu`` or ``csrc/paged_attn.cu``, or raises.  There is no
 autotune table yet: ``repro``'s paged kernels read their tiling knobs from
@@ -24,7 +26,8 @@ from . import table_publish as _pub
 from . import table_scan as _scan
 from .table_publish import LANES
 
-__all__ = ["as_table2d", "revocation_poll", "revocation_poll_multi",
+__all__ = ["as_table2d", "revocation_scan", "revocation_poll",
+           "revocation_poll_multi", "publish", "clear",
            "fused_publish", "fused_publish_multi", "fused_clear",
            "paged_attention", "paged_attention_quant",
            "paged_chunk_attention", "paged_chunk_attention_quant", "LANES",
@@ -37,7 +40,8 @@ COUNTERS = {c.name: c for c in (_pub.FUSED_PUBLISH_MULTI, _pub.FUSED_PUBLISH,
                                 _pa.PAGED_ATTENTION,
                                 _pca.PAGED_CHUNK_ATTENTION,
                                 _pa.PAGED_ATTENTION_QUANT,
-                                _pca.PAGED_CHUNK_ATTENTION_QUANT)}
+                                _pca.PAGED_CHUNK_ATTENTION_QUANT,
+                                _scan.REVOCATION_SCAN, _pub.PUBLISH)}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -54,6 +58,23 @@ def as_table2d(table_flat: torch.Tensor) -> torch.Tensor:
     if n % LANES:
         raise ValueError(f"table of {n} slots is not a multiple of {LANES}")
     return table_flat.reshape(n // LANES, LANES)
+
+
+def revocation_scan(table2d: torch.Tensor, lock_id):
+    """Revocation scan: -> (int8 match mask (rows, 128), exact int32
+    count); ``rows`` must be a multiple of 8."""
+    return _scan.revocation_scan(table2d, lock_id)
+
+
+def publish(table2d: torch.Tensor, slots: torch.Tensor, ids: torch.Tensor):
+    """Legacy batched CAS(0 -> id), one request after another:
+    -> (NEW table, granted bool (M,))."""
+    return _pub.publish(table2d, slots, ids, unconditional=False)
+
+
+def clear(table2d: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """Legacy release: store 0 into each slot.  -> NEW table."""
+    return _pub.clear(table2d, slots)
 
 
 def fused_publish(table2d: torch.Tensor, rbias: torch.Tensor,

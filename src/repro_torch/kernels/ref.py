@@ -1,5 +1,7 @@
-"""Plain PyTorch versions of the table kernels K1-K4 and of the paged
-attention kernels K5/K6 and their quantized variants K7/K8.
+"""Plain PyTorch versions of the table kernels K1-K4, of the paged
+attention kernels K5/K6 and their quantized variants K7/K8, and of the
+legacy table kernels K9 (the revocation scan) and K10 (the sequential
+publish).
 
 They define what each CUDA kernel computes: the CPU tests hold them against
 ``repro``'s Pallas kernels in interpret mode, ``chip_smoke.py`` holds each
@@ -93,6 +95,53 @@ def clear_ref(table2d: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
                        unconditional=True, check_rbias=False)[0]
 
 
+def scan_ref(table2d: torch.Tensor, lock_id):
+    """K9.  -> (int8 mask (rows, 128), 1 where a slot equals ``lock_id``;
+    the exact count of such slots, a 0-d int32)."""
+    m = table2d == int(lock_id)
+    return m.to(torch.int8), m.sum(dtype=torch.int32)
+
+
+def publish_seq_ref(table2d: torch.Tensor, slots: torch.Tensor,
+                    ids: torch.Tensor, *, unconditional: bool = False):
+    """K10, the TPU kernel's ``fori_loop``: on a copy of the table, request
+    ``i`` in order reads ``cur = t[slot]``, takes ``ok = cur == 0`` (True
+    when ``unconditional``), stores ``id`` where ``ok`` and sets
+    ``granted[i] = ok``.  So a later request sees every earlier store: with
+    ``unconditional`` the last of duplicate slots wins, and a conditional
+    publish of id 0 leaves the slot free for the next.  A slot outside the
+    table reads as free and stores nothing.  -> (NEW table, granted bool
+    (M,)).  The loop stays on the tensors' device and never synchronizes:
+    the store target of a slot outside the table is one extra element that
+    only ever receives its own 0."""
+    flat = table2d.reshape(-1)
+    n = flat.shape[0]
+    ext = torch.cat([flat, flat.new_zeros(1)])
+    s = slots.long()
+    valid = (s >= 0) & (s < n)
+    tgt = torch.where(valid, s, n)
+    vals = ids.to(flat.dtype)
+    granted = torch.ones(slots.shape[0], dtype=torch.bool,
+                         device=flat.device)
+    for i in range(slots.shape[0]):
+        t = tgt[i:i + 1]
+        cur = ext[t]
+        if unconditional:
+            ext[t] = torch.where(valid[i:i + 1], vals[i:i + 1], cur)
+        else:
+            ok = cur == 0
+            ext[t] = torch.where(ok & valid[i:i + 1], vals[i:i + 1], cur)
+            granted[i:i + 1] = ok
+    return ext[:n].reshape(table2d.shape), granted
+
+
+def clear_seq_ref(table2d: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """K10 as the legacy release: store 0 into each slot, in order, on a
+    copy.  -> NEW table."""
+    return publish_seq_ref(table2d, slots, torch.zeros_like(slots),
+                           unconditional=True)[0]
+
+
 def poll_ref(table2d: torch.Tensor, lock_id) -> torch.Tensor:
     """K3.  EXACT count of slots equal to ``lock_id`` (a 0-d int32)."""
     return (table2d == int(lock_id)).sum(dtype=torch.int32)
@@ -135,6 +184,17 @@ def acquire_hashed_ref(table2d: torch.Tensor, rbias_vec: torch.Tensor,
     lidx, vals, slots = hashed_requests(table2d, lock_vals, lock_idx,
                                         reader_ids)
     return publish_multi_ref(table2d, rbias_vec, slots, lidx, vals)
+
+
+def publish_hashed_ref(table2d: torch.Tensor, rbias: torch.Tensor,
+                       lock_vals: torch.Tensor, lock_idx: torch.Tensor,
+                       reader_ids: torch.Tensor):
+    """K2 as the single-lock lease acquire: each reader publishes the value
+    of the lock in its lane into its hashed slot under the scalar
+    ``rbias``.  -> (new table, granted bool (M,))."""
+    _, vals, slots = hashed_requests(table2d, lock_vals, lock_idx,
+                                     reader_ids)
+    return publish_ref(table2d, rbias, slots, vals)
 
 
 def release_hashed_ref(table2d: torch.Tensor, lock_vals: torch.Tensor,

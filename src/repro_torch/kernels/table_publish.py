@@ -1,15 +1,18 @@
-"""Wrappers for the table publish kernels K1 and K2
+"""Wrappers for the table publish kernels K1, K2 and K10
 (``csrc/table_kernels.cu``).
 
 K1 (``fused_publish_multi``, ``acquire_hashed``) replaces
 ``repro.kernels.table_publish._fused_publish_multi_kernel``; K2
-(``fused_publish``, ``release_hashed``) replaces ``_fused_publish_kernel``.
-The hashed entries are the registry's lease path: they compute the
-splitmix64 slot and gather the lock value inside the same launch.
+(``fused_publish``, ``publish_hashed``, ``release_hashed``) replaces
+``_fused_publish_kernel``.  The hashed entries are the lease paths of the
+registry and of the single-lock lease table: they compute the splitmix64
+slot and gather the lock value inside the same launch.
 
 Where the JAX kernels aliased the table into their output
 (``input_output_aliases``) and the callers donated it, these update the
-caller's table tensor IN PLACE and return that same tensor.
+caller's table tensor IN PLACE and return that same tensor.  K10
+(``publish``, ``clear``) replaces the legacy ``_publish_kernel``, which had
+no alias and copied its table on every call: it returns a NEW table.
 
 A wrapper given CPU tensors runs the plain version from ``ref`` (and copies
 its result into the table); given CUDA tensors it launches the kernel or
@@ -19,6 +22,7 @@ raises.  Each launch adds one to the kernel's :class:`LaunchCounter`.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -27,6 +31,9 @@ from . import ref as R
 
 LANES = 128
 MAX_REQUESTS = 1024   # one thread per request, one CTA
+# K10 stages the table in one CTA's shared memory: 227 KiB less the 8 KiB
+# of its request chunk
+MAX_SEQ_SLOTS = (232448 - 8192) // 4
 SOURCE = "table_kernels.cu"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -34,13 +41,17 @@ SIGNATURES = {
     "bravo_publish_multi": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _P],
     "bravo_acquire_hashed": [_P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _P],
     "bravo_publish": [_P, _I, _P, _I, _I, _P, _P, _P, _I, _P],
+    "bravo_publish_hashed": [_P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _P],
     "bravo_release_hashed": [_P, _I, _P, _I, _P, _I, _P, _P, _I, _P],
     "bravo_poll": [_P, _I, _I, _P, _P],
     "bravo_multi_poll": [_P, _I, _P, _I, _P, _P],
+    "bravo_scan": [_P, _I, _I, _P, _P, _P],
+    "bravo_publish_seq": [_P, _I, _P, _P, _P, _P, _I, _I, _P],
 }
 
 FUSED_PUBLISH_MULTI = _build.LaunchCounter("fused_publish_multi")   # K1
 FUSED_PUBLISH = _build.LaunchCounter("fused_publish")               # K2
+PUBLISH = _build.LaunchCounter("publish")                           # K10
 
 
 def table_lib() -> ctypes.CDLL:
@@ -93,12 +104,23 @@ def _check_pow2(n_slots: int) -> None:
 
 def _lane_stride(lock_idx: torch.Tensor, m: int) -> int:
     """Lane vector of one entry (shared by all requests) or of M entries."""
+    check_vec(lock_idx.reshape(-1), "lock_idx")
     n = lock_idx.numel()
     if n == 1:
         return 0
     if n == m:
         return 1
     raise ValueError(f"lock_idx: need 1 or {m} entries, got {n}")
+
+
+def _lanes(lock_idx, table2d: torch.Tensor, m: int):
+    """-> (the kernel's lane stride, the plain version's lanes).  ``None``
+    means lane 0 for every request (the one lock of ``lock_vals``); the
+    kernel then reads no lane vector."""
+    if lock_idx is None:
+        return 0, torch.zeros((), dtype=torch.int32, device=table2d.device)
+    stride = _lane_stride(lock_idx, m)
+    return stride, lock_idx.reshape(-1) if stride else lock_idx.reshape(())
 
 
 def fused_publish_multi(table2d: torch.Tensor, rbias_vec: torch.Tensor,
@@ -144,10 +166,8 @@ def acquire_hashed(table2d: torch.Tensor, rbias_vec: torch.Tensor,
     check_vec(rbias_vec, "rbias_vec")
     check_vec(lock_vals, "lock_vals", rbias_vec.shape[0])
     check_vec(reader_ids, "reader_ids")
-    check_vec(lock_idx.reshape(-1), "lock_idx")
-    stride = _lane_stride(lock_idx, m)
-    if on_cpu(table2d, rbias_vec, lock_vals, lock_idx, reader_ids):
-        lanes = lock_idx.reshape(-1) if stride else lock_idx.reshape(())
+    stride, lanes = _lanes(lock_idx, table2d, m)
+    if on_cpu(table2d, rbias_vec, lock_vals, lanes, reader_ids):
         new, granted = R.acquire_hashed_ref(table2d, rbias_vec, lock_vals,
                                             lanes, reader_ids)
         table2d.copy_(new)
@@ -196,11 +216,47 @@ def fused_publish(table2d: torch.Tensor, rbias: torch.Tensor,
     return table2d, granted
 
 
+def publish_hashed(table2d: torch.Tensor, rbias: torch.Tensor,
+                   lock_vals: torch.Tensor, lock_idx: Optional[torch.Tensor],
+                   reader_ids: torch.Tensor) -> torch.Tensor:
+    """K2 on the single-lock lease table's path: request ``i`` publishes
+    the lock value ``v = lock_vals[lane]`` (``lane = lock_idx[i]``, or
+    ``lock_idx[0]`` for every request, or 0 when ``lock_idx`` is None)
+    into slot ``splitmix64(v,
+    reader_ids[i]) % n_slots``, first request per slot, only into a free
+    slot and only while the scalar ``rbias != 0`` (the recheck and undo of
+    one launch).  Updates ``table2d`` in place; -> granted bool (M,)."""
+    m = reader_ids.shape[0]
+    n_slots = check_table(table2d)
+    _check_pow2(n_slots)
+    check_vec(rbias.reshape(-1), "rbias", 1)
+    check_vec(lock_vals, "lock_vals")
+    check_vec(reader_ids, "reader_ids")
+    stride, lanes = _lanes(lock_idx, table2d, m)
+    if on_cpu(table2d, rbias, lock_vals, lanes, reader_ids):
+        new, granted = R.publish_hashed_ref(table2d, rbias, lock_vals, lanes,
+                                            reader_ids)
+        table2d.copy_(new)
+        return granted
+    _check_batch(m)
+    granted = torch.empty(m, dtype=torch.bool, device=table2d.device)
+    if m:
+        lib = table_lib()
+        _build.check(lib, lib.bravo_publish_hashed(
+            _build.ptr(table2d), n_slots, _build.ptr(rbias),
+            _build.ptr(lock_vals), lock_vals.shape[0], _build.ptr(lock_idx),
+            stride, _build.ptr(reader_ids), _build.ptr(granted), m,
+            _build.stream_ptr(table2d.device)), "publish_hashed")
+        FUSED_PUBLISH.add()
+    return granted
+
+
 def release_hashed(table2d: torch.Tensor, lock_vals: torch.Tensor,
-                   lock_idx: torch.Tensor, reader_ids: torch.Tensor,
+                   lock_idx: Optional[torch.Tensor], reader_ids: torch.Tensor,
                    mask=None) -> torch.Tensor:
-    """K2 on the registry's lease path: clear the slots that
-    :func:`acquire_hashed` published for these readers.  A reader whose
+    """K2 on the lease paths: clear the slots that :func:`acquire_hashed`
+    or :func:`publish_hashed` published for these readers (``lock_idx`` as
+    there).  A reader whose
     ``mask`` entry is False (its acquire was denied) clears nothing: the
     slot it hashes to may hold another reader's lease.  Updates
     ``table2d`` in place and returns it."""
@@ -209,14 +265,12 @@ def release_hashed(table2d: torch.Tensor, lock_vals: torch.Tensor,
     _check_pow2(n_slots)
     check_vec(lock_vals, "lock_vals")
     check_vec(reader_ids, "reader_ids")
-    check_vec(lock_idx.reshape(-1), "lock_idx")
-    stride = _lane_stride(lock_idx, m)
-    ts = [table2d, lock_vals, lock_idx, reader_ids]
+    stride, lanes = _lanes(lock_idx, table2d, m)
+    ts = [table2d, lock_vals, lanes, reader_ids]
     if mask is not None:
         check_vec(mask, "mask", m, dtype=torch.bool)
         ts.append(mask)
     if on_cpu(*ts):
-        lanes = lock_idx.reshape(-1) if stride else lock_idx.reshape(())
         table2d.copy_(R.release_hashed_ref(table2d, lock_vals, lanes,
                                            reader_ids, mask))
         return table2d
@@ -230,3 +284,40 @@ def release_hashed(table2d: torch.Tensor, lock_vals: torch.Tensor,
             _build.stream_ptr(table2d.device)), "release_hashed")
         FUSED_PUBLISH.add()
     return table2d
+
+
+def publish(table2d: torch.Tensor, slots: torch.Tensor, ids: torch.Tensor, *,
+            unconditional: bool = False):
+    """K10: the requests one at a time, in order, on a copy of the table:
+    request ``i`` stores ``ids[i]`` if its slot is free (always, when
+    ``unconditional``) and is granted if it stored.  So a later request
+    sees every earlier store: duplicate unconditional stores keep the LAST
+    id, and a conditional publish of id 0 leaves its slot free.  A slot
+    outside the table reads as free and stores nothing.  -> (NEW table,
+    granted bool (M,)); the input table is not changed."""
+    m = slots.shape[0]
+    n_slots = check_table(table2d)
+    check_vec(slots, "slots")
+    check_vec(ids, "ids", m)
+    if on_cpu(table2d, slots, ids):
+        return R.publish_seq_ref(table2d, slots, ids,
+                                 unconditional=unconditional)
+    if n_slots > MAX_SEQ_SLOTS:
+        raise ValueError(f"a table of {n_slots} slots does not fit one "
+                         f"CTA's shared memory; the kernel takes at most "
+                         f"{MAX_SEQ_SLOTS}")
+    out = torch.empty_like(table2d)
+    granted = torch.empty(m, dtype=torch.bool, device=table2d.device)
+    lib = table_lib()
+    _build.check(lib, lib.bravo_publish_seq(
+        _build.ptr(table2d), n_slots, _build.ptr(out), _build.ptr(slots),
+        _build.ptr(ids), _build.ptr(granted), m, int(unconditional),
+        _build.stream_ptr(table2d.device)), "publish")
+    PUBLISH.add()
+    return out, granted
+
+
+def clear(table2d: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """K10 as the legacy release: store 0 into each slot.  -> NEW table."""
+    return publish(table2d, slots, torch.zeros_like(slots),
+                   unconditional=True)[0]

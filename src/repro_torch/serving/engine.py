@@ -47,12 +47,13 @@ import dataclasses
 import queue
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from ..core.atomics import LiveMem
+from ..core.device_bravo import LeaseHandle
 from ..core.errors import DrainTimeout
 from ..core.factory import LockEnv
 from ..core.registry import BravoRegistry, RegistryHandle
@@ -154,39 +155,55 @@ class EngineStats:
         return {n: c.value for n, c in self._c.items()}
 
 
-class ModelStore:
-    """Epoch-versioned weights, guarded by a reader-writer lock and by a
-    registry lock mirroring the readers on the device."""
+Lease = Optional[Union[LeaseHandle, RegistryHandle]]
 
-    def __init__(self, params, lock, leases: RegistryHandle):
+
+class ModelStore:
+    """Epoch-versioned weights, guarded by a reader-writer lock (and,
+    optionally, by a device-side lease handle mirroring the readers: a
+    plain :class:`~repro_torch.core.device_bravo.LeaseHandle` or a registry
+    lock; same protocol)."""
+
+    def __init__(self, params, lock, leases: Lease = None):
         self.params = params
         self.epoch = 0
         self.lock = lock
         self.leases = leases
 
+    def read(self):
+        tok = self.lock.acquire_read()
+        return tok, self.params, self.epoch
+
+    def done_read(self, tok):
+        self.lock.release_read(tok)
+
     def read_batch(self, reader_ids: torch.Tensor):
         """Epoch read for a request batch: the host read lock plus ONE lease
-        publish (K1) for all ``reader_ids`` (device int32); no host-device
+        publish for all ``reader_ids`` (device int32); no host-device
         synchronization.  The token carries the grant mask so
         ``done_read_batch`` clears only the leases actually won."""
         tok = self.lock.acquire_read()
-        try:
-            self.leases.rearm()
-            granted = self.leases.acquire(reader_ids)
-            gen = self.leases.gen
-        except BaseException:            # never leak the host read lock
-            self.lock.release_read(tok)
-            raise
+        granted = gen = None
+        if self.leases is not None:
+            try:
+                self.leases.rearm()
+                granted = self.leases.acquire(reader_ids)
+                gen = getattr(self.leases, "gen", None)
+            except BaseException:        # never leak the host read lock
+                self.lock.release_read(tok)
+                raise
         return (tok, granted, gen), self.params, self.epoch
 
     def done_read_batch(self, tok, reader_ids: torch.Tensor):
         host_tok, granted, gen = tok
         try:
-            # generation check: after a stuck-lane scrub regenerated the
-            # lock value, our slots are already scrubbed and a release
-            # would hash to the new value's slots
-            if gen == self.leases.gen:
-                self.leases.release(reader_ids, granted=granted)
+            if granted is not None:
+                # generation check: after a stuck-lane scrub regenerated
+                # the lock value, our slots are already scrubbed and a
+                # release would hash to the new value's slots (a plain
+                # LeaseHandle has no generation)
+                if gen is None or gen == getattr(self.leases, "gen", None):
+                    self.leases.release(reader_ids, granted=granted)
         finally:
             self.lock.release_read(host_tok)
 
@@ -197,7 +214,8 @@ class ModelStore:
         params are touched."""
         tok = self.lock.acquire_write()
         try:
-            self.leases.revoke(**revoke_kw)
+            if self.leases is not None:
+                self.leases.revoke(**revoke_kw)
             self.params = new_params
             self.epoch += 1
         finally:

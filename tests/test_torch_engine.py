@@ -4,6 +4,7 @@ requests, and the end-to-end checks of tests/test_engine.py under weight
 hot-swap and compaction."""
 
 import dataclasses
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -113,3 +114,76 @@ def test_scheduler_mode_is_not_ported_yet():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TE.ServingEngine(cfg, params, device="cpu", scheduler=SchedulerConfig(
             controller=ControllerConfig()))
+
+
+def _stores(kind, monkeypatch):
+    """``repro``'s and the port's ModelStore over the same kind of lease:
+    a plain single-lock ``LeaseHandle`` (lock id 31 on both sides), a
+    registry lock (both registries' lock ids from one base), or none.
+    -> ((jax store, its table), (port store, its table)), each table a
+    callable."""
+    from repro.core import device_bravo as JDB
+    from repro.core import registry as JR
+    from repro.core.atomics import LiveMem as JLiveMem
+    from repro.core.factory import LockEnv as JLockEnv
+    from repro_torch.core import device_bravo as TDB
+    from repro_torch.core import registry as TR
+    from repro_torch.core.atomics import LiveMem as TLiveMem
+    from repro_torch.core.factory import LockEnv as TLockEnv
+
+    if kind == "lease_handle":
+        jt, tt = JDB.DeviceLeaseTable(), TDB.DeviceLeaseTable(device="cpu")
+        jl, tl = jt.handle(lock_id=31), tt.handle(lock_id=31)
+        jtab, ttab = (lambda: jt.state.table), (lambda: tt.state.table)
+    elif kind == "registry":
+        monkeypatch.setattr(JR, "next_lock_id", itertools.count(500).__next__)
+        monkeypatch.setattr(TR, "next_lock_id", itertools.count(500).__next__)
+        jr, tr = JR.BravoRegistry(), TR.BravoRegistry(device="cpu")
+        jl, tl = jr.alloc(name="model"), tr.alloc(name="model")
+        jtab, ttab = (lambda: jr.table), (lambda: tr.table)
+    else:
+        jl = tl = jtab = ttab = None
+    js = JE.ModelStore({"w": 0}, JLockEnv(JLiveMem()).make("bravo-ba"),
+                       leases=jl)
+    ts = TE.ModelStore({"w": 0}, TLockEnv(TLiveMem()).make("bravo-ba"),
+                       leases=tl)
+    return (js, jtab), (ts, ttab)
+
+
+@pytest.mark.parametrize("kind", ["lease_handle", "registry", "none"])
+def test_model_store_over_either_lease_protocol(kind, monkeypatch):
+    """``ModelStore`` takes a plain ``LeaseHandle`` (no ``gen``), a
+    registry lock or no lease at all, as ``repro``'s does: the same
+    batch reads (with a duplicate reader, which is denied) leave the same
+    table as ``repro``'s store, and the swap drains and bumps the epoch."""
+    (js, jtab), (ts, ttab) = _stores(kind, monkeypatch)
+
+    def same():
+        if jtab is not None:
+            np.testing.assert_array_equal(np.asarray(jtab()),
+                                          ttab().numpy())
+
+    rids = [3, 4, 5, 3]
+    jtok, jp, je = js.read_batch(jnp.asarray(rids, jnp.int32))
+    ttok, tp, te = ts.read_batch(torch.tensor(rids, dtype=torch.int32))
+    assert (tp, te) == (jp, je) == ({"w": 0}, 0)
+    same()
+    if kind == "none":
+        assert ttok[1] is None and ttok[2] is None
+    else:
+        np.testing.assert_array_equal(np.asarray(jtok[1]), ttok[1].numpy())
+        assert ttok[1].tolist() == [True, True, True, False]
+        assert ttok[2] == (0 if kind == "registry" else None)
+        assert ttab().any()
+    js.done_read_batch(jtok, jnp.asarray(rids, jnp.int32))
+    ts.done_read_batch(ttok, torch.tensor(rids, dtype=torch.int32))
+    same()
+    tok, params, epoch = ts.read()           # the host lock alone
+    assert (params, epoch) == ({"w": 0}, 0)
+    ts.done_read(tok)
+    js.swap({"w": 1}, max_wait_s=5.0)
+    ts.swap({"w": 1}, max_wait_s=5.0)
+    same()
+    assert (ts.params, ts.epoch) == (js.params, js.epoch) == ({"w": 1}, 1)
+    if ttab is not None:
+        assert not ttab().any()              # drained

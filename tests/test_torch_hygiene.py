@@ -1,4 +1,5 @@
-"""Boundaries of the port: it imports neither JAX nor ``repro``; its
+"""Boundaries of the port: it imports neither JAX nor ``repro`` nor the
+reference's ``benchmarks`` package; its
 verbatim copies of ``repro``'s framework-free modules cannot drift; its
 entry points refuse to run without a device rather than fall back."""
 
@@ -22,6 +23,10 @@ COPIES = ["core/errors.py", "core/atomics.py", "core/table.py",
           "obs/chrome.py", "obs/slo.py", "serving/scheduler.py"]
 
 
+# the reference and what only it may import; the port keeps its own copies
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
+
+
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -39,7 +44,7 @@ def _imported(path: pathlib.Path):
 def test_no_jax_or_repro_import(path):
     for mod in _imported(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
+        assert top not in FORBIDDEN, f"{path}: {mod}"
 
 
 def test_package_imports_without_jax_in_a_fresh_process():
@@ -49,7 +54,7 @@ def test_package_imports_without_jax_in_a_fresh_process():
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')]\n"
+            f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
@@ -80,6 +85,8 @@ def no_cuda(monkeypatch):
 
 def test_default_device_entry_points_raise_without_cuda(no_cuda):
     from repro_torch import configs
+    from repro_torch.benchmarks import device_bravo, registry
+    from repro_torch.core import device_bravo as DB
     from repro_torch.core.registry import BravoRegistry
     from repro_torch.models import model as M
     from repro_torch.serving.engine import ServingEngine
@@ -87,7 +94,8 @@ def test_default_device_entry_points_raise_without_cuda(no_cuda):
     from repro_torch.serving.scheduler import SchedulerConfig
 
     cfg = configs.get_smoke("llama3.2-1b")
-    for make in (BravoRegistry, lambda: KVPool(16),
+    for make in (BravoRegistry, DB.DeviceLeaseTable, DB.init_state,
+                 device_bravo.run, registry.run, lambda: KVPool(16),
                  lambda: M.init_params(0, cfg),
                  lambda: M.init_caches(cfg, 1, 8),
                  lambda: M.init_paged_caches(cfg, 8, 4),
