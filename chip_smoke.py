@@ -10,28 +10,37 @@ non-zero exit and no result line:
 2. build: nvcc compiles the two CUDA sources,
    ``src/repro_torch/csrc/table_kernels.cu`` (K1-K4, K9, K10) and
    ``src/repro_torch/csrc/paged_attn.cu`` (K5-K8), one process each, both
-   started together;
+   started together, with ptxas's registers and spills per kernel;
 3. kernels: each table kernel (K1-K4) against its plain PyTorch version on
    the card, exact, at the 4096-slot table with M in {1, 4, 16, 256}, K in
    {1, 5, 128} and seeded sweeps with collisions, cleared bias lanes, -1
    slots and occupied slots; the legacy table kernels K9 (the revocation
    scan) and K10 (the sequential publish) the same way, exact, with K10's
    sequential edge cases (duplicate unconditional stores, id 0, slots
-   outside the table, a table past 48 KiB); the paged attention kernels
+   outside the table, a table past 48 KiB); K1/K2 also at a batch of
+   3000 (three chunks of 1024) and the single-lock K2 lease entries on
+   64-bit reader ids; the paged attention kernels
    K5 (decode) and K6 (chunk prefill) against theirs at the engine's
-   shapes and in seeded sweeps over the traps (-1 lanes inside and past
-   ``cache_len``, ``cache_len`` 0, a partial last page, padding columns,
-   ``new_lens`` 0, a chunk longer than the paged prefix, every q/page type
-   pair), within the
-   stated tolerances; K7 and K8 (the same over int8 pages with per-page
+   shapes, at gemma-2b's and granite-20b's head shapes (hd 256; 48 query
+   heads on one KV head) and in seeded sweeps over the traps (-1 lanes
+   inside and past ``cache_len``, ``cache_len`` 0, a partial last page,
+   padding columns, ``new_lens`` 0, a chunk longer than the paged prefix,
+   every q/page type pair), within the stated tolerances; K5 also at
+   forced KV split counts (1, 2, 3, one per lane), on pages that are not
+   16-byte aligned and at the long-context shape (16 requests of
+   3584-4096 positions); K7 and K8 (the same over int8 pages with per-page
    scales) against theirs over the same traps plus an all-zero page and a
-   page whose group max saturates, and against the float32 K5/K6 on the
-   pages before quantization; ``requant_scatter`` (the quantized store's
+   page whose group max saturates (spikes of 6, absolute tolerance, and of
+   40, relative), K7 at the same forced splits, unaligned pages and
+   long-context shape, and against the float32 K5/K6 on the pages before
+   quantization; ``requant_scatter`` (the quantized store's
    write path) on the card byte for byte against the CPU; then each
    kernel's time (CUDA events, median) at the engine's shapes beside its
    plain version's, its bound and, for K5-K8,
    ``scaled_dot_product_attention`` over K/V already gathered dense (and
-   dequantized, for K7/K8);
+   dequantized, for K7/K8); K5/K7 also at the long-context shape, each
+   beside the parent design (the chunk kernel at S = 1) and the kernel
+   forced to one split, timed in the same run;
 3c. device_bravo: the port's device-BRAVO benchmark
    (``repro_torch.benchmarks.device_bravo``, batch 64, 100 iterations):
    the single-lock ``DeviceLeaseTable`` (K2 acquire and release, K3 drain
@@ -85,6 +94,8 @@ and attention hold; scaled, the blocks' outputs decide the next token.
 The last lines are the kernels summary, the card line as nvidia-smi prints
 it, and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, when there is no CUDA device or no ``src/repro_torch`` beside it.
+``--decode-only`` runs phases 1-3 for K5-K8 alone (build, checks, times)
+and stops without a result line: the quick loop for the paged kernels.
 """
 
 from __future__ import annotations
@@ -93,6 +104,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import functools
+import itertools
 import json
 import os
 import statistics
@@ -151,6 +163,31 @@ QUANT_VS_F32_ATOL = 0.05
 QUANT_PAGED_VS_FORWARD_REL = 0.05
 QUANT_PAGED_VS_FORWARD_TOP1 = 0.9
 QUANT_VS_BF16_SHARE = 0.5
+# The decode kernel's long-context shape (K5/K7 checks and times): B 16,
+# H 32, KVH 8, hd 64 (llama3.2-1b's attention), 256 lanes of 16 positions
+# in a 4096-page store, cache_len drawn from [3584, 4096].
+LONG_CONTEXT = dict(b=16, h=32, kvh=8, hd=64, ps=16, lanes=256, n_pages=4096)
+LONG_LENGTHS = (3584, 4096)
+# The head shapes of two dense configs of the reference that K5-K8 refused
+# before they looped warps over heads and took hd 256: gemma-2b (8 query
+# heads on 1 KV head, head_dim 256) and granite-20b (48 on 1, head_dim 128).
+F1_SHAPES = [dict(b=4, s=5, h=8, kvh=1, hd=256, ps=8, lanes=6, n_pages=64),
+             dict(b=4, s=3, h=48, kvh=1, hd=128, ps=8, lanes=6, n_pages=64)]
+# One query head a KV head (the decode kernel's one-head CTAs)
+MHA_SHAPE = dict(b=4, s=3, h=4, kvh=4, hd=32, ps=8, lanes=6, n_pages=64)
+# K5/K7 at forced split counts and on unaligned pages (_decode_variants):
+# short rows, and rows of 1024 positions (K7's layout for long rows)
+DECODE_SPLIT_SHAPES = [dict(b=5, s=1, h=8, kvh=2, hd=64, ps=4, lanes=9,
+                            n_pages=64),
+                       dict(b=5, s=1, h=8, kvh=2, hd=64, ps=16, lanes=64,
+                            n_pages=512)]
+# The int8 trap page with a spike of 40 (outputs of ~40) against the plain
+# K7/K8: float32 outputs within 1e-5 of the largest output, relative, since
+# float32 rounding at that magnitude alone reaches 1e-5 absolute.
+QUANT_SPIKE = 40.0
+QUANT_SPIKE_REL = 1e-5
+# K1/K2 at a batch of three 1024-request chunks
+BIG_BATCH = 3000
 SOURCES = {"table": "src/repro_torch/csrc/table_kernels.cu",
            "paged": "src/repro_torch/csrc/paged_attn.cu"}
 REPLACES = {
@@ -242,7 +279,8 @@ def check_kernels(dev, seeds=range(8)) -> dict:
     ms = [1, 4, 16, 256]
     for seed in seeds:
         rng = np.random.default_rng(seed)
-        for m in ms + [int(rng.integers(2, 1025))]:
+        big = [BIG_BATCH] if seed < 2 else []
+        for m in ms + [int(rng.integers(2, 1025))] + big:
             c = _case(rng, m, dev)
             # K1, explicit slots
             t = c["table"].clone()
@@ -279,6 +317,24 @@ def check_kernels(dev, seeds=range(8)) -> dict:
             want_t = R.release_hashed_ref(t, c["vals"], lidx, c["rids"],
                                           c["mask"])
             TP.release_hashed(t, c["vals"], lidx, c["rids"], c["mask"])
+            agree("fused_publish", t, want_t)
+            # K2, the single-lock lease acquire and release on 64-bit host
+            # reader ids (the bits of uint64 ids past 2**32)
+            rids64 = c["rids"].long() * (2**31 + 7) + 2**32
+            rids64[:1] = 2**63 - 1
+            for rb in (0, 1):
+                rbias = torch.full((), rb, dtype=torch.int32, device=dev)
+                t = c["table"].clone()
+                want_t, want_g = R.publish_hashed_ref(
+                    t, rbias, c["vals"][:1],
+                    torch.zeros((), dtype=torch.int32, device=dev), rids64)
+                g = TP.publish_hashed(t, rbias, c["vals"][:1], None, rids64)
+                agree("fused_publish", t, want_t)
+                agree("fused_publish", g, want_g)
+            want_t = R.release_hashed_ref(
+                t, c["vals"][:1], torch.zeros((), dtype=torch.int32,
+                                              device=dev), rids64, g)
+            TP.release_hashed(t, c["vals"][:1], None, rids64, g)
             agree("fused_publish", t, want_t)
             # K10, conditional and unconditional (-1 slots, collisions)
             for unc in (False, True):
@@ -388,16 +444,20 @@ def _paged_case(rng, dev, *, b, s, h, kvh, hd, ps, lanes, n_pages,
     return (q.to(dev).to(q_dtype), *kv, *ints)
 
 
-def _paged_agree(out, name, got, want, zero_mask):
-    """Record one K5/K6 comparison; raise past the stated tolerance or if
-    a query with no valid position is not exactly zero."""
+def _paged_agree(out, name, got, want, zero_mask, rel=None):
+    """Record one K5-K8 comparison; raise past the stated tolerance (with
+    ``rel``, float32 outputs are held to ``rel * max |want|`` instead of
+    the absolute limit) or if a query with no valid position is not
+    exactly zero."""
     import torch
 
     err = float((got.float() - want.float()).abs().max())
-    if got.dtype == torch.float32:
-        tol = PAGED_F32_ATOL
-    else:
+    if got.dtype != torch.float32:
         tol = PAGED_BF16_ULP * float(want.float().abs().max())
+    elif rel is not None:
+        tol = rel * float(want.float().abs().max())
+    else:
+        tol = PAGED_F32_ATOL
     o = out[name]
     o["cases"] += 1
     o["max_abs_err"] = max(o["max_abs_err"], err)
@@ -418,6 +478,7 @@ def check_paged_kernels(dev, seeds=range(3)) -> dict:
     import torch
 
     from repro_torch.kernels import ops as K
+    from repro_torch.kernels import paged_attn as PA
     from repro_torch.kernels import ref as R
 
     out = {name: {"cases": 0, "max_abs_err": 0.0, "matched": True,
@@ -428,7 +489,7 @@ def check_paged_kernels(dev, seeds=range(3)) -> dict:
     shapes = [dict(engine, b=8, s=32), dict(b=5, s=5, h=8, kvh=2, hd=16,
                                             ps=4, lanes=6, n_pages=64),
               dict(b=4, s=7, h=12, kvh=4, hd=128, ps=8, lanes=9,
-                   n_pages=64)]
+                   n_pages=64), MHA_SHAPE] + F1_SHAPES
     types = [(torch.float32, torch.bfloat16), (torch.float32, torch.float32),
              (torch.bfloat16, torch.bfloat16), (torch.bfloat16,
                                                 torch.float32)]
@@ -451,19 +512,75 @@ def check_paged_kernels(dev, seeds=range(3)) -> dict:
             _paged_agree(out, "paged_attention",
                          K.paged_attention(q1, kp, vp, pi, cl),
                          R.paged_attn_ref(q1, kp, vp, pi, cl), cl <= 0)
+    rng = np.random.default_rng(50)
+    for (qd, kd), sh in itertools.product(types, DECODE_SPLIT_SHAPES):
+        q, kp, vp, pi, cl, _ = _paged_case(rng, dev, q_dtype=qd, kv_dtype=kd,
+                                           **sh)
+        q1 = q[:, 0].contiguous()
+        want = R.paged_attn_ref(q1, kp, vp, pi, cl)
+        for got in _decode_variants(PA.paged_attention, q1, (kp, vp), (),
+                                    pi, cl):
+            _paged_agree(out, "paged_attention", got, want, cl <= 0)
+    for kd in (torch.bfloat16, torch.float32):
+        q, kp, vp, pi, cl, _ = _long_case(rng, dev, kd)
+        q1 = q[:, 0].contiguous()
+        _paged_agree(out, "paged_attention",
+                     K.paged_attention(q1, kp, vp, pi, cl),
+                     R.paged_attn_ref(q1, kp, vp, pi, cl), cl <= 0)
     torch.cuda.synchronize()
     return out
 
 
-def _quantized(kp, vp, pi, traps):
+def _unaligned(x):
+    """The same values at an address one element past 16-byte alignment:
+    the decode kernel then copies its rows element by element."""
+    import torch
+
+    flat = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
+    y = flat[1:1 + x.numel()].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def _decode_variants(fn, q, pages, scales, pi, cl):
+    """K5 or K7 on one case, every way the kernel can run it: the split
+    the wrapper picks, forced splits of 1, 2, 3 and one per lane (so
+    splits past ``cache_len`` and splits of -1 lanes only occur), and
+    pages that are not 16-byte aligned (one split and three)."""
+    lanes = pi.shape[1]
+    yield fn(q, *pages, *scales, pi, cl)
+    for n in (1, 2, 3, lanes):
+        yield fn(q, *pages, *scales, pi, cl, n_split=n)
+    bad = [_unaligned(x) for x in pages]
+    for n in (1, 3):
+        yield fn(q, *bad, *scales, pi, cl, n_split=n)
+
+
+def _long_case(rng, dev, kv_dtype):
+    """The long-context decode shape: 16 requests of 3584-4096 positions
+    on 256 lanes of 16 (a 4096-page store, every page used once), float32
+    q; -> _paged_case's tuple."""
+    import numpy as np
+    import torch
+
+    b = LONG_CONTEXT["b"]
+    return _paged_case(rng, dev, s=1, q_dtype=torch.float32,
+                       kv_dtype=kv_dtype, traps=False,
+                       clen=rng.integers(LONG_LENGTHS[0], LONG_LENGTHS[1] + 1,
+                                         b),
+                       nl=np.ones(b), **LONG_CONTEXT)
+
+
+def _quantized(kp, vp, pi, traps, spike=6.0):
     """Quantize a case's float pages on the card (``kernels.quant``).  With
     ``traps``, first make one page the rows read all zero (its scale is
     1e-6 / 127 and it dequantizes to exact zeros) and give another one
     element per KV head that saturates to +-127 while the rest of its
-    group quantizes coarsely.  The spike is 6, twice the largest of a
-    unit-normal page, so outputs stay O(1) and the absolute float32
-    tolerance keeps its meaning (a spike of 40 made outputs of ~40, whose
-    float32 rounding alone reaches 1e-5).
+    group quantizes coarsely.  The spike is 6 by default, twice the largest
+    of a unit-normal page, so outputs stay O(1) and the absolute float32
+    tolerance keeps its meaning; a spike of ``QUANT_SPIKE`` (40) makes
+    outputs of ~40, whose float32 rounding alone reaches 1e-5, and is held
+    to ``QUANT_SPIKE_REL`` instead.
     -> (k_pages, v_pages before quantization, kq, vq, k_scale, v_scale)."""
     import torch
 
@@ -475,7 +592,7 @@ def _quantized(kp, vp, pi, traps):
         zero, sat = used[0], used[-1]
         for x in (kp, vp):
             x[zero] = 0.0
-            x[sat, 0, :, 0] = 6.0
+            x[sat, 0, :, 0] = spike
     (kq, ks), (vq, vs) = Q.quantize_pages(kp), Q.quantize_pages(vp)
     return kp, vp, kq, vq, ks, vs
 
@@ -491,30 +608,36 @@ def check_quant_kernels(dev, seeds=range(3)) -> dict:
     import torch
 
     from repro_torch.kernels import ops as K
+    from repro_torch.kernels import paged_attn as PA
     from repro_torch.kernels import ref as R
 
     out = {name: {"cases": 0, "max_abs_err": 0.0, "matched": True,
                   "tolerance": {"float32": PAGED_F32_ATOL,
                                 "bfloat16": "2**-7 * max |out|",
+                                "float32_spike_40": f"{QUANT_SPIKE_REL} * "
+                                                    f"max |out|",
                                 "vs_float32_pages": QUANT_VS_F32_ATOL},
-                  "vs_f32_cases": 0, "vs_f32_max_abs_err": 0.0}
+                  "spike_cases": 0, "vs_f32_cases": 0,
+                  "vs_f32_max_abs_err": 0.0}
            for name in QUANT_KERNELS}
     engine = dict(h=32, kvh=8, hd=64, ps=16, lanes=8, n_pages=4096)
     shapes = [dict(b=5, s=5, h=8, kvh=2, hd=16, ps=4, lanes=6, n_pages=64),
               dict(b=4, s=7, h=12, kvh=4, hd=128, ps=8, lanes=9,
-                   n_pages=64)]
+                   n_pages=64), MHA_SHAPE] + F1_SHAPES
     q_types = (torch.float32, torch.bfloat16)
     for seed in seeds:
         rng = np.random.default_rng(100 + seed)
-        cases = [(dict(engine, b=8, s=1), torch.float32, False),
-                 (dict(engine, b=2, s=32), torch.float32, False)]
-        cases += [(sh, qd, True) for sh in [dict(engine, b=8, s=32)]
-                  + shapes for qd in q_types]
-        for sh, qd, traps in cases:
+        cases = [(dict(engine, b=8, s=1), torch.float32, False, None),
+                 (dict(engine, b=2, s=32), torch.float32, False, None)]
+        cases += [(sh, qd, True, spike) for sh in [dict(engine, b=8, s=32)]
+                  + shapes for qd in q_types for spike in (None, QUANT_SPIKE)]
+        for sh, qd, traps, spike in cases:
             q, kp, vp, pi, cl, nl = _paged_case(
                 rng, dev, q_dtype=qd, kv_dtype=torch.float32, traps=traps,
                 **sh)
-            kp, vp, kq, vq, ks, vs = _quantized(kp, vp, pi, traps)
+            kp, vp, kq, vq, ks, vs = _quantized(
+                kp, vp, pi, traps, *(() if spike is None else (spike,)))
+            rel = None if spike is None else QUANT_SPIKE_REL
             s = q.shape[1]
             col = torch.arange(s, device=dev)
             pad = ((col[None, :] < s - nl[:, None])
@@ -528,11 +651,14 @@ def check_quant_kernels(dev, seeds=range(3)) -> dict:
             _paged_agree(out, "paged_chunk_attention_quant",
                          got["paged_chunk_attention_quant"],
                          R.paged_chunk_attn_quant_ref(q, kq, vq, ks, vs, pi,
-                                                      cl, nl), pad)
+                                                      cl, nl), pad, rel)
             _paged_agree(out, "paged_attention_quant",
                          got["paged_attention_quant"],
                          R.paged_attn_quant_ref(q1, kq, vq, ks, vs, pi, cl),
-                         cl <= 0)
+                         cl <= 0, rel)
+            if spike is not None:
+                for name in QUANT_KERNELS:
+                    out[name]["spike_cases"] += 1
             if traps:
                 continue
             f32 = {"paged_chunk_attention_quant": R.paged_chunk_attn_ref(
@@ -548,6 +674,22 @@ def check_quant_kernels(dev, seeds=range(3)) -> dict:
                     raise AssertionError(
                         f"{name}: {err} from the float32 pages > "
                         f"{QUANT_VS_F32_ATOL}")
+    rng = np.random.default_rng(150)
+    for qd, sh in itertools.product(q_types, DECODE_SPLIT_SHAPES):
+        q, kp, vp, pi, cl, _ = _paged_case(rng, dev, q_dtype=qd,
+                                           kv_dtype=torch.float32, **sh)
+        _, _, kq, vq, ks, vs = _quantized(kp, vp, pi, traps=True)
+        q1 = q[:, 0].contiguous()
+        want = R.paged_attn_quant_ref(q1, kq, vq, ks, vs, pi, cl)
+        for got in _decode_variants(PA.paged_attention_quant, q1, (kq, vq),
+                                    (ks, vs), pi, cl):
+            _paged_agree(out, "paged_attention_quant", got, want, cl <= 0)
+    q, kp, vp, pi, cl, _ = _long_case(rng, dev, torch.float32)
+    _, _, kq, vq, ks, vs = _quantized(kp, vp, pi, traps=False)
+    q1 = q[:, 0].contiguous()
+    _paged_agree(out, "paged_attention_quant",
+                 K.paged_attention_quant(q1, kq, vq, ks, vs, pi, cl),
+                 R.paged_attn_quant_ref(q1, kq, vq, ks, vs, pi, cl), cl <= 0)
     torch.cuda.synchronize()
     return out
 
@@ -764,7 +906,16 @@ def time_paged_kernels(dev, seed=0, quant=False) -> dict:
     q, bf16 pages in a 4096-page store) and a prefill tick (2 rows x 32
     columns: a first chunk, and a chunk on a 40-token prefix); with
     ``quant``, K7 and K8 at the same shapes over int8 pages and their
-    scales (the quantized scheduler phase's store).
+    scales (the quantized scheduler phase's store).  K5/K7 also at the
+    long-context shape (``LONG_CONTEXT``: 16 rows of 3584-4096 positions,
+    whose K/V exceed the 50 MB L2), under the record's ``long_context``.
+
+    For K5/K7 each record also holds, timed in the same windows' way,
+    ``parent_ms``: the parent design, the chunk kernel at S = 1 (one CTA
+    per request and KV head walking all its positions, no split, no
+    asynchronous copies), and ``one_split_ms``: the new kernel forced to
+    one split (the ablation of the KV split); ``splits`` is the split
+    count the wrapper picked.
 
     The bound counts what one call must move, in 32-byte sectors at the
     HBM rate: each valid K and V row once per KV head (hd bf16 = 4
@@ -777,11 +928,6 @@ def time_paged_kernels(dev, seed=0, quant=False) -> dict:
     GQA: a yardstick only, the port never calls it."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import ops as K
-    from repro_torch.kernels import quant as Q
-    from repro_torch.kernels import ref as R
 
     rng = np.random.default_rng(seed)
     base = dict(h=32, kvh=8, hd=64, ps=16, lanes=8, n_pages=SCHED_PAGES,
@@ -793,74 +939,109 @@ def time_paged_kernels(dev, seed=0, quant=False) -> dict:
     pre = _paged_case(rng, dev, b=2, s=32, clen=[32, 72], nl=[32, 32],
                       **base)
     names = QUANT_KERNELS if quant else PAGED_KERNELS
-    out = {}
-    for name, (q, kp, vp, pi, cl, nl) in zip(names, (dec, pre)):
-        scales = ()
-        if quant:
-            _, _, kp, vp, ks, vs = _quantized(kp, vp, pi, traps=False)
-            scales = (ks, vs)
-        b, s, h, hd = q.shape
-        kvh, ps = kp.shape[2], kp.shape[1]
-        valid = _valid_positions(pi, cl, ps)                    # (B, T)
-        q_pos = cl[:, None] - s + torch.arange(s, device=dev)[None, :]
-        real = (torch.arange(s, device=dev)[None, :] >= s - nl[:, None]) \
-            & (q_pos >= 0)                                      # (B, S)
-        seen = (valid[:, None, :] & real[:, :, None]
-                & (torch.arange(valid.shape[1], device=dev)[None, None, :]
-                   <= q_pos[:, :, None]))                       # (B, S, T)
-        used = valid[real.any(dim=1)]
-        rows = int(used.sum())
-        row_sec = _span(hd, kp.element_size())
-        qsec = _span(q.numel(), q.element_size())
-        sectors = (2 * rows * kvh * row_sec + 2 * qsec
-                   + _span(pi.numel()) + _span(b) * (1 if s == 1 else 2))
-        if quant:        # each scale array: the (page, KV head) entries read
-            lane_pg = pi[real.any(dim=1)].repeat_interleave(ps, dim=1)[used]
-            sidx = (lane_pg.long()[:, None] * kvh
-                    + torch.arange(kvh, device=dev)[None, :])
-            sectors += 2 * _sectors(sidx)
-        flops = 4 * hd * h * int(seen.sum())
-        if s == 1:
-            args = (q[:, 0].contiguous(), kp, vp, *scales, pi, cl)
-            kern = functools.partial(
-                K.paged_attention_quant if quant else K.paged_attention,
-                *args)
-            plain = functools.partial(
-                R.paged_attn_quant_ref if quant else R.paged_attn_ref, *args)
-        else:
-            args = (q, kp, vp, *scales, pi, cl, nl)
-            kern = functools.partial(
-                K.paged_chunk_attention_quant if quant
-                else K.paged_chunk_attention, *args)
-            plain = functools.partial(
-                R.paged_chunk_attn_quant_ref if quant
-                else R.paged_chunk_attn_ref, *args)
-        idx = torch.where(pi >= 0, pi, 0).long()
-        dense = [x[idx] if not quant else Q.dequantize_pages(x[idx], sc[idx])
-                 for x, sc in zip((kp, vp), scales or (None, None))]
-        kd, vd = (x.reshape(b, -1, kvh, hd).transpose(1, 2).to(q.dtype)
-                  .contiguous() for x in dense)
-        qd = q.transpose(1, 2).contiguous()                     # (B, H, S, hd)
-        lib = functools.partial(F.scaled_dot_product_attention, qd, kd, vd,
-                                attn_mask=seen[:, None], enable_gqa=True)
-        want = (R.paged_chunk_attn_quant_ref(q, kp, vp, *scales, pi, cl, nl)
-                if quant else R.paged_chunk_attn_ref(q, kp, vp, pi, cl, nl))
-        err = float((lib().transpose(1, 2).float() - want.float()).abs().max())
-        t_bytes = sectors * SECTOR / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / INT_OPS_PER_S * 1e3
-        k, p, lb = _median_ms(kern), _median_ms(plain), _median_ms(lib)
-        out[name] = {"ms": k["graph_ms"], "plain_ms": p["graph_ms"],
-                     "library_ms": lb["graph_ms"], "call_ms": k["call_ms"],
-                     "plain_call_ms": p["call_ms"],
-                     "bound_ms": max(t_bytes, t_ops),
-                     "bound_by": "bytes" if t_bytes >= t_ops
-                     else "operations",
-                     "bytes": sectors * SECTOR, "ops": flops,
-                     "kv_rows": rows, "library_max_abs_err": err,
-                     "shape": {"B": b, "S": s, "H": h, "KVH": kvh, "hd": hd,
-                               "page": ps, "lanes": pi.shape[1],
-                               "cache_len": cl.tolist()}}
+    out = {name: _time_paged_case(dev, case, quant)
+           for name, case in zip(names, (dec, pre))}
+    long = _long_case(rng, dev, base["kv_dtype"])
+    out[names[0]]["long_context"] = _time_paged_case(dev, long, quant,
+                                                     plain_n=10)
     return out
+
+
+def _time_paged_case(dev, case, quant, plain_n=100) -> dict:
+    """One K5-K8 timing record (see :func:`time_paged_kernels`); the plain
+    version and the library call run ``plain_n`` calls a window."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import paged_attn as PA
+    from repro_torch.kernels import quant as Q
+    from repro_torch.kernels import ref as R
+
+    q, kp, vp, pi, cl, nl = case
+    scales = ()
+    if quant:
+        _, _, kp, vp, ks, vs = _quantized(kp, vp, pi, traps=False)
+        scales = (ks, vs)
+    b, s, h, hd = q.shape
+    kvh, ps = kp.shape[2], kp.shape[1]
+    valid = _valid_positions(pi, cl, ps)                        # (B, T)
+    q_pos = cl[:, None] - s + torch.arange(s, device=dev)[None, :]
+    real = (torch.arange(s, device=dev)[None, :] >= s - nl[:, None]) \
+        & (q_pos >= 0)                                          # (B, S)
+    seen = (valid[:, None, :] & real[:, :, None]
+            & (torch.arange(valid.shape[1], device=dev)[None, None, :]
+               <= q_pos[:, :, None]))                           # (B, S, T)
+    used = valid[real.any(dim=1)]
+    rows = int(used.sum())
+    row_sec = _span(hd, kp.element_size())
+    qsec = _span(q.numel(), q.element_size())
+    sectors = (2 * rows * kvh * row_sec + 2 * qsec
+               + _span(pi.numel()) + _span(b) * (1 if s == 1 else 2))
+    if quant:        # each scale array: the (page, KV head) entries read
+        lane_pg = pi[real.any(dim=1)].repeat_interleave(ps, dim=1)[used]
+        sidx = (lane_pg.long()[:, None] * kvh
+                + torch.arange(kvh, device=dev)[None, :])
+        sectors += 2 * _sectors(sidx)
+    flops = 4 * hd * h * int(seen.sum())
+    extra = {}
+    if s == 1:
+        args = (q[:, 0].contiguous(), kp, vp, *scales, pi, cl)
+        fn = PA.paged_attention_quant if quant else PA.paged_attention
+        kern = functools.partial(fn, *args)
+        plain = functools.partial(
+            R.paged_attn_quant_ref if quant else R.paged_attn_ref, *args)
+        chunk = (K.paged_chunk_attention_quant if quant
+                 else K.paged_chunk_attention)
+        parent = functools.partial(chunk, q, kp, vp, *scales, pi, cl, nl)
+        one = functools.partial(fn, *args, n_split=1)
+        splits, pps = PA.decode_plan(args[0], kp, pi.shape[1])
+        # parent and new kernel in turns: parent, new, new, parent
+        p0, k0 = _median_ms(parent), _median_ms(kern)
+        k1, p1 = _median_ms(kern), _median_ms(parent)
+        o = _median_ms(one)
+        extra = {"parent_ms": (p0["graph_ms"] + p1["graph_ms"]) / 2,
+                 "parent_readings_ms": [p0["graph_ms"], p1["graph_ms"]],
+                 "readings_ms": [k0["graph_ms"], k1["graph_ms"]],
+                 "one_split_ms": o["graph_ms"], "splits": splits,
+                 "split_pages": pps}
+        k = {"graph_ms": (k0["graph_ms"] + k1["graph_ms"]) / 2,
+             "call_ms": (k0["call_ms"] + k1["call_ms"]) / 2}
+    else:
+        args = (q, kp, vp, *scales, pi, cl, nl)
+        kern = functools.partial(
+            K.paged_chunk_attention_quant if quant
+            else K.paged_chunk_attention, *args)
+        plain = functools.partial(
+            R.paged_chunk_attn_quant_ref if quant
+            else R.paged_chunk_attn_ref, *args)
+        k = _median_ms(kern)
+    idx = torch.where(pi >= 0, pi, 0).long()
+    dense = [x[idx] if not quant else Q.dequantize_pages(x[idx], sc[idx])
+             for x, sc in zip((kp, vp), scales or (None, None))]
+    kd, vd = (x.reshape(b, -1, kvh, hd).transpose(1, 2).to(q.dtype)
+              .contiguous() for x in dense)
+    qd = q.transpose(1, 2).contiguous()                         # (B, H, S, hd)
+    lib = functools.partial(F.scaled_dot_product_attention, qd, kd, vd,
+                            attn_mask=seen[:, None], enable_gqa=True)
+    want = (R.paged_chunk_attn_quant_ref(q, kp, vp, *scales, pi, cl, nl)
+            if quant else R.paged_chunk_attn_ref(q, kp, vp, pi, cl, nl))
+    err = float((lib().transpose(1, 2).float() - want.float()).abs().max())
+    t_bytes = sectors * SECTOR / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / INT_OPS_PER_S * 1e3
+    p, lb = _median_ms(plain, n=plain_n), _median_ms(lib, n=plain_n)
+    bound = max(t_bytes, t_ops)
+    return {"ms": k["graph_ms"], "plain_ms": p["graph_ms"],
+            "library_ms": lb["graph_ms"], "call_ms": k["call_ms"],
+            "plain_call_ms": p["call_ms"], "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_share": bound / k["graph_ms"], **extra,
+            "bytes": sectors * SECTOR, "ops": flops,
+            "kv_rows": rows, "library_max_abs_err": err,
+            "shape": {"B": b, "S": s, "H": h, "KVH": kvh, "hd": hd,
+                      "page": ps, "lanes": pi.shape[1],
+                      "cache_len": cl.tolist(), "q": str(q.dtype),
+                      "pages": str(kp.dtype)}}
 
 
 # ---------------------------------------------------------------------------
@@ -1509,7 +1690,9 @@ def scheduler_vs_greedy(cfg, params, dev, sched) -> dict:
 
 
 def build_all() -> dict:
-    """Compile both CUDA sources, one nvcc each, started together."""
+    """Compile both CUDA sources, one nvcc each, started together; with
+    ptxas's registers and spills of every kernel (the largest register
+    count, and each kernel that spills)."""
     from repro_torch.kernels import _build
 
     t0 = time.monotonic()
@@ -1517,14 +1700,28 @@ def build_all() -> dict:
         futs = {k: ex.submit(_build.compile_source,
                              _build.CSRC / os.path.basename(src))
                 for k, src in SOURCES.items()}
-        nvcc_s = {SOURCES[k]: f.result()[1] for k, f in futs.items()}
+        built = {SOURCES[k]: f.result() for k, f in futs.items()}
+    ptxas = {}
+    for src, (lib, _) in built.items():
+        info = _build.ptxas_summary(lib)
+        ptxas[src] = {
+            "kernels": len(info),
+            "max_registers": max((v.get("registers", 0)
+                                  for v in info.values()), default=None),
+            "spilling": {k: v["spill_bytes"] for k, v in info.items()
+                         if v.get("spill_bytes")}}
     return {"sources": list(SOURCES.values()),
-            "seconds": time.monotonic() - t0, "nvcc_seconds": nvcc_s}
+            "seconds": time.monotonic() - t0,
+            "nvcc_seconds": {k: v[1] for k, v in built.items()},
+            "ptxas": ptxas}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--decode-only", action="store_true",
+                    help="build, check K5-K8 and time them, then stop "
+                         "(no result line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1551,6 +1748,14 @@ def main(argv=None) -> int:
 
     emit({"phase": "build", **build_all()})
 
+    if args.decode_only:
+        checks = check_paged_kernels(dev)
+        checks.update(check_quant_kernels(dev))
+        emit({"phase": "kernels", "checks": checks})
+        times = time_paged_kernels(dev, seed=args.seed)
+        times.update(time_paged_kernels(dev, seed=args.seed, quant=True))
+        emit({"phase": "kernel_times", "card": card, "times": times})
+        return 0
     checks = check_kernels(dev)
     checks.update(check_paged_kernels(dev))
     checks.update(check_quant_kernels(dev))

@@ -19,9 +19,10 @@ value, an acquire/release pair moves no bytes between host and device.
 :class:`DeviceLeaseState` protocol (state in, state out).  Where ``repro``
 consumed the table buffer by donation, these update the state's table
 tensor in place: always continue from the returned state.  Host reader ids
-(numpy, lists) are uploaded, and must lie in ``[0, 2**32)``: the kernels
-hash the 32-bit reader id zero-extended, which equals ``repro``'s 64-bit
-limb hash on that range.  :class:`DeviceLeaseTable` and
+(numpy, lists) are uploaded, and may take any value in ``[0, 2**64)``: ids
+below 2**32 go up as uint32 bits, larger ones as uint64 bits, and the
+kernels hash either over the full 64-bit id, as ``repro``'s host limbs
+are.  :class:`DeviceLeaseTable` and
 :class:`LeaseHandle` wrap the protocol for concurrent host threads.
 
 Drain: ``repro`` kept up to ``pipeline_depth`` polls in flight, each count
@@ -99,14 +100,19 @@ def _lock_val(lock_id: int, device: torch.device) -> torch.Tensor:
 
 def _reader_ids(reader_ids, device: torch.device) -> torch.Tensor:
     """Reader ids as the kernels take them: an int32 device tensor whose
-    bits are the uint32 id.  A device tensor is used as it is."""
+    bits are the uint32 id, or, where a host id reaches 2**32, an int64
+    one whose bits are the uint64 id (hashed over all 64 bits, as
+    ``repro``'s ``_reader_limbs_host`` splits them).  A device tensor is
+    used as it is."""
     if isinstance(reader_ids, torch.Tensor):
         return reader_ids
     ids = np.asarray(reader_ids)
-    if ids.size and (ids.min() < 0 or ids.max() >= 2**32):
-        raise ValueError("host reader ids must lie in [0, 2**32)")
-    return torch.as_tensor(ids.astype(np.uint32).view(np.int32),
-                           device=device)
+    if ids.size and ids.min() < 0:
+        raise ValueError("host reader ids must lie in [0, 2**64)")
+    wide = bool(ids.size) and int(ids.max()) >= 2**32
+    bits = (ids.astype(np.uint64).view(np.int64) if wide
+            else ids.astype(np.uint32).view(np.int32))
+    return torch.as_tensor(bits, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -24,14 +24,17 @@
 // reduction, no second pass, no atomics in device memory, one launch per call.
 //
 // Design notes per kernel:
-// * K1/K2 run one thread per request (M <= 1024).  The TPU kernel resolved
-//   in-batch collisions with one-hot matmuls; here each thread scans the
-//   earlier requests' slots in shared memory (O(M^2), M is a serving batch)
-//   so the LOWEST index among attempting requests wins, exactly as a
-//   sequential CAS loop would.  A bare atomicCAS race would pick a winner in
-//   no fixed order.  All occupancy reads happen before the barrier and the
-//   unique winners store after it, so every decision sees the table as it
-//   was before the batch, as the TPU kernel's single table load did.
+// * K1/K2 run one thread per request, in chunks of 1024 requests for a
+//   larger batch.  The TPU kernel resolved in-batch collisions with one-hot
+//   matmuls; here each thread scans the earlier requests' slots in shared
+//   memory (O(M^2), M is a serving batch), chunk by chunk, so the LOWEST
+//   index among attempting requests wins across the whole batch, exactly as
+//   a sequential CAS loop would.  A bare atomicCAS race would pick a winner
+//   in no fixed order.  Within a chunk all occupancy reads happen before the
+//   barrier and the unique winners store after it; a later chunk reads a
+//   slot only if no earlier request claimed it, so that no earlier store
+//   touched it: every decision sees the table as it was before the batch,
+//   as the TPU kernel's single table load did.
 // * The hashed entries fold the registry's splitmix64 slot hash and the
 //   lock-value gather (lock_vals[lock_idx]) into the same launch, in native
 //   uint64, so a lease acquire or release is one launch.
@@ -45,7 +48,9 @@
 //   counters in shared memory.
 // * The hashed K2 entries are the single-lock lease table's acquire
 //   (conditional, under the scalar bias, id = the lock value) and the
-//   release (unconditional, id 0, denied readers masked to slot -1).
+//   release (unconditional, id 0, denied readers masked to slot -1).  They
+//   take 32-bit reader ids or 64-bit ones (host ids up to 2**64 - 1, hashed
+//   over all 64 bits as repro's host limbs are).
 // * K9 is K3 that also writes the int8 mask.  Its count is exact, as the
 //   TPU kernel's was: that one scanned every block in order.
 // * K10 keeps the TPU kernel's SEQUENTIAL semantics, which no parallel CAS
@@ -75,10 +80,11 @@ constexpr int kSeqChunk = 1024;   // K10 requests staged per pass
 constexpr size_t kSeqDefaultSmem = 48 * 1024 - 2 * kSeqChunk * sizeof(int);
 
 // splitmix64 finalizer over (lock, reader), as repro.core.table.mix_hash:
-// both ids are 32-bit values zero-extended to 64 bits.
-__device__ __forceinline__ uint64_t mix_hash(uint32_t lock, uint32_t reader) {
+// the lock is a 32-bit value zero-extended to 64 bits, the reader a 64-bit
+// id (a 32-bit one zero-extended).
+__device__ __forceinline__ uint64_t mix_hash(uint32_t lock, uint64_t reader) {
   uint64_t x = static_cast<uint64_t>(lock) * 0x9E3779B97F4A7C15ull +
-               static_cast<uint64_t>(reader) * 0xBF58476D1CE4E5B9ull;
+               reader * 0xBF58476D1CE4E5B9ull;
   x ^= x >> 30;
   x *= 0xBF58476D1CE4E5B9ull;
   x ^= x >> 27;
@@ -92,20 +98,25 @@ __device__ __forceinline__ bool in_table(int slot, int n_slots) {
 }
 
 // Request i's lock lane, slot and published id.  Hashed mode derives slot
-// and id from lock_vals[lane] and reader_ids[i]; explicit mode reads them.
-// `lane_ok` is false for a lane outside [0, n_locks).
+// and id from lock_vals[lane] and reader_ids[i] (int32 bits of a uint32
+// id, or with `reader_wide` int64 bits of a uint64 id); explicit mode reads
+// them.  `lane_ok` is false for a lane outside [0, n_locks).
 template <bool kHashed>
 __device__ __forceinline__ void load_request(
     int i, int n_slots, int n_locks, const int32_t* lock_vals,
     const int32_t* slots, const int32_t* lock_idx, int lidx_stride,
-    const int32_t* ids, const int32_t* reader_ids, int* lane, bool* lane_ok,
-    int* slot, int* id) {
+    const int32_t* ids, const void* reader_ids, int reader_wide, int* lane,
+    bool* lane_ok, int* slot, int* id) {
   *lane = lock_idx == nullptr ? 0 : lock_idx[i * lidx_stride];
   *lane_ok = *lane >= 0 && *lane < n_locks;
   if (kHashed) {
     const int32_t val = *lane_ok ? lock_vals[*lane] : 0;
-    const uint64_t h = mix_hash(static_cast<uint32_t>(val),
-                                static_cast<uint32_t>(reader_ids[i]));
+    const uint64_t reader =
+        reader_wide
+            ? static_cast<uint64_t>(static_cast<const int64_t*>(reader_ids)[i])
+            : static_cast<uint64_t>(static_cast<uint32_t>(
+                  static_cast<const int32_t*>(reader_ids)[i]));
+    const uint64_t h = mix_hash(static_cast<uint32_t>(val), reader);
     *slot = *lane_ok ? static_cast<int>(h & static_cast<uint64_t>(n_slots - 1))
                      : -1;
     *id = val;
@@ -125,41 +136,56 @@ publish_multi_kernel(int32_t* __restrict__ table, int n_slots,
                      const int32_t* __restrict__ slots,
                      const int32_t* __restrict__ lock_idx, int lidx_stride,
                      const int32_t* __restrict__ ids,
-                     const int32_t* __restrict__ reader_ids,
+                     const void* __restrict__ reader_ids, int reader_wide,
                      bool* __restrict__ granted, int m) {
   __shared__ int s_slot[kMaxRequests];
   __shared__ int s_attempt[kMaxRequests];
-  const int i = threadIdx.x;
-  const bool active = i < m;
-  int slot = -1, id = 0;
-  bool attempt = false;
-  bool win = false;
-  if (active) {
+  // request j's slot and id; -> whether it attempts
+  auto request = [&](int j, int* slot, int* id) {
     int lane;
     bool lane_ok;
-    load_request<kHashed>(i, n_slots, n_locks, lock_vals, slots, lock_idx,
-                          lidx_stride, ids, reader_ids, &lane, &lane_ok,
-                          &slot, &id);
-    attempt = lane_ok && rbias[lane] != 0;
-    s_slot[i] = slot;
-    s_attempt[i] = attempt;
-  }
-  __syncthreads();
-  if (active && attempt) {
+    load_request<kHashed>(j, n_slots, n_locks, lock_vals, slots, lock_idx,
+                          lidx_stride, ids, reader_ids, reader_wide, &lane,
+                          &lane_ok, slot, id);
+    return lane_ok && rbias[lane] != 0;
+  };
+  for (int base = 0; base < m; base += kMaxRequests) {
+    const int i = base + threadIdx.x;
+    const bool active = i < m;
+    int slot = -1, id = 0;
+    const bool attempt = active && request(i, &slot, &id);
+    // first among the attempting requests before i: every earlier chunk,
+    // then this one up to i
     bool first = true;
-    for (int j = 0; j < i; ++j) {
-      if (s_attempt[j] && s_slot[j] == slot) {
-        first = false;
-        break;
+    for (int b2 = 0; b2 <= base; b2 += kMaxRequests) {
+      __syncthreads();  // the scans of the previous chunk are done
+      const int j = b2 + threadIdx.x;
+      if (j < m) {
+        int sj, idj;
+        s_attempt[threadIdx.x] = request(j, &sj, &idj);
+        s_slot[threadIdx.x] = sj;
+      }
+      __syncthreads();
+      if (attempt && first) {
+        const int n = b2 < base ? kMaxRequests : static_cast<int>(threadIdx.x);
+        for (int k = 0; k < n; ++k) {
+          if (s_attempt[k] && s_slot[k] == slot) {
+            first = false;
+            break;
+          }
+        }
       }
     }
-    const int cur = in_table(slot, n_slots) ? table[slot] : 0;
-    win = first && cur == 0;
-  }
-  __syncthreads();  // every occupancy read lands before any store
-  if (active) {
-    if (win && in_table(slot, n_slots)) table[slot] = id;
-    granted[i] = win;
+    bool win = false;
+    if (attempt) {
+      const int cur = in_table(slot, n_slots) ? table[slot] : 0;
+      win = first && cur == 0;
+    }
+    __syncthreads();  // every occupancy read of the chunk lands before a store
+    if (active) {
+      if (win && in_table(slot, n_slots)) table[slot] = id;
+      granted[i] = win;
+    }
   }
 }
 
@@ -176,46 +202,60 @@ publish_kernel(int32_t* __restrict__ table, int n_slots,
                const int32_t* __restrict__ ids,
                const int32_t* __restrict__ lock_vals, int n_locks,
                const int32_t* __restrict__ lock_idx, int lidx_stride,
-               const int32_t* __restrict__ reader_ids,
+               const void* __restrict__ reader_ids, int reader_wide,
                const bool* __restrict__ mask, bool* __restrict__ granted,
                int m) {
   __shared__ int s_slot[kMaxRequests];
-  const int i = threadIdx.x;
-  const bool active = i < m;
-  int slot = -1, id = 0;
-  bool win = false;
-  if (active) {
+  auto request = [&](int j, int* slot, int* id) {
     int lane;
     bool lane_ok;
-    load_request<kHashed>(i, n_slots, n_locks, lock_vals, slots, lock_idx,
-                          lidx_stride, ids, reader_ids, &lane, &lane_ok,
-                          &slot, &id);
+    load_request<kHashed>(j, n_slots, n_locks, lock_vals, slots, lock_idx,
+                          lidx_stride, ids, reader_ids, reader_wide, &lane,
+                          &lane_ok, slot, id);
     if (kHashed && unconditional) {   // the release: store 0, and never
-      id = 0;                          // into a denied reader's slot
-      if (mask != nullptr && !mask[i]) slot = -1;
+      *id = 0;                         // into a denied reader's slot
+      if (mask != nullptr && !mask[j]) *slot = -1;
     }
-    s_slot[i] = slot;
-  }
-  __syncthreads();
-  if (active) {
+  };
+  for (int base = 0; base < m; base += kMaxRequests) {
+    const int i = base + threadIdx.x;
+    const bool active = i < m;
+    int slot = -1, id = 0;
+    if (active) request(i, &slot, &id);
     bool first = true;
-    for (int j = 0; j < i; ++j) {
-      if (s_slot[j] == slot) {
-        first = false;
-        break;
+    for (int b2 = 0; b2 <= base; b2 += kMaxRequests) {
+      __syncthreads();  // the scans of the previous chunk are done
+      const int j = b2 + threadIdx.x;
+      if (j < m) {
+        int sj, idj;
+        request(j, &sj, &idj);
+        s_slot[threadIdx.x] = sj;
+      }
+      __syncthreads();
+      if (active && first) {
+        const int n = b2 < base ? kMaxRequests : static_cast<int>(threadIdx.x);
+        for (int k = 0; k < n; ++k) {
+          if (s_slot[k] == slot) {
+            first = false;
+            break;
+          }
+        }
       }
     }
-    win = first;
-    if (!unconditional) {
-      const int cur = in_table(slot, n_slots) ? table[slot] : 0;
-      win = win && cur == 0;
+    bool win = false;
+    if (active) {
+      win = first;
+      if (!unconditional) {
+        const int cur = in_table(slot, n_slots) ? table[slot] : 0;
+        win = win && cur == 0;
+      }
+      if (check_rbias) win = win && *rbias != 0;
     }
-    if (check_rbias) win = win && *rbias != 0;
-  }
-  __syncthreads();  // every occupancy read lands before any store
-  if (active) {
-    if (win && in_table(slot, n_slots)) table[slot] = id;
-    if (granted != nullptr) granted[i] = win;
+    __syncthreads();  // every occupancy read of the chunk lands before a store
+    if (active) {
+      if (win && in_table(slot, n_slots)) table[slot] = id;
+      if (granted != nullptr) granted[i] = win;
+    }
   }
 }
 
@@ -313,7 +353,10 @@ publish_seq_kernel(const int32_t* __restrict__ table, int n_slots,
   for (int s = threadIdx.x; s < n_slots; s += blockDim.x) out[s] = s_table[s];
 }
 
-inline int request_threads(int m) { return ((m + 31) / 32) * 32; }
+// One thread per request of a chunk: m rounded up to a warp, at most 1024.
+inline int request_threads(int m) {
+  return m < kMaxRequests ? ((m + 31) / 32) * 32 : kMaxRequests;
+}
 
 }  // namespace
 
@@ -332,7 +375,7 @@ int bravo_publish_multi(void* table, int n_slots, const void* rbias,
           static_cast<const int32_t*>(rbias), nullptr, n_locks,
           static_cast<const int32_t*>(slots),
           static_cast<const int32_t*>(lock_idx), 1,
-          static_cast<const int32_t*>(ids), nullptr,
+          static_cast<const int32_t*>(ids), nullptr, 0,
           static_cast<bool*>(granted), m);
   return static_cast<int>(cudaGetLastError());
 }
@@ -348,8 +391,7 @@ int bravo_acquire_hashed(void* table, int n_slots, const void* rbias,
           static_cast<const int32_t*>(rbias),
           static_cast<const int32_t*>(lock_vals), n_locks, nullptr,
           static_cast<const int32_t*>(lock_idx), lidx_stride, nullptr,
-          static_cast<const int32_t*>(reader_ids),
-          static_cast<bool*>(granted), m);
+          reader_ids, 0, static_cast<bool*>(granted), m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -362,37 +404,35 @@ int bravo_publish(void* table, int n_slots, const void* rbias,
           static_cast<const int32_t*>(rbias), check_rbias, unconditional,
           static_cast<const int32_t*>(slots),
           static_cast<const int32_t*>(ids), nullptr, 0, nullptr, 0, nullptr,
-          nullptr, static_cast<bool*>(granted), m);
+          0, nullptr, static_cast<bool*>(granted), m);
   return static_cast<int>(cudaGetLastError());
 }
 
 int bravo_release_hashed(void* table, int n_slots, const void* lock_vals,
                          int n_locks, const void* lock_idx, int lidx_stride,
-                         const void* reader_ids, const void* mask, int m,
-                         void* stream) {
+                         const void* reader_ids, int reader_wide,
+                         const void* mask, int m, void* stream) {
   publish_kernel<true>
       <<<1, request_threads(m), 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<int32_t*>(table), n_slots, nullptr, 0, 1, nullptr,
           nullptr, static_cast<const int32_t*>(lock_vals), n_locks,
-          static_cast<const int32_t*>(lock_idx), lidx_stride,
-          static_cast<const int32_t*>(reader_ids),
-          static_cast<const bool*>(mask), nullptr, m);
+          static_cast<const int32_t*>(lock_idx), lidx_stride, reader_ids,
+          reader_wide, static_cast<const bool*>(mask), nullptr, m);
   return static_cast<int>(cudaGetLastError());
 }
 
 int bravo_publish_hashed(void* table, int n_slots, const void* rbias,
                          const void* lock_vals, int n_locks,
                          const void* lock_idx, int lidx_stride,
-                         const void* reader_ids, void* granted, int m,
-                         void* stream) {
+                         const void* reader_ids, int reader_wide,
+                         void* granted, int m, void* stream) {
   publish_kernel<true>
       <<<1, request_threads(m), 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<int32_t*>(table), n_slots,
           static_cast<const int32_t*>(rbias), 1, 0, nullptr, nullptr,
           static_cast<const int32_t*>(lock_vals), n_locks,
-          static_cast<const int32_t*>(lock_idx), lidx_stride,
-          static_cast<const int32_t*>(reader_ids), nullptr,
-          static_cast<bool*>(granted), m);
+          static_cast<const int32_t*>(lock_idx), lidx_stride, reader_ids,
+          reader_wide, nullptr, static_cast<bool*>(granted), m);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,6 +14,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -26,7 +27,8 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _mu = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -79,7 +81,9 @@ def _lib_path(source: pathlib.Path) -> pathlib.Path:
 def compile_source(source: pathlib.Path) -> Tuple[pathlib.Path, float]:
     """Compile one ``.cu`` file unless its library exists; -> (library
     path, seconds spent in nvcc).  Writes to a temporary name and renames,
-    so concurrent builds never load a half-written library."""
+    so concurrent builds never load a half-written library.  ptxas's
+    report (registers, shared memory and spills of each kernel) goes to
+    :func:`ptxas_report`'s file beside the library."""
     out = _lib_path(source)
     if out.exists():
         return out, 0.0
@@ -93,11 +97,43 @@ def compile_source(source: pathlib.Path) -> Tuple[pathlib.Path, float]:
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source.name}:\n"
                                f"{res.stdout}\n{res.stderr}")
+        ptxas_report(out).write_text(res.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out, time.monotonic() - t0
+
+
+def ptxas_report(library: pathlib.Path) -> pathlib.Path:
+    """Where :func:`compile_source` keeps nvcc's ``-Xptxas -v`` output."""
+    return library.with_suffix(".ptxas.txt")
+
+
+def ptxas_summary(library: pathlib.Path) -> dict:
+    """Per kernel (mangled name) of a built library: registers and spill
+    bytes, from its ptxas report; {} when there is none."""
+    path = ptxas_report(library)
+    if not path.exists():
+        return {}
+    out, name = {}, None
+    for line in path.read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(name, {})["spill_bytes"] = int(m.group(1)) + int(
+                m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
 
 
 def load(source: str, signatures: Dict[str, list]) -> ctypes.CDLL:

@@ -9,8 +9,11 @@ page-index vector, never through a dense cache.  K7
 ``quantized=True`` (``_paged_attn_quant_call``): K5 over int8 pages with one
 float32 scale per (page, KV head), dequantized in the kernel.  The Pallas
 kernel's ``lanes_per_step`` knob (how many page DMAs a TPU grid step keeps
-in flight) has no counterpart: the CUDA kernel walks positions in tiles of
-32 and every query row is computed on its own.
+in flight) has no counterpart: the CUDA kernel splits the page lanes over
+the grid (:func:`decode_splits`, from host shapes alone) and walks each
+split in tiles of 64 or 128 positions, streamed through shared memory with
+16-byte asynchronous copies; a second pass merges the splits' partial
+softmax states.  Both passes count as one launch.
 
 A CPU tensor takes the plain version (``ref.paged_attn_ref``,
 ``ref.paged_attn_quant_ref``); a CUDA tensor launches the kernel or raises.
@@ -23,7 +26,7 @@ attention.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,14 +35,19 @@ from . import ref as R
 from .table_publish import on_cpu
 
 SOURCE = "paged_attn.cu"
-MAX_HD = 128      # a lane holds hd / 32 accumulator entries, at most 4
-MAX_WARPS = 16    # warps of one CTA: (query heads per KV head) * columns
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' instantiations
+MAX_WARPS = 16    # chunk kernel: warps of one CTA, looping over the
+                  # (column, query head) pairs
+DECODE_HEADS = 4  # decode kernel: query heads of one CTA (1 when H == KVH)
+MAX_SPLIT_PAGES = 512        # page lanes of one decode split
+MIN_SPLIT_POSITIONS = 256    # a split is worth a CTA from this many positions
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "bravo_paged_attn": [_P] * 6 + [_I] * 9 + [_P],
+    "bravo_paged_attn": [_P] * 8 + [_I] * 11 + [_P],
     "bravo_paged_chunk_attn": [_P] * 7 + [_I] * 11 + [_P],
-    "bravo_paged_attn_quant": [_P] * 8 + [_I] * 8 + [_P],
+    "bravo_paged_attn_quant": [_P] * 10 + [_I] * 10 + [_P],
+    "bravo_paged_attn_residency": [_I] * 8 + [_P],
     "bravo_paged_chunk_attn_quant": [_P] * 9 + [_I] * 10 + [_P],
 }
 
@@ -115,10 +123,52 @@ def check_args(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     for t in ts:
         _need(t.is_contiguous(), "paged attention takes contiguous tensors")
     if not cpu:
-        _need(hd <= MAX_HD, f"head_dim {hd} > {MAX_HD}, the kernel's limit")
-        _need(h // kvh <= MAX_WARPS,
-              f"{h // kvh} query heads per KV head > {MAX_WARPS}")
+        _need(hd in HEAD_DIMS, f"head_dim {hd}: the kernels are built for "
+              f"head_dim in {HEAD_DIMS}")
     return cpu
+
+
+def decode_splits(b: int, h: int, kvh: int, lanes: int, ps: int,
+                  n_sm: int, resident: int) -> Tuple[int, int]:
+    """K5/K7's KV split, from host shapes alone (never from ``cache_len``'s
+    values, so a call moves nothing between host and device): -> (number
+    of splits, page lanes per split).  The grid has ``b * kvh * groups``
+    CTAs a split (``groups``: the query heads of a KV head in fours, or 1
+    when ``h == kvh``); the splits fill one wave of ``resident`` CTAs on
+    each of ``n_sm`` SMs, as long as each split keeps
+    ``MIN_SPLIT_POSITIONS`` positions, and a split never holds more than
+    ``MAX_SPLIT_PAGES`` lanes.  One split runs no second pass."""
+    if lanes <= 0:
+        return 1, 0
+    g = h // kvh
+    groups = 1 if g == 1 else -(-g // DECODE_HEADS)
+    wave = max(1, resident * n_sm // max(1, b * kvh * groups))
+    most = lanes * ps // MIN_SPLIT_POSITIONS
+    n = max(1, min(wave, most, lanes), -(-lanes // MAX_SPLIT_PAGES))
+    pps = -(-lanes // n)
+    return -(-lanes // pps), pps
+
+
+_RESIDENT = {}
+
+
+def decode_residency(q: torch.Tensor, k_pages: torch.Tensor, lanes: int,
+                     pps: int) -> int:
+    """CTAs of the decode kernel for these operands (q and page types, head
+    shape, ``lanes`` page lanes, ``pps`` of them a split) that one SM holds
+    at once, from the CUDA occupancy calculator: a host query, cached."""
+    h, hd = q.shape[-2], q.shape[-1]
+    ps, kvh = k_pages.shape[1], k_pages.shape[2]
+    kv = 2 if k_pages.dtype == torch.int8 else _codes(q, k_pages)[1]
+    key = (q.device.index, _q_bf16(q), kv, h, kvh, hd, ps, lanes, pps)
+    if key not in _RESIDENT:
+        lib = paged_lib()
+        out = ctypes.c_int(0)
+        _build.check(lib, lib.bravo_paged_attn_residency(
+            _q_bf16(q), kv, h, kvh, hd, ps, lanes, pps, ctypes.byref(out)),
+            "paged_attention residency")
+        _RESIDENT[key] = out.value
+    return _RESIDENT[key]
 
 
 def _q_bf16(q: torch.Tensor) -> int:
@@ -129,24 +179,70 @@ def _codes(q: torch.Tensor, k_pages: torch.Tensor):
     return _q_bf16(q), int(k_pages.dtype == torch.bfloat16)
 
 
-def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
-                    v_pages: torch.Tensor, page_idx: torch.Tensor,
-                    cache_len: torch.Tensor) -> torch.Tensor:
-    """K5: q (B, H, hd) against k/v_pages (n_pages, ps, KVH, hd) by
-    page_idx (B, P) int32 (-1 = unused lane) up to cache_len (B,) int32.
-    -> (B, H, hd) in q's dtype; a row with no valid position is zero."""
-    if check_args(q, k_pages, v_pages, page_idx, cache_len):
-        return R.paged_attn_ref(q, k_pages, v_pages, page_idx, cache_len)
+def decode_plan(q: torch.Tensor, k_pages: torch.Tensor,
+                lanes: int) -> Tuple[int, int]:
+    """The split :func:`paged_attention` and :func:`paged_attention_quant`
+    launch on these CUDA operands with ``lanes`` page lanes: -> (number of
+    splits, page lanes a split).  The residency is taken at the largest
+    split the call can have; a smaller split needs less shared memory, so
+    at least as many CTAs fit."""
+    b, h = q.shape[0], q.shape[-2]
+    ps, kvh = k_pages.shape[1], k_pages.shape[2]
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    resident = decode_residency(q, k_pages, lanes,
+                                min(lanes, MAX_SPLIT_PAGES))
+    return decode_splits(b, h, kvh, lanes, ps, n_sm, resident)
+
+
+def _decode(entry: str, q: torch.Tensor, k_pages: torch.Tensor,
+            v_pages: torch.Tensor, scales, page_idx: torch.Tensor,
+            cache_len: torch.Tensor, n_split: Optional[int]) -> torch.Tensor:
+    """Launch K5 (``scales`` empty) or K7 on CUDA tensors: the split's
+    partials go to two ``torch.empty`` buffers; ``n_split`` overrides
+    :func:`decode_splits` (lanes split evenly)."""
     b, h, hd = q.shape
     n_pages, ps, kvh, _ = k_pages.shape
+    lanes = page_idx.shape[1]
+    if n_split is None:
+        n_split, pps = decode_plan(q, k_pages, lanes)
+    else:
+        pps = -(-lanes // n_split) if lanes else 0
+        n_split = -(-lanes // pps) if lanes else 1
+        _need(pps <= MAX_SPLIT_PAGES,
+              f"a split of {pps} page lanes > {MAX_SPLIT_PAGES}")
     out = torch.empty_like(q)
+    part = ml = None
+    if n_split > 1:
+        part = torch.empty((b, h, n_split, hd), dtype=torch.float32,
+                           device=q.device)
+        ml = torch.empty((b, h, n_split, 2), dtype=torch.float32,
+                         device=q.device)
     if b and h:
         lib = paged_lib()
-        _build.check(lib, lib.bravo_paged_attn(
+        codes = (_q_bf16(q),) if scales else _codes(q, k_pages)
+        _build.check(lib, getattr(lib, entry)(
             _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages),
-            _build.ptr(page_idx), _build.ptr(cache_len), _build.ptr(out),
-            b, h, kvh, hd, ps, page_idx.shape[1], n_pages, *_codes(q, k_pages),
-            _build.stream_ptr(q.device)), "paged_attention")
+            *map(_build.ptr, scales), _build.ptr(page_idx),
+            _build.ptr(cache_len), _build.ptr(out), _build.ptr(part),
+            _build.ptr(ml), b, h, kvh, hd, ps, lanes, n_pages, n_split, pps,
+            *codes, _build.stream_ptr(q.device)), entry)
+    return out
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, page_idx: torch.Tensor,
+                    cache_len: torch.Tensor, *,
+                    n_split: Optional[int] = None) -> torch.Tensor:
+    """K5: q (B, H, hd) against k/v_pages (n_pages, ps, KVH, hd) by
+    page_idx (B, P) int32 (-1 = unused lane) up to cache_len (B,) int32.
+    -> (B, H, hd) in q's dtype; a row with no valid position is zero.
+    ``n_split`` overrides the kernel's KV split (the result is the same up
+    to float32 rounding); the plain version ignores it."""
+    if check_args(q, k_pages, v_pages, page_idx, cache_len):
+        return R.paged_attn_ref(q, k_pages, v_pages, page_idx, cache_len)
+    out = _decode("bravo_paged_attn", q, k_pages, v_pages, (), page_idx,
+                  cache_len, n_split)
+    if q.shape[0] and q.shape[1]:
         PAGED_ATTENTION.add()
     return out
 
@@ -154,23 +250,16 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 def paged_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, k_scale: torch.Tensor,
                           v_scale: torch.Tensor, page_idx: torch.Tensor,
-                          cache_len: torch.Tensor) -> torch.Tensor:
+                          cache_len: torch.Tensor, *,
+                          n_split: Optional[int] = None) -> torch.Tensor:
     """K7: K5 over int8 k/v_pages (n_pages, ps, KVH, hd) with float32
     k/v_scale (n_pages, KVH).  -> (B, H, hd) in q's dtype."""
     if check_args(q, k_pages, v_pages, page_idx, cache_len, None, k_scale,
                   v_scale):
         return R.paged_attn_quant_ref(q, k_pages, v_pages, k_scale, v_scale,
                                       page_idx, cache_len)
-    b, h, hd = q.shape
-    n_pages, ps, kvh, _ = k_pages.shape
-    out = torch.empty_like(q)
-    if b and h:
-        lib = paged_lib()
-        _build.check(lib, lib.bravo_paged_attn_quant(
-            _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages),
-            _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(page_idx),
-            _build.ptr(cache_len), _build.ptr(out), b, h, kvh, hd, ps,
-            page_idx.shape[1], n_pages, _q_bf16(q),
-            _build.stream_ptr(q.device)), "paged_attention_quant")
+    out = _decode("bravo_paged_attn_quant", q, k_pages, v_pages,
+                  (k_scale, v_scale), page_idx, cache_len, n_split)
+    if q.shape[0] and q.shape[1]:
         PAGED_ATTENTION_QUANT.add()
     return out

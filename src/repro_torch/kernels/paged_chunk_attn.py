@@ -10,7 +10,8 @@ page store in place; padding columns come out zero.  K8
 head) scales, dequantized in the kernel.  The Pallas kernel's
 q-block height is not part of the result (every query row is computed on its
 own); the CUDA kernel takes as many chunk columns per CTA as fit in 16 warps
-at one warp per (column, query head).
+at one warp per (column, query head), and with more query heads per KV head
+than that, one column per CTA whose warps loop over the heads.
 
 A CPU tensor takes the plain version (``ref.paged_chunk_attn_ref``,
 ``ref.paged_chunk_attn_quant_ref``); a CUDA tensor launches the kernel or
@@ -33,7 +34,8 @@ PAGED_CHUNK_ATTENTION_QUANT = _build.LaunchCounter(
 
 def _cols_per_cta(s: int, h: int, kvh: int) -> int:
     """Chunk columns per CTA: as many as fit in 16 warps at one warp per
-    (column, query head)."""
+    (column, query head); at least one, whose pairs the warps then loop
+    over."""
     return max(1, min(s, MAX_WARPS // (h // kvh)))
 
 

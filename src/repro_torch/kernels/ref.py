@@ -164,15 +164,17 @@ def multi_count_ref(table2d: torch.Tensor,
 
 def hashed_requests(table2d, lock_vals, lock_idx, reader_ids):
     """-> (lanes, lock values, slots) of the hashed entries' requests; a
-    lane outside ``lock_vals`` gets slot -1."""
+    lane outside ``lock_vals`` gets slot -1.  ``reader_ids``: int32 (the
+    bits of uint32 ids) or int64 (the bits of uint64 ids)."""
     n_slots = table2d.numel()
     n_locks = lock_vals.shape[0]
     lidx = lock_idx.expand(reader_ids.shape)
     lane_ok = (lidx >= 0) & (lidx < n_locks)
     vals = lock_vals[lidx.clamp(0, n_locks - 1).long()]
     zero = torch.zeros_like(vals)
-    slots = hash_slots(zero, vals, torch.zeros_like(reader_ids), reader_ids,
-                       n_slots)
+    hi = (reader_ids >> 32 if reader_ids.dtype == torch.int64
+          else torch.zeros_like(reader_ids))          # int64: uint64 bits
+    slots = hash_slots(zero, vals, hi, reader_ids, n_slots)
     return lidx, vals, torch.where(lane_ok, slots, -1)
 
 
@@ -293,6 +295,61 @@ def paged_attn_ref(q: torch.Tensor, k_pages: torch.Tensor,
     ones = torch.ones_like(cache_len)
     return paged_chunk_attn_ref(q[:, None], k_pages, v_pages, page_idx,
                                 cache_len, ones)[:, 0]
+
+
+def paged_attn_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                         v_pages: torch.Tensor, page_idx: torch.Tensor,
+                         cache_len: torch.Tensor, n_split: int,
+                         pages_per_split: int, k_scale=None,
+                         v_scale=None) -> torch.Tensor:
+    """K5 (K7 with int8 pages and their scales) as the CUDA kernel computes
+    it, in two passes; for tests only.  Pass 1: split ``s`` takes page lanes
+    ``[s * pages_per_split, (s + 1) * pages_per_split)`` and gives, per
+    query head, its own softmax state: the max score ``m`` (-inf when it
+    holds no valid position), ``l = sum exp(score - m)`` and ``acc = sum
+    exp(score - m) * v`` (0 when empty).  Pass 2 merges them: ``M = max
+    m``, each split weighted by ``exp(m - M)`` (0 for an empty split, so
+    -inf - (-inf) is never formed), ``out = sum w acc / max(sum w l,
+    1e-20)``; a row whose splits are all empty is exactly zero."""
+    b, h, hd = q.shape
+    n_pages, ps, kvh, _ = k_pages.shape
+    g = h // kvh
+    lanes = page_idx.shape[1]
+    span = n_split * pages_per_split
+    if span < lanes:
+        raise ValueError(f"{n_split} splits of {pages_per_split} lanes do "
+                         f"not cover {lanes} lanes")
+    pi = torch.full((b, span), -1, dtype=page_idx.dtype, device=q.device)
+    pi[:, :lanes] = page_idx
+    lane_ok = (pi >= 0) & (pi < n_pages)
+    idx = torch.where(lane_ok, pi, 0).long()
+
+    def gathered(pages, scale):
+        x = pages[idx].float()                     # (B, span, ps, KVH, hd)
+        if scale is not None:
+            x = x * scale[idx][:, :, None, :, None]
+        return x.reshape(b, n_split, pages_per_split * ps, kvh, hd)
+
+    k, v = gathered(k_pages, k_scale), gathered(v_pages, v_scale)
+    t = torch.arange(span * ps, device=q.device)
+    n_pos = torch.clamp(cache_len.long(), max=lanes * ps)
+    valid = ((t[None, :] < n_pos[:, None])
+             & lane_ok.repeat_interleave(ps, dim=1))            # (B, T)
+    valid = valid.reshape(b, 1, 1, n_split, -1)
+    qh = q.float().reshape(b, kvh, g, hd)
+    sc = torch.einsum("bkgd,bntkd->bkgnt", qh, k) / math.sqrt(hd)
+    sc = torch.where(valid, sc, -math.inf)
+    m = sc.amax(dim=-1)                                         # (B,K,g,n)
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.where(valid, torch.exp(sc - m_safe[..., None]), 0.0)
+    l_s = p.sum(dim=-1)
+    acc = torch.einsum("bkgnt,bntkd->bkgnd", p, v)
+    top = m.amax(dim=-1, keepdim=True)
+    top = torch.where(torch.isfinite(top), top, 0.0)
+    w = torch.where(torch.isfinite(m), torch.exp(m - top), 0.0)
+    den = torch.clamp((w * l_s).sum(dim=-1), min=1e-20)
+    o = (w[..., None] * acc).sum(dim=-2) / den[..., None]
+    return o.reshape(b, h, hd).to(q.dtype)
 
 
 def paged_attn_quant_ref(q: torch.Tensor, k_pages: torch.Tensor,

@@ -14,6 +14,9 @@ caller's table tensor IN PLACE and return that same tensor.  K10
 (``publish``, ``clear``) replaces the legacy ``_publish_kernel``, which had
 no alias and copied its table on every call: it returns a NEW table.
 
+K1/K2 run in one CTA and take a batch of any size, in chunks of 1024
+requests with the lowest index winning across chunks.
+
 A wrapper given CPU tensors runs the plain version from ``ref`` (and copies
 its result into the table); given CUDA tensors it launches the kernel or
 raises.  Each launch adds one to the kernel's :class:`LaunchCounter`.
@@ -30,7 +33,6 @@ from . import _build
 from . import ref as R
 
 LANES = 128
-MAX_REQUESTS = 1024   # one thread per request, one CTA
 # K10 stages the table in one CTA's shared memory: 227 KiB less the 8 KiB
 # of its request chunk
 MAX_SEQ_SLOTS = (232448 - 8192) // 4
@@ -41,8 +43,9 @@ SIGNATURES = {
     "bravo_publish_multi": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _P],
     "bravo_acquire_hashed": [_P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _P],
     "bravo_publish": [_P, _I, _P, _I, _I, _P, _P, _P, _I, _P],
-    "bravo_publish_hashed": [_P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _P],
-    "bravo_release_hashed": [_P, _I, _P, _I, _P, _I, _P, _P, _I, _P],
+    "bravo_publish_hashed": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _I,
+                             _P],
+    "bravo_release_hashed": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P],
     "bravo_poll": [_P, _I, _I, _P, _P],
     "bravo_multi_poll": [_P, _I, _P, _I, _P, _P],
     "bravo_scan": [_P, _I, _I, _P, _P, _P],
@@ -90,10 +93,15 @@ def check_table(table2d: torch.Tensor) -> int:
     return table2d.numel()
 
 
-def _check_batch(m: int) -> None:
-    if m > MAX_REQUESTS:
-        raise ValueError(f"{m} requests in one batch; the kernel takes at "
-                         f"most {MAX_REQUESTS}")
+def check_readers(t: torch.Tensor) -> int:
+    """Reader ids of the K2 lease entries: int32 (the bits of uint32 ids)
+    or int64 (the bits of uint64 ids, hashed over all 64 bits).  -> 1 for
+    64-bit ids, else 0 (the kernel's ``reader_wide``)."""
+    if t.dtype == torch.int64:
+        check_vec(t, "reader_ids", dtype=torch.int64)
+        return 1
+    check_vec(t, "reader_ids")
+    return 0
 
 
 def _check_pow2(n_slots: int) -> None:
@@ -139,7 +147,6 @@ def fused_publish_multi(table2d: torch.Tensor, rbias_vec: torch.Tensor,
                                            lock_idx, ids)
         table2d.copy_(new)
         return table2d, granted
-    _check_batch(m)
     granted = torch.empty(m, dtype=torch.bool, device=table2d.device)
     if m:
         lib = table_lib()
@@ -172,7 +179,6 @@ def acquire_hashed(table2d: torch.Tensor, rbias_vec: torch.Tensor,
                                             lanes, reader_ids)
         table2d.copy_(new)
         return granted
-    _check_batch(m)
     granted = torch.empty(m, dtype=torch.bool, device=table2d.device)
     if m:
         lib = table_lib()
@@ -203,7 +209,6 @@ def fused_publish(table2d: torch.Tensor, rbias: torch.Tensor,
                                      check_rbias=check_rbias)
         table2d.copy_(new)
         return table2d, granted
-    _check_batch(m)
     granted = torch.empty(m, dtype=torch.bool, device=table2d.device)
     if m:
         lib = table_lib()
@@ -222,30 +227,30 @@ def publish_hashed(table2d: torch.Tensor, rbias: torch.Tensor,
     """K2 on the single-lock lease table's path: request ``i`` publishes
     the lock value ``v = lock_vals[lane]`` (``lane = lock_idx[i]``, or
     ``lock_idx[0]`` for every request, or 0 when ``lock_idx`` is None)
-    into slot ``splitmix64(v,
-    reader_ids[i]) % n_slots``, first request per slot, only into a free
-    slot and only while the scalar ``rbias != 0`` (the recheck and undo of
-    one launch).  Updates ``table2d`` in place; -> granted bool (M,)."""
+    into slot ``splitmix64(v, reader_ids[i]) % n_slots``, first request
+    per slot, only into a free slot and only while the scalar ``rbias !=
+    0`` (the recheck and undo of one launch).  ``reader_ids``: int32 (the
+    bits of uint32 ids) or int64 (the bits of uint64 ids, hashed over all
+    64 bits).  Updates ``table2d`` in place; -> granted bool (M,)."""
     m = reader_ids.shape[0]
     n_slots = check_table(table2d)
     _check_pow2(n_slots)
     check_vec(rbias.reshape(-1), "rbias", 1)
     check_vec(lock_vals, "lock_vals")
-    check_vec(reader_ids, "reader_ids")
+    wide = check_readers(reader_ids)
     stride, lanes = _lanes(lock_idx, table2d, m)
     if on_cpu(table2d, rbias, lock_vals, lanes, reader_ids):
         new, granted = R.publish_hashed_ref(table2d, rbias, lock_vals, lanes,
                                             reader_ids)
         table2d.copy_(new)
         return granted
-    _check_batch(m)
     granted = torch.empty(m, dtype=torch.bool, device=table2d.device)
     if m:
         lib = table_lib()
         _build.check(lib, lib.bravo_publish_hashed(
             _build.ptr(table2d), n_slots, _build.ptr(rbias),
             _build.ptr(lock_vals), lock_vals.shape[0], _build.ptr(lock_idx),
-            stride, _build.ptr(reader_ids), _build.ptr(granted), m,
+            stride, _build.ptr(reader_ids), wide, _build.ptr(granted), m,
             _build.stream_ptr(table2d.device)), "publish_hashed")
         FUSED_PUBLISH.add()
     return granted
@@ -256,7 +261,7 @@ def release_hashed(table2d: torch.Tensor, lock_vals: torch.Tensor,
                    mask=None) -> torch.Tensor:
     """K2 on the lease paths: clear the slots that :func:`acquire_hashed`
     or :func:`publish_hashed` published for these readers (``lock_idx`` as
-    there).  A reader whose
+    there; ``reader_ids`` int32 or int64 as there).  A reader whose
     ``mask`` entry is False (its acquire was denied) clears nothing: the
     slot it hashes to may hold another reader's lease.  Updates
     ``table2d`` in place and returns it."""
@@ -264,7 +269,7 @@ def release_hashed(table2d: torch.Tensor, lock_vals: torch.Tensor,
     n_slots = check_table(table2d)
     _check_pow2(n_slots)
     check_vec(lock_vals, "lock_vals")
-    check_vec(reader_ids, "reader_ids")
+    wide = check_readers(reader_ids)
     stride, lanes = _lanes(lock_idx, table2d, m)
     ts = [table2d, lock_vals, lanes, reader_ids]
     if mask is not None:
@@ -274,13 +279,12 @@ def release_hashed(table2d: torch.Tensor, lock_vals: torch.Tensor,
         table2d.copy_(R.release_hashed_ref(table2d, lock_vals, lanes,
                                            reader_ids, mask))
         return table2d
-    _check_batch(m)
     if m:
         lib = table_lib()
         _build.check(lib, lib.bravo_release_hashed(
             _build.ptr(table2d), n_slots, _build.ptr(lock_vals),
             lock_vals.shape[0], _build.ptr(lock_idx), stride,
-            _build.ptr(reader_ids), _build.ptr(mask), m,
+            _build.ptr(reader_ids), wide, _build.ptr(mask), m,
             _build.stream_ptr(table2d.device)), "release_hashed")
         FUSED_PUBLISH.add()
     return table2d

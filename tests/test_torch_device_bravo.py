@@ -376,8 +376,23 @@ def test_shared_bias_gate_blocks_every_rearm_during_a_drain(impl):
 
 
 def test_host_reader_ids_must_fit_32_bits():
-    st = TDB.init_state(device="cpu")
-    with pytest.raises(ValueError, match="2\\*\\*32"):
-        TDB.acquire(st, 7, np.array([2**32], np.int64))
+    """Host reader ids at and past 2**32 hash over all 64 bits, to the
+    slots ``repro``'s host limbs give (the port refused them before); a
+    negative id and a lock id past int32 are refused."""
+    readers = np.array([2**32, 2**40 + 7, 2**63 - 1, 5], np.uint64)
+    js, ts = JDB.init_state(), TDB.init_state(device="cpu")
+    js, jg = JDB.acquire(js, 7, readers)
+    ts, tg = TDB.acquire(ts, 7, readers)
+    _eq(js.table, ts.table)
+    _eq(jg, tg)
+    assert tg.all()
+    flat = ts.table.reshape(-1).numpy()
+    assert (flat[JDB.slots_for(7, readers)] == 7).all()
+    js = JDB.release(js, 7, readers, granted=jg)
+    ts = TDB.release(ts, 7, readers, granted=tg)
+    _eq(js.table, ts.table)
+    assert not ts.table.any()
+    with pytest.raises(ValueError, match="2\\*\\*64"):
+        TDB.acquire(ts, 7, np.array([-1]))
     with pytest.raises(ValueError, match="int32"):
-        TDB.acquire(st, 2**31, np.arange(4))
+        TDB.acquire(ts, 2**31, np.arange(4))

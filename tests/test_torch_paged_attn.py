@@ -23,15 +23,15 @@ ATOL = RTOL = 1e-5
 HD, N_PAGES, LANES = 16, 24, 5
 
 
-def _case(seed, b, s, h, kvh, ps, kv_dtype):
+def _case(seed, b, s, h, kvh, ps, kv_dtype, hd=HD):
     """Seeded inputs with every trap: -1 lanes inside and past cache_len, a
     row with cache_len 0 (and new_lens 0 for a chunk), a partial last page,
     a chunk longer than the paged prefix before it, a position past the
     lanes."""
     rng = np.random.default_rng(seed)
-    q = rng.normal(size=(b, s, h, HD)).astype(np.float32)
-    kp = rng.normal(size=(N_PAGES, ps, kvh, HD)).astype(np.float32)
-    vp = rng.normal(size=(N_PAGES, ps, kvh, HD)).astype(np.float32)
+    q = rng.normal(size=(b, s, h, hd)).astype(np.float32)
+    kp = rng.normal(size=(N_PAGES, ps, kvh, hd)).astype(np.float32)
+    vp = rng.normal(size=(N_PAGES, ps, kvh, hd)).astype(np.float32)
     if kv_dtype == "bf16":          # both sides read the same rounded pages
         kp = np.asarray(jnp.asarray(kp, jnp.bfloat16).astype(jnp.float32))
         vp = np.asarray(jnp.asarray(vp, jnp.bfloat16).astype(jnp.float32))
@@ -100,6 +100,37 @@ def test_decode_attention_matches_pallas_and_oracle(seed, h, kvh, ps, kvd):
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(got, oracle, atol=ATOL, rtol=RTOL)
     assert cl[-1] == 0 and not got[-1].any() and not want[-1].any()
+
+
+# The attention heads of two dense configs of the reference that the
+# kernels refused before they took hd 256 and any number of query heads per
+# KV head: gemma-2b (8 query heads on 1 KV head, head_dim 256) and
+# granite-20b (48 on 1, head_dim 128).
+CONFIG_HEADS = {"gemma-2b": (8, 1, 256), "granite-20b": (48, 1, 128)}
+
+
+@pytest.mark.parametrize("kvd", ["f32", "bf16"])
+@pytest.mark.parametrize("config", list(CONFIG_HEADS))
+def test_config_heads_match_pallas_and_oracle(config, kvd):
+    h, kvh, hd = CONFIG_HEADS[config]
+    q, kp, vp, pi, cl, nl = _case(7, 5, 3, h, kvh, 4, kvd, hd=hd)
+    args = (q, kp, vp, pi, cl, nl)
+    got = TK.paged_chunk_attention(_torch(q), _torch(kp, kvd),
+                                   _torch(vp, kvd), _torch(pi), _torch(cl),
+                                   _torch(nl)).numpy()
+    np.testing.assert_allclose(got, np.asarray(JK.paged_chunk_attention(
+        *map(jnp.asarray, args))), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got, np.asarray(JR.paged_chunk_attn_ref(
+        *map(jnp.asarray, args))), atol=ATOL, rtol=RTOL)
+    q1 = q[:, -1]
+    args = (q1, kp, vp, pi, cl)
+    got = TK.paged_attention(_torch(q1), _torch(kp, kvd), _torch(vp, kvd),
+                             _torch(pi), _torch(cl)).numpy()
+    np.testing.assert_allclose(got, np.asarray(JK.paged_attention(
+        *map(jnp.asarray, args))), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got, np.asarray(JR.paged_attn_ref(
+        *map(jnp.asarray, args))), atol=ATOL, rtol=RTOL)
+    assert cl[-1] == 0 and not got[-1].any()
 
 
 def test_only_minus_one_lanes_give_zeros():

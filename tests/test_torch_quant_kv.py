@@ -215,13 +215,13 @@ def test_requant_scatter_needs_the_sink():
 # ---------------------------------------------------------------------------
 
 
-def _quant_case(seed, b, s, h, kvh, ps):
+def _quant_case(seed, b, s, h, kvh, ps, hd=16):
     """The K5/K6 traps of ``test_torch_paged_attn`` over an int8 store:
     -1 lanes inside and past cache_len, a row with cache_len 0 (new_lens 0
     for a chunk), a partial last page, a chunk that is the whole prefix;
     plus an all-zero page and a page whose group max saturates."""
     rng = np.random.default_rng(seed)
-    hd, n_pages, lanes = 16, 24, 5
+    n_pages, lanes = 24, 5
     q = rng.normal(size=(b, s, h, hd)).astype(np.float32)
     kv = [rng.normal(size=(n_pages, ps, kvh, hd)).astype(np.float32) * 2
           for _ in range(2)]
@@ -283,6 +283,30 @@ def test_decode_quant_matches_pallas_and_oracle(seed, h, kvh, ps):
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(got, oracle, atol=ATOL, rtol=RTOL)
     assert cl[-1] == 0 and not got[-1].any() and not want[-1].any()
+
+
+# gemma-2b's (8 query heads on 1 KV head, head_dim 256) and granite-20b's
+# (48 on 1, head_dim 128) attention heads over the int8 store
+CONFIG_HEADS = {"gemma-2b": (8, 1, 256), "granite-20b": (48, 1, 128)}
+
+
+@pytest.mark.parametrize("config", list(CONFIG_HEADS))
+def test_config_heads_quant_match_pallas_and_oracle(config):
+    h, kvh, hd = CONFIG_HEADS[config]
+    args = _quant_case(9, 5, 3, h, kvh, 4, hd=hd)
+    got = TK.paged_chunk_attention_quant(*map(_t, args)).numpy()
+    np.testing.assert_allclose(got, np.asarray(_chunk_attn_quant_call(
+        *map(jnp.asarray, args), interpret=True)), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got, np.asarray(JR.paged_chunk_attn_quant_ref(
+        *map(jnp.asarray, args))), atol=ATOL, rtol=RTOL)
+    q, kq, vq, ks, vs, pi, cl, _ = args
+    dec = (q[:, -1], kq, vq, ks, vs, pi, cl)
+    got = TK.paged_attention_quant(*map(_t, dec)).numpy()
+    np.testing.assert_allclose(got, np.asarray(_paged_attn_quant_call(
+        *map(jnp.asarray, dec), interpret=True)), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got, np.asarray(JR.paged_attn_quant_ref(
+        *map(jnp.asarray, dec))), atol=ATOL, rtol=RTOL)
+    assert cl[-1] == 0 and not got[-1].any()
 
 
 def test_quant_operands_are_checked():
