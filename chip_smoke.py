@@ -10,7 +10,7 @@ non-zero exit and no result line:
 2. build: nvcc compiles the two CUDA sources,
    ``src/repro_torch/csrc/table_kernels.cu`` (K1-K4, K9, K10) and
    ``src/repro_torch/csrc/paged_attn.cu`` (K5-K8), one process each, both
-   started together, with ptxas's registers and spills per kernel;
+   started together;
 3. kernels: each table kernel (K1-K4) against its plain PyTorch version on
    the card, exact, at the 4096-slot table with M in {1, 4, 16, 256}, K in
    {1, 5, 128} and seeded sweeps with collisions, cleared bias lanes, -1
@@ -22,7 +22,10 @@ non-zero exit and no result line:
    64-bit reader ids; the paged attention kernels
    K5 (decode) and K6 (chunk prefill) against theirs at the engine's
    shapes, at gemma-2b's and granite-20b's head shapes (hd 256; 48 query
-   heads on one KV head) and in seeded sweeps over the traps (-1 lanes
+   heads on one KV head), at head dims the kernels pad (hubert-xlarge's
+   80, phi-3-vision's 96, both one query head a KV head, and 12, whose
+   bf16 and int8 rows are no whole number of 16-byte chunks) and in seeded
+   sweeps over the traps (-1 lanes
    inside and past ``cache_len``, ``cache_len`` 0, a partial last page,
    padding columns, ``new_lens`` 0, a chunk longer than the paged prefix,
    every q/page type pair), within the stated tolerances; K5 also at
@@ -94,8 +97,6 @@ and attention hold; scaled, the blocks' outputs decide the next token.
 The last lines are the kernels summary, the card line as nvidia-smi prints
 it, and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, when there is no CUDA device or no ``src/repro_torch`` beside it.
-``--decode-only`` runs phases 1-3 for K5-K8 alone (build, checks, times)
-and stops without a result line: the quick loop for the paged kernels.
 """
 
 from __future__ import annotations
@@ -173,14 +174,28 @@ LONG_LENGTHS = (3584, 4096)
 # heads on 1 KV head, head_dim 256) and granite-20b (48 on 1, head_dim 128).
 F1_SHAPES = [dict(b=4, s=5, h=8, kvh=1, hd=256, ps=8, lanes=6, n_pages=64),
              dict(b=4, s=3, h=48, kvh=1, hd=128, ps=8, lanes=6, n_pages=64)]
-# One query head a KV head (the decode kernel's one-head CTAs)
-MHA_SHAPE = dict(b=4, s=3, h=4, kvh=4, hd=32, ps=8, lanes=6, n_pages=64)
+# Head dims the kernels run padded to the next width they are built for,
+# each one query head a KV head: hubert-xlarge's (16 heads, hd 80),
+# phi-3-vision's (32, hd 96), and minicpm's smoke config's (6, hd 12: bf16
+# and int8 rows of 24 and 12 bytes, copied element by element)
+PADDED_HD_SHAPES = [dict(b=4, s=3, h=16, kvh=16, hd=80, ps=8, lanes=6,
+                         n_pages=64),
+                    dict(b=4, s=3, h=32, kvh=32, hd=96, ps=8, lanes=6,
+                         n_pages=64),
+                    dict(b=4, s=3, h=6, kvh=6, hd=12, ps=8, lanes=6,
+                         n_pages=64)]
 # K5/K7 at forced split counts and on unaligned pages (_decode_variants):
-# short rows, and rows of 1024 positions (K7's layout for long rows)
+# short rows, rows of 1024 positions (K7's all-heads layout, from 1024
+# positions of lanes), and two padded head dims (the second pass writes
+# rows of hd 80 and 12; hd 80 also in K7's all-heads layout)
 DECODE_SPLIT_SHAPES = [dict(b=5, s=1, h=8, kvh=2, hd=64, ps=4, lanes=9,
                             n_pages=64),
                        dict(b=5, s=1, h=8, kvh=2, hd=64, ps=16, lanes=64,
-                            n_pages=512)]
+                            n_pages=512),
+                       dict(b=5, s=1, h=4, kvh=4, hd=80, ps=16, lanes=64,
+                            n_pages=512),
+                       dict(b=5, s=1, h=6, kvh=6, hd=12, ps=4, lanes=9,
+                            n_pages=64)]
 # The int8 trap page with a spike of 40 (outputs of ~40) against the plain
 # K7/K8: float32 outputs within 1e-5 of the largest output, relative, since
 # float32 rounding at that magnitude alone reaches 1e-5 absolute.
@@ -489,7 +504,7 @@ def check_paged_kernels(dev, seeds=range(3)) -> dict:
     shapes = [dict(engine, b=8, s=32), dict(b=5, s=5, h=8, kvh=2, hd=16,
                                             ps=4, lanes=6, n_pages=64),
               dict(b=4, s=7, h=12, kvh=4, hd=128, ps=8, lanes=9,
-                   n_pages=64), MHA_SHAPE] + F1_SHAPES
+                   n_pages=64)] + F1_SHAPES + PADDED_HD_SHAPES
     types = [(torch.float32, torch.bfloat16), (torch.float32, torch.float32),
              (torch.bfloat16, torch.bfloat16), (torch.bfloat16,
                                                 torch.float32)]
@@ -544,16 +559,18 @@ def _unaligned(x):
 
 def _decode_variants(fn, q, pages, scales, pi, cl):
     """K5 or K7 on one case, every way the kernel can run it: the split
-    the wrapper picks, forced splits of 1, 2, 3 and one per lane (so
+    the wrapper ``fn`` picks, forced splits of 1, 2, 3 and one per lane (so
     splits past ``cache_len`` and splits of -1 lanes only occur), and
     pages that are not 16-byte aligned (one split and three)."""
+    from repro_torch.kernels import paged_attn as PA
+
     lanes = pi.shape[1]
     yield fn(q, *pages, *scales, pi, cl)
     for n in (1, 2, 3, lanes):
-        yield fn(q, *pages, *scales, pi, cl, n_split=n)
+        yield PA._decode(q, *pages, scales, pi, cl, n_split=n)
     bad = [_unaligned(x) for x in pages]
     for n in (1, 3):
-        yield fn(q, *bad, *scales, pi, cl, n_split=n)
+        yield PA._decode(q, *bad, scales, pi, cl, n_split=n)
 
 
 def _long_case(rng, dev, kv_dtype):
@@ -623,7 +640,7 @@ def check_quant_kernels(dev, seeds=range(3)) -> dict:
     engine = dict(h=32, kvh=8, hd=64, ps=16, lanes=8, n_pages=4096)
     shapes = [dict(b=5, s=5, h=8, kvh=2, hd=16, ps=4, lanes=6, n_pages=64),
               dict(b=4, s=7, h=12, kvh=4, hd=128, ps=8, lanes=9,
-                   n_pages=64), MHA_SHAPE] + F1_SHAPES
+                   n_pages=64)] + F1_SHAPES + PADDED_HD_SHAPES
     q_types = (torch.float32, torch.bfloat16)
     for seed in seeds:
         rng = np.random.default_rng(100 + seed)
@@ -994,7 +1011,8 @@ def _time_paged_case(dev, case, quant, plain_n=100) -> dict:
         chunk = (K.paged_chunk_attention_quant if quant
                  else K.paged_chunk_attention)
         parent = functools.partial(chunk, q, kp, vp, *scales, pi, cl, nl)
-        one = functools.partial(fn, *args, n_split=1)
+        one = functools.partial(PA._decode, args[0], kp, vp, scales, pi, cl,
+                                n_split=1)
         splits, pps = PA.decode_plan(args[0], kp, pi.shape[1])
         # parent and new kernel in turns: parent, new, new, parent
         p0, k0 = _median_ms(parent), _median_ms(kern)
@@ -1690,9 +1708,7 @@ def scheduler_vs_greedy(cfg, params, dev, sched) -> dict:
 
 
 def build_all() -> dict:
-    """Compile both CUDA sources, one nvcc each, started together; with
-    ptxas's registers and spills of every kernel (the largest register
-    count, and each kernel that spills)."""
+    """Compile both CUDA sources, one nvcc each, started together."""
     from repro_torch.kernels import _build
 
     t0 = time.monotonic()
@@ -1701,27 +1717,14 @@ def build_all() -> dict:
                              _build.CSRC / os.path.basename(src))
                 for k, src in SOURCES.items()}
         built = {SOURCES[k]: f.result() for k, f in futs.items()}
-    ptxas = {}
-    for src, (lib, _) in built.items():
-        info = _build.ptxas_summary(lib)
-        ptxas[src] = {
-            "kernels": len(info),
-            "max_registers": max((v.get("registers", 0)
-                                  for v in info.values()), default=None),
-            "spilling": {k: v["spill_bytes"] for k, v in info.items()
-                         if v.get("spill_bytes")}}
     return {"sources": list(SOURCES.values()),
             "seconds": time.monotonic() - t0,
-            "nvcc_seconds": {k: v[1] for k, v in built.items()},
-            "ptxas": ptxas}
+            "nvcc_seconds": {k: v[1] for k, v in built.items()}}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--decode-only", action="store_true",
-                    help="build, check K5-K8 and time them, then stop "
-                         "(no result line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1748,14 +1751,6 @@ def main(argv=None) -> int:
 
     emit({"phase": "build", **build_all()})
 
-    if args.decode_only:
-        checks = check_paged_kernels(dev)
-        checks.update(check_quant_kernels(dev))
-        emit({"phase": "kernels", "checks": checks})
-        times = time_paged_kernels(dev, seed=args.seed)
-        times.update(time_paged_kernels(dev, seed=args.seed, quant=True))
-        emit({"phase": "kernel_times", "card": card, "times": times})
-        return 0
     checks = check_kernels(dev)
     checks.update(check_paged_kernels(dev))
     checks.update(check_quant_kernels(dev))

@@ -34,17 +34,20 @@
 // order than the Pallas kernels', so results agree to float32 rounding, not
 // bit for bit.  Types: q in {float32, bfloat16}, pages in {bfloat16,
 // float32, int8 with scales}; all arithmetic in float32; the output has q's
-// type.  hd is a template argument: 16, 32, 64, 128 or 256.  Every entry
-// point enqueues on the caller's stream, allocates nothing and returns
-// cudaGetLastError() after the launch.
+// type.  Any hd from 1 to 256 runs: the kernels are instantiated for the
+// widths 16, 32, 64, 128 and 256 and a call takes the smallest that holds
+// its hd, the padding zero in q and in the staged K/V rows (so it adds
+// exact zeros to every sum).  Every entry point enqueues on the caller's
+// stream, allocates nothing and returns cudaGetLastError() after the
+// launch.
 //
 // ---------------------------------------------------------------------------
 // K5/K7, the decode kernel (paged_decode_kernel).  It is bound by the bytes
 // of the valid K/V rows, so everything in it serves keeping device memory
 // busy, with as few instructions a byte as the exact float32 result allows:
-// 1. hd is a template argument, so every per-row loop (the dot product, the
-//    V fold, the conversions) unrolls, and a lane's accumulators are fixed
-//    register arrays.
+// 1. The width (hd padded) is a template argument, so every per-row loop
+//    (the dot product, the V fold, the conversions) unrolls, and a lane's
+//    accumulators are fixed register arrays.
 // 2. Flash-decoding.  The KV positions are split over the grid: one CTA per
 //    (split, request, KV head, group of 4 query heads); a split is a fixed
 //    run of page lanes.  The wrapper picks the split count from host facts
@@ -58,17 +61,19 @@
 //    short rows) the first pass writes the output itself.
 // 3. 16-byte loads overlapped with compute.  The CTA copies each tile of
 //    64 positions' K and V rows (32 for rows of 512 bytes or more, 128 for
-//    int8 long rows) into a ring of 2-3 shared-memory stages with
-//    cp.async.cg, 16 bytes a thread, consecutive threads along a row; the
-//    next tiles load while its warps score the current one.  Rows stay in the page's own type (bf16, float32, int8),
-//    unpadded, their 16-byte chunks XOR-swizzled by row so that lanes
-//    reading one chunk of 8 rows, or 8 chunks of one row, hit distinct
-//    banks.  Each row's page offset (and int8 scales) is worked out once,
-//    a tile ahead, with a multiply-shift in place of the division by the
-//    page size.  A masked row is zero-filled by the copy (no read), so its
-//    V times a zero weight is zero.  Pages that are not 16-byte aligned take
-//    a synchronous element-by-element copy into the same layout: the same
-//    kernel, checked on the card too.
+//    int8 pages in the all-heads layout) into a ring of 2-3 shared-memory
+//    stages with cp.async.cg, 16 bytes a thread, consecutive threads along
+//    a row; the next tiles load while its warps score the current one.
+//    Rows stay in the page's own type (bf16, float32, int8), unpadded,
+//    their 16-byte chunks XOR-swizzled by row so that lanes reading one
+//    chunk of 8 rows, or 8 chunks of one row, hit distinct banks.  Each
+//    row's page offset (and int8 scales) is worked out once, a tile ahead,
+//    with a multiply-shift in place of the division by the page size.  A
+//    masked row, and a row's padding past hd, is zero-filled by the copy
+//    (no read), so its V times a zero weight is zero.  Pages that are not
+//    16-byte aligned, or rows whose hd x element size is not a multiple of
+//    16 bytes, take a synchronous element-by-element copy into the same
+//    layout: the same kernel, checked on the card too.
 // 4. int8 pages are dequantized in registers after the load: the bytes are
 //    turned into floats exactly (a byte-permute and one add), then each is
 //    multiplied by its (page, KV head) scale, as repro does it (cast, then
@@ -78,14 +83,23 @@
 //    Lane j scores position j of its warp's 32 rows; the weights go through
 //    shared memory, and the V fold gives each lane one 16-byte chunk of a
 //    row (a group of lanes per row), so V is read with vector loads and no
-//    shuffle loop.  Two warp layouts (launch_layout): for a decode tick,
+//    shuffle loop.  Two warp layouts (with_decode): for a decode tick,
 //    one head a warp (four heads side by side, the shortest chain); for
-//    int8 pages and long rows, all four heads a warp, so each int8 row is
-//    converted and dequantized once for the four heads.  The warps sharing
+//    int8 pages whose lanes hold 1024 positions or more, all four heads a
+//    warp, so each int8 row is converted and dequantized once for the four
+//    heads.  The warps sharing
 //    a head merge their softmax states through shared memory at the end.
 //    Past 4 query heads per KV head the heads form groups of 4, one CTA
 //    each, and each group reads the KV head's rows itself (granite-20b's
-//    48:1 runs as 12 groups); with one query head a KV head, one a CTA.
+//    48:1 runs as 12 groups); with fewer than 4 (one query head a KV head,
+//    as in hubert-xlarge or phi-3-vision) the CTA's other head slots are
+//    empty.
+//
+// Two build-time switches serve the timing sweep
+// (repro_torch/benchmarks/decode_sweep.py) and are off in the wrappers'
+// build: BRAVO_LONG_ROWS moves the lane capacity from which int8 pages
+// take the all-heads layout, and BRAVO_DECODE_ABLATE=1 (copies only) or 2
+// (arithmetic only) switches off half of the decode kernel's work.
 //
 // K6/K8, the chunk kernel (paged_attn_kernel).  One CTA per (request,
 // block of qb query columns, KV head); its warps loop over the (column,
@@ -106,6 +120,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#ifndef BRAVO_LONG_ROWS  // see the note above; the timing sweep moves it
+#define BRAVO_LONG_ROWS 1024
+#endif
+#ifndef BRAVO_DECODE_ABLATE  // 0: the kernel; 1: copies only; 2: arithmetic
+#define BRAVO_DECODE_ABLATE 0
+#endif
+
 namespace {
 
 constexpr int kWarp = 32;
@@ -113,6 +134,7 @@ constexpr int kTile = 32;        // positions a warp scores at once: one a lane
 constexpr int kMaxWarps = 16;    // chunk kernel: warps per CTA
 constexpr int kDecHeads = 4;     // decode kernel: query heads per CTA
 constexpr int kMaxSplitPages = 512;   // page lanes of one decode split
+constexpr int kMaxHd = 256;           // the widest instantiation
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -160,9 +182,10 @@ cudaError_t opt_in(Kernel kernel, size_t smem) {
 // ===========================================================================
 
 struct Shape {
-  int B, S, H, KVH, ps, P, n_pages, qb;
+  int B, S, H, KVH, hd, ps, P, n_pages, qb;
 };
 
+// HD is the padded width, sh.hd the rows' length in memory.
 // Shared memory: K tile [kTile][HD + 1] (the +1 keeps lane j's row reads on
 // distinct banks), V tile [kTile][HD], the warps' queries [warps][HD], the
 // tile's page per position [kTile] and, for int8 pages, its K and V scales
@@ -211,7 +234,7 @@ __global__ void paged_attn_kernel(const TQ* __restrict__ q,
   // the last position any query of this CTA may see, plus one
   const int last_col = min(c0 + sh.qb, sh.S) - 1;
   const int t_end = min(n_pos, clen - sh.S + last_col + 1);
-  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
+  const float scale = 1.0f / sqrtf(static_cast<float>(sh.hd));
 
   for (int p0 = 0; p0 < pairs; p0 += nwarps) {
     // this warp's (column, head) pair in this pass and its query's limit
@@ -225,9 +248,9 @@ __global__ void paged_attn_kernel(const TQ* __restrict__ q,
     const int t_lim = real ? min(n_pos, q_pos + 1) : 0;
 
     const size_t q_row =
-        ((size_t(b) * sh.S + (mine ? col : 0)) * sh.H + head) * HD;
+        ((size_t(b) * sh.S + (mine ? col : 0)) * sh.H + head) * sh.hd;
     for (int d = lane; d < HD; d += kWarp)
-      qs[warp * HD + d] = real ? to_f32(q[q_row + d]) : 0.f;
+      qs[warp * HD + d] = real && d < sh.hd ? to_f32(q[q_row + d]) : 0.f;
 
     float m = -INFINITY;
     float l = 0.f;
@@ -257,16 +280,20 @@ __global__ void paged_attn_kernel(const TQ* __restrict__ q,
         const int d = i - j * HD;
         const int pg = tpage[j];
         if (pg >= 0) {
-          const size_t off =
-              ((size_t(pg) * sh.ps + (t0 + j) % sh.ps) * sh.KVH + kh) * HD +
-              d;
-          if constexpr (kQuant) {  // cast, then one multiply: repro's order
-            ks[j * (HD + 1) + d] = to_f32(k_pages[off]) * tks[j];
-            vs[j * HD + d] = to_f32(v_pages[off]) * tvs[j];
-          } else {
-            ks[j * (HD + 1) + d] = to_f32(k_pages[off]);
-            vs[j * HD + d] = to_f32(v_pages[off]);
+          float kx = 0.f, vx = 0.f;  // the padding past hd
+          if (d < sh.hd) {
+            const size_t off =
+                ((size_t(pg) * sh.ps + (t0 + j) % sh.ps) * sh.KVH + kh) *
+                    sh.hd + d;
+            kx = to_f32(k_pages[off]);
+            vx = to_f32(v_pages[off]);
+            if constexpr (kQuant) {  // cast, then one multiply: repro's order
+              kx *= tks[j];
+              vx *= tvs[j];
+            }
           }
+          ks[j * (HD + 1) + d] = kx;
+          vs[j * HD + d] = vx;
         }
       }
       __syncthreads();
@@ -309,17 +336,23 @@ __global__ void paged_attn_kernel(const TQ* __restrict__ q,
 #pragma unroll
       for (int i = 0; i < kPerLane; ++i) {
         const int d = lane + i * kWarp;
-        if (d < HD) out[q_row + d] = from_f32<TQ>(acc[i] / den);
+        if (d < sh.hd) out[q_row + d] = from_f32<TQ>(acc[i] / den);
       }
     }
   }
 }
 
+// The operands of one call of either kernel.
+struct Args {
+  const void *q, *k, *v;
+  const float *k_scale, *v_scale;
+  const int32_t *page_idx, *cache_len, *new_lens;
+  void* out;
+  float *part_acc, *part_ml;
+};
+
 template <typename TQ, typename TKV, int HD>
-cudaError_t launch_chunk(const void* q, const void* k, const void* v,
-                         const float* k_scale, const float* v_scale,
-                         const int32_t* page_idx, const int32_t* cache_len,
-                         const int32_t* new_lens, void* out, Shape sh,
+cudaError_t launch_chunk(const Args& a, const Shape& sh,
                          cudaStream_t stream) {
   const int pairs = (sh.H / sh.KVH) * sh.qb;
   const int warps = pairs < kMaxWarps ? pairs : kMaxWarps;
@@ -333,9 +366,9 @@ cudaError_t launch_chunk(const void* q, const void* k, const void* v,
   if (opted != cudaSuccess) return opted;
   const dim3 grid(sh.B, (sh.S + sh.qb - 1) / sh.qb, sh.KVH);
   kernel<<<grid, warps * kWarp, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k),
-      static_cast<const TKV*>(v), k_scale, v_scale, page_idx, cache_len,
-      new_lens, static_cast<TQ*>(out), sh);
+      static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
+      static_cast<const TKV*>(a.v), a.k_scale, a.v_scale, a.page_idx,
+      a.cache_len, a.new_lens, static_cast<TQ*>(a.out), sh);
   return cudaGetLastError();
 }
 
@@ -344,7 +377,7 @@ cudaError_t launch_chunk(const void* q, const void* k, const void* v,
 // ===========================================================================
 
 struct DecShape {
-  int B, H, KVH, ps, P, n_pages;
+  int B, H, KVH, hd, ps, P, n_pages;
   int n_split, pps, groups;  // splits of pps page lanes; head groups of 4
   unsigned ps_mul;           // n / ps == (umulhi(n, ps_mul) + n) >> ps_shift
   int ps_shift;
@@ -367,7 +400,7 @@ __device__ __forceinline__ int fastdiv(int n, unsigned mul, int shift) {
   return static_cast<int>((__umulhi(u, mul) + u) >> shift);
 }
 
-// The decode kernel's tiling for one page type and head dim.  A row is
+// The decode kernel's tiling for one page type and width.  A row is
 // kChunks 16-byte chunks of kElem elements, stored unpadded with its chunks
 // XOR-swizzled by row (kSwzShift, kSwzMask), so that 8 lanes reading one
 // chunk of 8 rows, or 8 chunks of one row, hit distinct banks.  In the V
@@ -454,22 +487,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The same 16 bytes, element by element (pages not 16-byte aligned).
+// The same 16 bytes element by element, the first n from src and the rest
+// zero (pages not 16-byte aligned, or rows not a whole number of chunks).
 template <typename TKV>
-__device__ __forceinline__ void copy16(void* dst, const TKV* src,
-                                       bool valid) {
-  TKV* d = static_cast<TKV*>(dst);
+__device__ __forceinline__ void copy16(void* dst, const TKV* src, int n) {
+  using T = std::conditional_t<sizeof(TKV) == 2, uint16_t, TKV>;
+  T* d = static_cast<T*>(dst);
+  const T* s = reinterpret_cast<const T*>(src);
 #pragma unroll
-  for (int e = 0; e < 16 / int(sizeof(TKV)); ++e)
-    d[e] = valid ? src[e] : TKV(0);
-}
-template <>
-__device__ __forceinline__ void copy16<__nv_bfloat16>(
-    void* dst, const __nv_bfloat16* src, bool valid) {
-  uint16_t* d = static_cast<uint16_t*>(dst);
-  const uint16_t* s = reinterpret_cast<const uint16_t*>(src);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) d[e] = valid ? s[e] : uint16_t(0);
+  for (int e = 0; e < 16 / int(sizeof(TKV)); ++e) d[e] = e < n ? s[e] : T(0);
 }
 
 // The decode CTA's layout: PW x HW warps.  A CTA tile is PW x 32
@@ -495,7 +521,7 @@ struct DecCfg {
 };
 
 // One CTA per (split, request, KV head x group of kHeads query heads).
-// part_acc (B, H, n_split, HD) and part_ml (B, H, n_split, 2) float32 take
+// part_acc (B, H, n_split, hd) and part_ml (B, H, n_split, 2) float32 take
 // the partials when n_split > 1; with one split the kernel writes `out`
 // itself.
 template <typename TQ, typename TKV, int HD, int PW, int HW, int HPW>
@@ -513,6 +539,7 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
   constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   constexpr int kQPer = (HD + kWarp - 1) / kWarp;
   constexpr int kPart = HPW == 1 ? 4 : HPW == 2 ? 2 : 1;  // partial dots
+  constexpr int kAblate = BRAVO_DECODE_ABLATE;
   extern __shared__ __align__(16) unsigned char dsmem[];
 
   const int split = blockIdx.x;
@@ -549,11 +576,14 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
   const int n_tiles =
       t_stop > t_begin ? (t_stop - t_begin + C::kRows - 1) / C::kRows : 0;
 
-  // the CTA's queries, the split's pages (-1: masked) and their scales
+  // the CTA's queries (zero past hd), the split's pages (-1: masked) and
+  // their scales
   for (int i = threadIdx.x; i < C::kHeads * HD; i += C::kThreads) {
     const int hh = i / HD;
-    qs[i] = hh < nh ? to_f32(q[(size_t(b) * sh.H + h0 + hh) * HD + i % HD])
-                    : 0.f;
+    const int d = i % HD;
+    qs[i] = hh < nh && d < sh.hd
+                ? to_f32(q[(size_t(b) * sh.H + h0 + hh) * sh.hd + d])
+                : 0.f;
   }
   for (int j = threadIdx.x; j < n_lanes; j += C::kThreads) {
     int pg = page_idx[size_t(b) * sh.P + lane0 + j];
@@ -578,7 +608,7 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
       const int pg = spage[ln];
       if (pg >= 0) {
         off = ((static_cast<long long>(pg) * sh.ps + (j - ln * sh.ps)) *
-                   sh.KVH + kh) * HD;
+                   sh.KVH + kh) * sh.hd;
         if constexpr (kQuant) {
           ks = sks[ln];
           vs = svs[ln];
@@ -592,9 +622,10 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
   };
 
   // tile -> its ring stage in 16-byte chunks, consecutive threads along a
-  // row, K rows then V rows; a masked row is zero-filled, not read
+  // row, K rows then V rows; a masked row, and the padding past hd, is
+  // zero-filled, not read
   auto issue = [&](int tile) {
-    if (tile >= n_tiles) return;
+    if (tile >= n_tiles || kAblate == 2) return;
     unsigned char* st = ring + (tile % C::kStages) * C::kStageBytes;
     const long long* off = roff + (tile % C::kInfo) * C::kRows;
     constexpr int kTotal = 2 * C::kRows * D::kChunks;
@@ -606,13 +637,13 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
       const int r = (i / D::kChunks) % C::kRows;
       const int c = i % D::kChunks;
       const long long o = off[r];
-      const TKV* src =
-          (kv ? v_pages : k_pages) + (o < 0 ? 0 : o) + c * D::kElem;
+      const int n = o < 0 ? 0 : min(D::kElem, max(0, sh.hd - c * D::kElem));
+      const TKV* src = (kv ? v_pages : k_pages) + (n ? o + c * D::kElem : 0);
       unsigned char* dst = st + D::at(kv * C::kRows + r, c);
-      if (vec)
-        cp_async16(dst, src, o >= 0);
+      if (vec)  // n is 0 or the whole chunk
+        cp_async16(dst, src, n > 0);
       else
-        copy16<TKV>(dst, src, o >= 0);
+        copy16<TKV>(dst, src, n);
     }
   };
 
@@ -628,7 +659,7 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
   // this lane's share of the V fold: chunk lane and position group
   const int c_lane = lane % D::kChunkLanes;
   const int r_lane = lane / D::kChunkLanes;
-  const float sqrt_hd = sqrtf(static_cast<float>(HD));
+  const float sqrt_hd = sqrtf(static_cast<float>(sh.hd));
   float m[HPW], l[HPW];  // l: this lane's share of the denominator
   float acc[HPW][D::kAcc];
 #pragma unroll
@@ -645,6 +676,7 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
     issue(tile + C::kStages - 1);
     cp_async_commit();
     rows(tile + C::kStages);
+    if constexpr (kAblate == 1) continue;
     const unsigned char* st = ring + (tile % C::kStages) * C::kStageBytes;
     const int info = (tile % C::kInfo) * C::kRows;
     const int row0 = pwi * kTile;  // this warp's rows of the tile
@@ -794,15 +826,15 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
 #pragma unroll
     for (int i = 0; i < kQPer; ++i) {
       const int d = lane + i * kWarp;
-      if (d >= HD) continue;
+      if (d >= sh.hd) continue;
       float a = 0.f;
 #pragma unroll
       for (int p = 0; p < PW; ++p)
         a = fmaf(wt[p], st0[p * HPW * kRow + d], a);
       if (sh.n_split == 1)
-        out[row * HD + d] = from_f32<TQ>(a / fmaxf(den, 1e-20f));
+        out[row * sh.hd + d] = from_f32<TQ>(a / fmaxf(den, 1e-20f));
       else
-        part_acc[part * HD + d] = a;
+        part_acc[part * sh.hd + d] = a;
     }
     if (sh.n_split > 1 && lane == 0) {
       part_ml[2 * part] = mx;
@@ -818,7 +850,7 @@ template <typename TQ, int HD>
 __global__ void __launch_bounds__(kWarp)
 decode_combine_kernel(const float* __restrict__ part_acc,
                       const float* __restrict__ part_ml, TQ* __restrict__ out,
-                      int n_split) {
+                      int n_split, int hd) {
   constexpr int kPer = (HD + kWarp - 1) / kWarp;
   const size_t row = blockIdx.x;
   const int lane = threadIdx.x;
@@ -835,11 +867,11 @@ decode_combine_kernel(const float* __restrict__ part_acc,
       if (ms == -INFINITY) continue;
       const float w = expf(ms - mx);
       den = fmaf(w, ml[2 * s + 1], den);
-      const float* pa = part_acc + (row * n_split + s) * HD;
+      const float* pa = part_acc + (row * n_split + s) * hd;
 #pragma unroll
       for (int i = 0; i < kPer; ++i) {
         const int d = lane + i * kWarp;
-        if (d < HD) acc[i] = fmaf(w, pa[d], acc[i]);
+        if (d < hd) acc[i] = fmaf(w, pa[d], acc[i]);
       }
     }
   }
@@ -847,154 +879,174 @@ decode_combine_kernel(const float* __restrict__ part_acc,
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int d = lane + i * kWarp;
-    if (d < HD) out[row * HD + d] = from_f32<TQ>(acc[i] / den);
+    if (d < hd) out[row * hd + d] = from_f32<TQ>(acc[i] / den);
   }
 }
 
+// The decode kernel for one q type, page type, width and warp layout.
 template <typename TQ, typename TKV, int HD, int PW, int HW, int HPW>
-cudaError_t launch_decode(const void* q, const void* k, const void* v,
-                          const float* k_scale, const float* v_scale,
-                          const int32_t* page_idx, const int32_t* cache_len,
-                          void* out, float* part_acc, float* part_ml,
-                          int* residency, DecShape sh, cudaStream_t stream) {
+struct Decode {
   using C = DecCfg<TKV, HD, PW, HW, HPW>;
-  constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
-  auto smem_for = [](int pps) {
+
+  static size_t smem(int pps) {
+    constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
     return C::kSmem + sizeof(int) * pps +
            (kQuant ? 2 * sizeof(float) * pps : 0);
-  };
-  auto kernel = paged_decode_kernel<TQ, TKV, HD, PW, HW, HPW>;
+  }
+
   // opt in once, for the largest split, before any launch is captured
-  static const cudaError_t opted = opt_in(kernel, smem_for(kMaxSplitPages));
-  if (opted != cudaSuccess) return opted;
-  if (residency != nullptr)  // a query: CTAs of this shape an SM holds
+  static cudaError_t ready() {
+    static const cudaError_t opted =
+        opt_in(paged_decode_kernel<TQ, TKV, HD, PW, HW, HPW>,
+               smem(kMaxSplitPages));
+    return opted;
+  }
+
+  // CTAs of this kernel with splits of pps lanes that one SM holds
+  static cudaError_t resident(int pps, int* n) {
+    const cudaError_t err = ready();
+    if (err != cudaSuccess) return err;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        residency, kernel, C::kThreads, smem_for(sh.pps));
-  // 16-byte copies need 16-byte aligned rows: HD * sizeof(TKV) is a
-  // multiple of 16 for every HD instantiated, so only the bases can fail
-  const int vec = ((reinterpret_cast<uintptr_t>(k) |
-                    reinterpret_cast<uintptr_t>(v)) % 16) == 0;
-  const dim3 grid(sh.n_split, sh.B, sh.KVH * sh.groups);
-  kernel<<<grid, C::kThreads, smem_for(sh.pps), stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k),
-      static_cast<const TKV*>(v), k_scale, v_scale, page_idx, cache_len,
-      static_cast<TQ*>(out), part_acc, part_ml, sh, vec);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || sh.n_split == 1) return err;
-  decode_combine_kernel<TQ, HD><<<sh.B * sh.H, kWarp, 0, stream>>>(
-      part_acc, part_ml, static_cast<TQ*>(out), sh.n_split);
-  return cudaGetLastError();
-}
+        n, paged_decode_kernel<TQ, TKV, HD, PW, HW, HPW>, C::kThreads,
+        smem(pps));
+  }
+
+  static cudaError_t launch(const Args& a, const DecShape& sh,
+                            cudaStream_t stream) {
+    cudaError_t err = ready();
+    if (err != cudaSuccess) return err;
+    // 16-byte copies need 16-byte aligned bases and rows of whole chunks
+    const int vec = ((reinterpret_cast<uintptr_t>(a.k) |
+                      reinterpret_cast<uintptr_t>(a.v)) % 16) == 0 &&
+                    (sh.hd * sizeof(TKV)) % 16 == 0;
+    const dim3 grid(sh.n_split, sh.B, sh.KVH * sh.groups);
+    paged_decode_kernel<TQ, TKV, HD, PW, HW, HPW>
+        <<<grid, C::kThreads, smem(sh.pps), stream>>>(
+            static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
+            static_cast<const TKV*>(a.v), a.k_scale, a.v_scale, a.page_idx,
+            a.cache_len, static_cast<TQ*>(a.out), a.part_acc, a.part_ml, sh,
+            vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || sh.n_split == 1) return err;
+    decode_combine_kernel<TQ, HD><<<sh.B * sh.H, kWarp, 0, stream>>>(
+        a.part_acc, a.part_ml, static_cast<TQ*>(a.out), sh.n_split, sh.hd);
+    return cudaGetLastError();
+  }
+};
 
 // ===========================================================================
-// Dispatch over q type, page type and head dim
+// Dispatch over q type, page type, width and warp layout
 // ===========================================================================
 
 // The page store's element type, as the entry points name it.
 enum KvType { kKvF32 = 0, kKvBf16 = 1, kKvInt8 = 2 };
 
-struct Args {
-  const void *q, *k, *v;
-  const float *k_scale, *v_scale;
-  const int32_t *page_idx, *cache_len, *new_lens;
-  void* out;
-  float *part_acc, *part_ml;
-  int* residency;  // decode: report resident CTAs an SM instead of launching
+template <typename T>
+struct Type {
+  using type = T;
 };
+template <int N>
+using Width = std::integral_constant<int, N>;
 
-// The decode kernel's warp layout for a shape.  Two warps of 32 rows a tile
-// (one when rows are 512 bytes or more, to fit the ring), four query heads a
-// CTA on four warps: the heads' scores and folds run side by side, the
-// shortest chain for a decode tick.  For int8 pages and rows of kLongRows
-// positions or more, four warps of 32 rows and all four heads a warp: each
-// int8 row is converted and dequantized once for the four heads, which
-// then costs less than the bytes it saves (int8 conversion is 3 operations
-// an element, bf16's 1).  One query head a KV head: one head a CTA.
-constexpr int kLongRows = 1024;
-
-template <typename TQ, typename TKV, int HD>
-cudaError_t launch_layout(const Args& a, const DecShape& sh,
-                          cudaStream_t st) {
-  constexpr int kPW = HD * int(sizeof(TKV)) >= 512 ? 1 : 2;
-  if (sh.H == sh.KVH)
-    return launch_decode<TQ, TKV, HD, kPW, 1, 1>(
-        a.q, a.k, a.v, a.k_scale, a.v_scale, a.page_idx, a.cache_len, a.out,
-        a.part_acc, a.part_ml, a.residency, sh, st);
-  if constexpr (std::is_same<TKV, int8_t>::value) {
-    if (sh.P * sh.ps >= kLongRows)
-      return launch_decode<TQ, TKV, HD, 4, 1, kDecHeads>(
-          a.q, a.k, a.v, a.k_scale, a.v_scale, a.page_idx, a.cache_len,
-          a.out, a.part_acc, a.part_ml, a.residency, sh, st);
-  }
-  return launch_decode<TQ, TKV, HD, kPW, kDecHeads, 1>(
-      a.q, a.k, a.v, a.k_scale, a.v_scale, a.page_idx, a.cache_len, a.out,
-      a.part_acc, a.part_ml, a.residency, sh, st);
+// Calls f(Type<TQ>, Type<TKV>, Width<HD>) for a call's q type, page type and
+// the smallest instantiated width that holds its hd.
+template <typename F>
+cudaError_t with_types(int q_bf16, int kv, int hd, F&& f) {
+  if (hd <= 0 || hd > kMaxHd) return cudaErrorInvalidValue;
+  auto by_hd = [&](auto tq, auto tkv) -> cudaError_t {
+    if (hd <= 16) return f(tq, tkv, Width<16>{});
+    if (hd <= 32) return f(tq, tkv, Width<32>{});
+    if (hd <= 64) return f(tq, tkv, Width<64>{});
+    if (hd <= 128) return f(tq, tkv, Width<128>{});
+    return f(tq, tkv, Width<256>{});
+  };
+  auto by_kv = [&](auto tq) -> cudaError_t {
+    switch (kv) {
+      case kKvBf16: return by_hd(tq, Type<__nv_bfloat16>{});
+      case kKvInt8: return by_hd(tq, Type<int8_t>{});
+      default: return by_hd(tq, Type<float>{});
+    }
+  };
+  if (q_bf16) return by_kv(Type<__nv_bfloat16>{});
+  return by_kv(Type<float>{});
 }
 
-template <typename TQ, typename TKV, int HD>
-cudaError_t launch_one(const Args& a, const Shape* chunk, const DecShape* dec,
-                       cudaStream_t st) {
-  if (dec != nullptr) return launch_layout<TQ, TKV, HD>(a, *dec, st);
-  return launch_chunk<TQ, TKV, HD>(a.q, a.k, a.v, a.k_scale, a.v_scale,
-                                   a.page_idx, a.cache_len, a.new_lens,
-                                   a.out, *chunk, st);
+// The decode kernel's warp layout for a shape: calls f(Decode<...>{}).  Two
+// warps of 32 rows a tile (one when rows are 512 bytes or more, to fit the
+// ring), four query heads a CTA on four warps: the heads' scores and folds
+// run side by side, the shortest chain for a decode tick.  For int8 pages
+// whose lanes hold kLongRows positions or more, four warps of 32 rows and
+// all four heads a warp: each int8 row is converted and dequantized once
+// for the four heads (int8 conversion is 3 operations an element, bf16's
+// 1).  The host cannot see the rows' lengths without a sync, so the choice
+// goes by the lanes' capacity.  kLongRows from the timing sweep
+// (decode_sweep, NVIDIA H100 80GB HBM3, 8 and 16 requests): one head a
+// warp is faster at capacities of 128 and 256 positions (5.7 against 6.9
+// us at the engine's tick, 8.4 against 9.7), split at 512 (10.6 against
+// 11.9 us with 8 full rows, 14.0 against 13.3 with 16); all heads a warp
+// is faster or level from 1024 on (14.0 against 14.5 us with 8 full rows,
+// 19.7 against 22.7 with 16; rows of ~100 on 1024 and 4096 positions of
+// lanes: 9.6 against 9.5 with 8, 11.1 against 14.0 with 16).
+constexpr int kLongRows = BRAVO_LONG_ROWS;
+
+template <typename F>
+cudaError_t with_decode(int q_bf16, int kv, int hd, const DecShape& sh,
+                        F&& f) {
+  return with_types(q_bf16, kv, hd, [&](auto tq, auto tkv, auto w) {
+    using TQ = typename decltype(tq)::type;
+    using TKV = typename decltype(tkv)::type;
+    constexpr int HD = decltype(w)::value;
+    constexpr int kPW = HD * int(sizeof(TKV)) >= 512 ? 1 : 2;
+    if constexpr (std::is_same<TKV, int8_t>::value) {
+      if (sh.P * sh.ps >= kLongRows)
+        return f(Decode<TQ, TKV, HD, 4, 1, kDecHeads>{});
+    }
+    return f(Decode<TQ, TKV, HD, kPW, kDecHeads, 1>{});
+  });
 }
 
-template <typename TQ, typename TKV>
-cudaError_t launch_hd(int hd, const Args& a, const Shape* chunk,
-                      const DecShape* dec, cudaStream_t st) {
-  switch (hd) {
-    case 16: return launch_one<TQ, TKV, 16>(a, chunk, dec, st);
-    case 32: return launch_one<TQ, TKV, 32>(a, chunk, dec, st);
-    case 64: return launch_one<TQ, TKV, 64>(a, chunk, dec, st);
-    case 128: return launch_one<TQ, TKV, 128>(a, chunk, dec, st);
-    case 256: return launch_one<TQ, TKV, 256>(a, chunk, dec, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename TQ>
-cudaError_t launch_kv(int kv, int hd, const Args& a, const Shape* chunk,
-                      const DecShape* dec, cudaStream_t st) {
-  switch (kv) {
-    case kKvBf16: return launch_hd<TQ, __nv_bfloat16>(hd, a, chunk, dec, st);
-    case kKvInt8: return launch_hd<TQ, int8_t>(hd, a, chunk, dec, st);
-    default: return launch_hd<TQ, float>(hd, a, chunk, dec, st);
-  }
-}
-
-cudaError_t dispatch(const Args& a, const Shape* chunk, const DecShape* dec,
-                     int hd, int q_bf16, int kv, void* stream) {
-  if (kv == kKvInt8 && (a.k_scale == nullptr || a.v_scale == nullptr))
-    return cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
-  if (q_bf16) return launch_kv<__nv_bfloat16>(kv, hd, a, chunk, dec, st);
-  return launch_kv<float>(kv, hd, a, chunk, dec, st);
+// The decode shape of a call (B, H, KVH, hd, ps, P, n_pages, n_split
+// splits of pps lanes), or false if it is not one the kernel runs.
+bool decode_shape(int B, int H, int KVH, int hd, int ps, int P, int n_pages,
+                  int n_split, int pps, DecShape* sh) {
+  if (KVH <= 0 || H % KVH != 0 || hd <= 0 || hd > kMaxHd || ps <= 0 ||
+      P < 0 || n_split <= 0 || pps < 0 || pps > kMaxSplitPages ||
+      size_t(n_split) * pps < size_t(P))
+    return false;
+  *sh = DecShape{B, H, KVH, hd, ps, P, n_pages, n_split, pps,
+                 (H / KVH + kDecHeads - 1) / kDecHeads, 0u, 0};
+  fastdiv_magic(ps, &sh->ps_mul, &sh->ps_shift);
+  return true;
 }
 
 int decode(const Args& a, int B, int H, int KVH, int hd, int ps, int P,
            int n_pages, int n_split, int pps, int q_bf16, int kv,
            void* stream) {
   if (B <= 0 || H <= 0) return cudaSuccess;
-  if (KVH <= 0 || H % KVH != 0 || ps <= 0 || P < 0 || n_split <= 0 ||
-      pps < 0 || pps > kMaxSplitPages || size_t(n_split) * pps < size_t(P) ||
-      (n_split > 1 && (a.part_acc == nullptr || a.part_ml == nullptr)))
+  DecShape sh;
+  if (!decode_shape(B, H, KVH, hd, ps, P, n_pages, n_split, pps, &sh) ||
+      (n_split > 1 && (a.part_acc == nullptr || a.part_ml == nullptr)) ||
+      (kv == kKvInt8 && (a.k_scale == nullptr || a.v_scale == nullptr)))
     return cudaErrorInvalidValue;
-  const int g = H / KVH;
-  const int nh = g == 1 ? 1 : kDecHeads;
-  DecShape sh{B, H, KVH, ps, P, n_pages, n_split, pps, (g + nh - 1) / nh,
-              0u, 0};
-  fastdiv_magic(ps, &sh.ps_mul, &sh.ps_shift);
-  return static_cast<int>(dispatch(a, nullptr, &sh, hd, q_bf16, kv, stream));
+  auto st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(with_decode(
+      q_bf16, kv, hd, sh, [&](auto k) { return k.launch(a, sh, st); }));
 }
 
 int chunk(const Args& a, int B, int S, int H, int KVH, int hd, int ps, int P,
           int n_pages, int qb, int q_bf16, int kv, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return cudaSuccess;
-  if (KVH <= 0 || H % KVH != 0 || ps <= 0 || qb <= 0)
+  if (KVH <= 0 || H % KVH != 0 || ps <= 0 || qb <= 0 ||
+      (kv == kKvInt8 && (a.k_scale == nullptr || a.v_scale == nullptr)))
     return cudaErrorInvalidValue;
-  const Shape sh{B, S, H, KVH, ps, P, n_pages, qb};
-  return static_cast<int>(dispatch(a, &sh, nullptr, hd, q_bf16, kv, stream));
+  const Shape sh{B, S, H, KVH, hd, ps, P, n_pages, qb};
+  auto st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      with_types(q_bf16, kv, hd, [&](auto tq, auto tkv, auto w) {
+        return launch_chunk<typename decltype(tq)::type,
+                            typename decltype(tkv)::type,
+                            decltype(w)::value>(a, sh, st);
+      }));
 }
 
 }  // namespace
@@ -1012,7 +1064,7 @@ int bravo_paged_attn(const void* q, const void* k_pages, const void* v_pages,
                      int pps, int q_bf16, int kv_bf16, void* stream) {
   const Args a{q, k_pages, v_pages, nullptr, nullptr, page_idx, cache_len,
                nullptr, out, static_cast<float*>(part_acc),
-               static_cast<float*>(part_ml), nullptr};
+               static_cast<float*>(part_ml)};
   return decode(a, B, H, KVH, hd, ps, P, n_pages, n_split, pps, q_bf16,
                 kv_bf16 ? kKvBf16 : kKvF32, stream);
 }
@@ -1027,7 +1079,7 @@ int bravo_paged_chunk_attn(const void* q, const void* k_pages,
                            int ps, int P, int n_pages, int qb, int q_bf16,
                            int kv_bf16, void* stream) {
   const Args a{q, k_pages, v_pages, nullptr, nullptr, page_idx, cache_len,
-               new_lens, out, nullptr, nullptr, nullptr};
+               new_lens, out, nullptr, nullptr};
   return chunk(a, B, S, H, KVH, hd, ps, P, n_pages, qb, q_bf16,
                kv_bf16 ? kKvBf16 : kKvF32, stream);
 }
@@ -1043,7 +1095,7 @@ int bravo_paged_attn_quant(const void* q, const void* k_pages,
                            int n_split, int pps, int q_bf16, void* stream) {
   const Args a{q, k_pages, v_pages, k_scale, v_scale, page_idx, cache_len,
                nullptr, out, static_cast<float*>(part_acc),
-               static_cast<float*>(part_ml), nullptr};
+               static_cast<float*>(part_ml)};
   return decode(a, B, H, KVH, hd, ps, P, n_pages, n_split, pps, q_bf16,
                 kKvInt8, stream);
 }
@@ -1059,7 +1111,7 @@ int bravo_paged_chunk_attn_quant(const void* q, const void* k_pages,
                                  int n_pages, int qb, int q_bf16,
                                  void* stream) {
   const Args a{q, k_pages, v_pages, k_scale, v_scale, page_idx, cache_len,
-               new_lens, out, nullptr, nullptr, nullptr};
+               new_lens, out, nullptr, nullptr};
   return chunk(a, B, S, H, KVH, hd, ps, P, n_pages, qb, q_bf16, kKvInt8,
                stream);
 }
@@ -1070,15 +1122,13 @@ int bravo_paged_chunk_attn_quant(const void* q, const void* k_pages,
 // split with it.
 int bravo_paged_attn_residency(int q_bf16, int kv, int H, int KVH, int hd,
                                int ps, int P, int pps, int* resident) {
-  if (KVH <= 0 || H % KVH != 0 || ps <= 0 || P < 0 || pps < 0 ||
-      pps > kMaxSplitPages || resident == nullptr)
+  DecShape sh;
+  const int n_split = pps > 0 ? (P + pps - 1) / pps : 1;
+  if (!decode_shape(1, H, KVH, hd, ps, P, 0, n_split, pps, &sh) ||
+      resident == nullptr)
     return cudaErrorInvalidValue;
-  const float f = 0.f;  // any non-null scale pointer
-  const Args a{nullptr, nullptr, nullptr, &f, &f, nullptr, nullptr,
-               nullptr, nullptr, nullptr, nullptr, resident};
-  DecShape sh{1, H, KVH, ps, P, 0, 1, pps, 1, 0u, 0};
-  return static_cast<int>(dispatch(a, nullptr, &sh, hd, q_bf16, kv,
-                                   nullptr));
+  return static_cast<int>(with_decode(
+      q_bf16, kv, hd, sh, [&](auto k) { return k.resident(pps, resident); }));
 }
 
 const char* bravo_error_string(int err) {

@@ -14,24 +14,22 @@ import ctypes
 import hashlib
 import os
 import pathlib
-import re
 import shutil
 import subprocess
 import tempfile
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _mu = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 class LaunchCounter:
@@ -72,19 +70,24 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _lib_path(source: pathlib.Path) -> pathlib.Path:
-    text = source.read_bytes() + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()
+def _flags(defines: Sequence[str]) -> Tuple[str, ...]:
+    return ARCH_FLAGS + NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def _lib_path(source: pathlib.Path, defines: Sequence[str]) -> pathlib.Path:
+    text = source.read_bytes() + " ".join(_flags(defines)).encode()
     digest = hashlib.sha256(text).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 
 
-def compile_source(source: pathlib.Path) -> Tuple[pathlib.Path, float]:
+def compile_source(source: pathlib.Path,
+                   defines: Sequence[str] = ()) -> Tuple[pathlib.Path, float]:
     """Compile one ``.cu`` file unless its library exists; -> (library
-    path, seconds spent in nvcc).  Writes to a temporary name and renames,
-    so concurrent builds never load a half-written library.  ptxas's
-    report (registers, shared memory and spills of each kernel) goes to
-    :func:`ptxas_report`'s file beside the library."""
-    out = _lib_path(source)
+    path, seconds spent in nvcc).  ``defines`` (``NAME=VALUE``) set a
+    source's build-time switches, for a timing sweep's variants; the
+    wrappers build with none.  Writes to a temporary name and renames, so
+    concurrent builds never load a half-written library."""
+    out = _lib_path(source, defines)
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -92,12 +95,11 @@ def compile_source(source: pathlib.Path) -> Tuple[pathlib.Path, float]:
     os.close(fd)
     t0 = time.monotonic()
     try:
-        cmd = [nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", tmp, str(source)]
+        cmd = [nvcc(), *_flags(defines), "-o", tmp, str(source)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source.name}:\n"
                                f"{res.stdout}\n{res.stderr}")
-        ptxas_report(out).write_text(res.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -105,46 +107,17 @@ def compile_source(source: pathlib.Path) -> Tuple[pathlib.Path, float]:
     return out, time.monotonic() - t0
 
 
-def ptxas_report(library: pathlib.Path) -> pathlib.Path:
-    """Where :func:`compile_source` keeps nvcc's ``-Xptxas -v`` output."""
-    return library.with_suffix(".ptxas.txt")
-
-
-def ptxas_summary(library: pathlib.Path) -> dict:
-    """Per kernel (mangled name) of a built library: registers and spill
-    bytes, from its ptxas report; {} when there is none."""
-    path = ptxas_report(library)
-    if not path.exists():
-        return {}
-    out, name = {}, None
-    for line in path.read_text().splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties "
-                      r"for) '?(\w+)'?", line)
-        if m:
-            name = m.group(1)
-            continue
-        if name is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            out.setdefault(name, {})["spill_bytes"] = int(m.group(1)) + int(
-                m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out.setdefault(name, {})["registers"] = int(m.group(1))
-    return out
-
-
-def load(source: str, signatures: Dict[str, list]) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<source>``; ``signatures`` maps
-    each C entry point to its ctypes argtypes (every entry returns int, the
-    launch's cudaError_t).  Every source also exports
-    ``bravo_error_string(int) -> const char*``."""
+def load(source: str, signatures: Dict[str, list],
+         defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<source>`` with ``defines`` (see
+    :func:`compile_source`); ``signatures`` maps each C entry point to its
+    ctypes argtypes (every entry returns int, the launch's cudaError_t).
+    Every source also exports ``bravo_error_string(int) -> const char*``."""
+    key = (source, tuple(defines))
     with _mu:
-        lib = _libs.get(source)
+        lib = _libs.get(key)
         if lib is None:
-            path, _ = compile_source(CSRC / source)
+            path, _ = compile_source(CSRC / source, defines)
             lib = ctypes.CDLL(str(path))
             for fn, argtypes in signatures.items():
                 f = getattr(lib, fn)
@@ -152,7 +125,7 @@ def load(source: str, signatures: Dict[str, list]) -> ctypes.CDLL:
                 f.restype = ctypes.c_int
             lib.bravo_error_string.argtypes = [ctypes.c_int]
             lib.bravo_error_string.restype = ctypes.c_char_p
-            _libs[source] = lib
+            _libs[key] = lib
         return lib
 
 

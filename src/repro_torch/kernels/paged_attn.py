@@ -11,9 +11,11 @@ float32 scale per (page, KV head), dequantized in the kernel.  The Pallas
 kernel's ``lanes_per_step`` knob (how many page DMAs a TPU grid step keeps
 in flight) has no counterpart: the CUDA kernel splits the page lanes over
 the grid (:func:`decode_splits`, from host shapes alone) and walks each
-split in tiles of 64 or 128 positions, streamed through shared memory with
+split in tiles of 32 to 128 positions, streamed through shared memory with
 16-byte asynchronous copies; a second pass merges the splits' partial
-softmax states.  Both passes count as one launch.
+softmax states.  Both passes count as one launch.  Any head_dim up to
+:data:`MAX_HEAD_DIM` runs, padded to the next width the kernels are built
+for (16, 32, 64, 128, 256).
 
 A CPU tensor takes the plain version (``ref.paged_attn_ref``,
 ``ref.paged_attn_quant_ref``); a CUDA tensor launches the kernel or raises.
@@ -35,12 +37,15 @@ from . import ref as R
 from .table_publish import on_cpu
 
 SOURCE = "paged_attn.cu"
-HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' instantiations
+MAX_HEAD_DIM = 256   # the widest instantiation; a smaller hd is padded
 MAX_WARPS = 16    # chunk kernel: warps of one CTA, looping over the
                   # (column, query head) pairs
-DECODE_HEADS = 4  # decode kernel: query heads of one CTA (1 when H == KVH)
+DECODE_HEADS = 4  # decode kernel: query heads of one CTA
 MAX_SPLIT_PAGES = 512        # page lanes of one decode split
-MIN_SPLIT_POSITIONS = 256    # a split is worth a CTA from this many positions
+# a split is worth a CTA from this many positions: splitting rows of 256
+# into splits of 128 or 64 gained at most 5% (decode_sweep on an H100, 8
+# rows) and cost 16-40% (16 rows)
+MIN_SPLIT_POSITIONS = 256
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
@@ -123,8 +128,8 @@ def check_args(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     for t in ts:
         _need(t.is_contiguous(), "paged attention takes contiguous tensors")
     if not cpu:
-        _need(hd in HEAD_DIMS, f"head_dim {hd}: the kernels are built for "
-              f"head_dim in {HEAD_DIMS}")
+        _need(0 < hd <= MAX_HEAD_DIM, f"head_dim {hd}: the kernels take "
+              f"head_dim 1 to {MAX_HEAD_DIM}")
     return cpu
 
 
@@ -133,15 +138,14 @@ def decode_splits(b: int, h: int, kvh: int, lanes: int, ps: int,
     """K5/K7's KV split, from host shapes alone (never from ``cache_len``'s
     values, so a call moves nothing between host and device): -> (number
     of splits, page lanes per split).  The grid has ``b * kvh * groups``
-    CTAs a split (``groups``: the query heads of a KV head in fours, or 1
-    when ``h == kvh``); the splits fill one wave of ``resident`` CTAs on
+    CTAs a split (``groups``: the query heads of a KV head in fours); the
+    splits fill one wave of ``resident`` CTAs on
     each of ``n_sm`` SMs, as long as each split keeps
     ``MIN_SPLIT_POSITIONS`` positions, and a split never holds more than
     ``MAX_SPLIT_PAGES`` lanes.  One split runs no second pass."""
     if lanes <= 0:
         return 1, 0
-    g = h // kvh
-    groups = 1 if g == 1 else -(-g // DECODE_HEADS)
+    groups = -(-(h // kvh) // DECODE_HEADS)
     wave = max(1, resident * n_sm // max(1, b * kvh * groups))
     most = lanes * ps // MIN_SPLIT_POSITIONS
     n = max(1, min(wave, most, lanes), -(-lanes // MAX_SPLIT_PAGES))
@@ -153,16 +157,19 @@ _RESIDENT = {}
 
 
 def decode_residency(q: torch.Tensor, k_pages: torch.Tensor, lanes: int,
-                     pps: int) -> int:
+                     pps: int, lib: Optional[ctypes.CDLL] = None) -> int:
     """CTAs of the decode kernel for these operands (q and page types, head
     shape, ``lanes`` page lanes, ``pps`` of them a split) that one SM holds
-    at once, from the CUDA occupancy calculator: a host query, cached."""
+    at once, from the CUDA occupancy calculator: a host query, cached.
+    ``lib``: a build of ``paged_attn.cu`` other than :func:`paged_lib`'s
+    (the timing sweep's variants)."""
+    if lib is None:
+        lib = paged_lib()
     h, hd = q.shape[-2], q.shape[-1]
     ps, kvh = k_pages.shape[1], k_pages.shape[2]
     kv = 2 if k_pages.dtype == torch.int8 else _codes(q, k_pages)[1]
-    key = (q.device.index, _q_bf16(q), kv, h, kvh, hd, ps, lanes, pps)
+    key = (lib, q.device.index, _q_bf16(q), kv, h, kvh, hd, ps, lanes, pps)
     if key not in _RESIDENT:
-        lib = paged_lib()
         out = ctypes.c_int(0)
         _build.check(lib, lib.bravo_paged_attn_residency(
             _q_bf16(q), kv, h, kvh, hd, ps, lanes, pps, ctypes.byref(out)),
@@ -179,8 +186,8 @@ def _codes(q: torch.Tensor, k_pages: torch.Tensor):
     return _q_bf16(q), int(k_pages.dtype == torch.bfloat16)
 
 
-def decode_plan(q: torch.Tensor, k_pages: torch.Tensor,
-                lanes: int) -> Tuple[int, int]:
+def decode_plan(q: torch.Tensor, k_pages: torch.Tensor, lanes: int,
+                lib: Optional[ctypes.CDLL] = None) -> Tuple[int, int]:
     """The split :func:`paged_attention` and :func:`paged_attention_quant`
     launch on these CUDA operands with ``lanes`` page lanes: -> (number of
     splits, page lanes a split).  The residency is taken at the largest
@@ -190,21 +197,27 @@ def decode_plan(q: torch.Tensor, k_pages: torch.Tensor,
     ps, kvh = k_pages.shape[1], k_pages.shape[2]
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
     resident = decode_residency(q, k_pages, lanes,
-                                min(lanes, MAX_SPLIT_PAGES))
+                                min(lanes, MAX_SPLIT_PAGES), lib)
     return decode_splits(b, h, kvh, lanes, ps, n_sm, resident)
 
 
-def _decode(entry: str, q: torch.Tensor, k_pages: torch.Tensor,
-            v_pages: torch.Tensor, scales, page_idx: torch.Tensor,
-            cache_len: torch.Tensor, n_split: Optional[int]) -> torch.Tensor:
-    """Launch K5 (``scales`` empty) or K7 on CUDA tensors: the split's
-    partials go to two ``torch.empty`` buffers; ``n_split`` overrides
-    :func:`decode_splits` (lanes split evenly)."""
+def _decode(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+            scales, page_idx: torch.Tensor, cache_len: torch.Tensor,
+            n_split: Optional[int] = None,
+            lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
+    """Launch K5 (``scales`` empty) or K7 (``scales`` = (k_scale,
+    v_scale)) on CUDA tensors, counting nothing: the split's partials go to
+    two ``torch.empty`` buffers; ``n_split`` overrides
+    :func:`decode_splits` (lanes split evenly), ``lib`` the build (as in
+    :func:`decode_residency`).  The wrappers call it; the card checks and
+    the timing sweep call it to force a split or a build."""
+    if lib is None:
+        lib = paged_lib()
     b, h, hd = q.shape
     n_pages, ps, kvh, _ = k_pages.shape
     lanes = page_idx.shape[1]
     if n_split is None:
-        n_split, pps = decode_plan(q, k_pages, lanes)
+        n_split, pps = decode_plan(q, k_pages, lanes, lib)
     else:
         pps = -(-lanes // n_split) if lanes else 0
         n_split = -(-lanes // pps) if lanes else 1
@@ -218,7 +231,7 @@ def _decode(entry: str, q: torch.Tensor, k_pages: torch.Tensor,
         ml = torch.empty((b, h, n_split, 2), dtype=torch.float32,
                          device=q.device)
     if b and h:
-        lib = paged_lib()
+        entry = "bravo_paged_attn_quant" if scales else "bravo_paged_attn"
         codes = (_q_bf16(q),) if scales else _codes(q, k_pages)
         _build.check(lib, getattr(lib, entry)(
             _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages),
@@ -231,17 +244,13 @@ def _decode(entry: str, q: torch.Tensor, k_pages: torch.Tensor,
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, page_idx: torch.Tensor,
-                    cache_len: torch.Tensor, *,
-                    n_split: Optional[int] = None) -> torch.Tensor:
+                    cache_len: torch.Tensor) -> torch.Tensor:
     """K5: q (B, H, hd) against k/v_pages (n_pages, ps, KVH, hd) by
     page_idx (B, P) int32 (-1 = unused lane) up to cache_len (B,) int32.
-    -> (B, H, hd) in q's dtype; a row with no valid position is zero.
-    ``n_split`` overrides the kernel's KV split (the result is the same up
-    to float32 rounding); the plain version ignores it."""
+    -> (B, H, hd) in q's dtype; a row with no valid position is zero."""
     if check_args(q, k_pages, v_pages, page_idx, cache_len):
         return R.paged_attn_ref(q, k_pages, v_pages, page_idx, cache_len)
-    out = _decode("bravo_paged_attn", q, k_pages, v_pages, (), page_idx,
-                  cache_len, n_split)
+    out = _decode(q, k_pages, v_pages, (), page_idx, cache_len)
     if q.shape[0] and q.shape[1]:
         PAGED_ATTENTION.add()
     return out
@@ -250,16 +259,15 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 def paged_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, k_scale: torch.Tensor,
                           v_scale: torch.Tensor, page_idx: torch.Tensor,
-                          cache_len: torch.Tensor, *,
-                          n_split: Optional[int] = None) -> torch.Tensor:
+                          cache_len: torch.Tensor) -> torch.Tensor:
     """K7: K5 over int8 k/v_pages (n_pages, ps, KVH, hd) with float32
     k/v_scale (n_pages, KVH).  -> (B, H, hd) in q's dtype."""
     if check_args(q, k_pages, v_pages, page_idx, cache_len, None, k_scale,
                   v_scale):
         return R.paged_attn_quant_ref(q, k_pages, v_pages, k_scale, v_scale,
                                       page_idx, cache_len)
-    out = _decode("bravo_paged_attn_quant", q, k_pages, v_pages,
-                  (k_scale, v_scale), page_idx, cache_len, n_split)
+    out = _decode(q, k_pages, v_pages, (k_scale, v_scale), page_idx,
+                  cache_len)
     if q.shape[0] and q.shape[1]:
         PAGED_ATTENTION_QUANT.add()
     return out

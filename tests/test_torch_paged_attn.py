@@ -102,11 +102,15 @@ def test_decode_attention_matches_pallas_and_oracle(seed, h, kvh, ps, kvd):
     assert cl[-1] == 0 and not got[-1].any() and not want[-1].any()
 
 
-# The attention heads of two dense configs of the reference that the
-# kernels refused before they took hd 256 and any number of query heads per
-# KV head: gemma-2b (8 query heads on 1 KV head, head_dim 256) and
-# granite-20b (48 on 1, head_dim 128).
-CONFIG_HEADS = {"gemma-2b": (8, 1, 256), "granite-20b": (48, 1, 128)}
+# The attention heads of configs of the reference: two dense configs that
+# the kernels refused before they took hd 256 and any number of query heads
+# per KV head, gemma-2b (8 query heads on 1 KV head, head_dim 256) and
+# granite-20b (48 on 1, head_dim 128); and head dims the kernels run padded
+# to the next width they are built for, hubert-xlarge's (16 on 16, 80),
+# phi-3-vision's (32 on 32, 96) and minicpm's smoke config's (6 on 6, 12).
+CONFIG_HEADS = {"gemma-2b": (8, 1, 256), "granite-20b": (48, 1, 128),
+                "hubert-xlarge": (16, 16, 80), "phi-3-vision": (32, 32, 96),
+                "minicpm-smoke": (6, 6, 12)}
 
 
 @pytest.mark.parametrize("kvd", ["f32", "bf16"])

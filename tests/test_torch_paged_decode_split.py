@@ -139,7 +139,7 @@ def test_decode_splits_depend_on_shapes_only():
     assert PA.decode_splits(16, 32, 8, 256, 16, 132, 4) == (4, 64)
     # granite-20b's 48 heads on one KV head: 12 head groups of 4
     assert PA.decode_splits(4, 48, 1, 300, 16, 132, 4) == (11, 28)
-    # one query head a KV head: one CTA a head
+    # one query head a KV head: one CTA a head, its other head slots empty
     assert PA.decode_splits(4, 16, 16, 300, 16, 132, 8) == (16, 19)
     assert PA.decode_splits(2, 8, 1, 0, 16, 132, 8) == (1, 0)
     # a split never holds more than MAX_SPLIT_PAGES lanes
@@ -153,6 +153,6 @@ def test_decode_splits_depend_on_shapes_only():
         assert 1 <= pps <= PA.MAX_SPLIT_PAGES
         assert (n - 1) * pps < lanes <= n * pps     # no split is empty
         assert n == 1 or pps * ps >= PA.MIN_SPLIT_POSITIONS // 2
-        groups = 1 if h == kvh else -(-(h // kvh) // PA.DECODE_HEADS)
+        groups = -(-(h // kvh) // PA.DECODE_HEADS)
         assert n == 1 or n * b * kvh * groups <= resident * 132 or \
             pps * 2 > PA.MAX_SPLIT_PAGES                   # one wave

@@ -286,8 +286,12 @@ def test_decode_quant_matches_pallas_and_oracle(seed, h, kvh, ps):
 
 
 # gemma-2b's (8 query heads on 1 KV head, head_dim 256) and granite-20b's
-# (48 on 1, head_dim 128) attention heads over the int8 store
-CONFIG_HEADS = {"gemma-2b": (8, 1, 256), "granite-20b": (48, 1, 128)}
+# (48 on 1, head_dim 128) attention heads over the int8 store, and head dims
+# the kernels pad: hubert-xlarge's (16 on 16, 80), phi-3-vision's (32 on 32,
+# 96) and minicpm's smoke config's (6 on 6, 12)
+CONFIG_HEADS = {"gemma-2b": (8, 1, 256), "granite-20b": (48, 1, 128),
+                "hubert-xlarge": (16, 16, 80), "phi-3-vision": (32, 32, 96),
+                "minicpm-smoke": (6, 6, 12)}
 
 
 @pytest.mark.parametrize("config", list(CONFIG_HEADS))
