@@ -9,8 +9,11 @@ non-zero exit and no result line:
 1. environment: torch, CUDA, nvcc and the card (name, power limit);
 2. build: nvcc compiles the two CUDA sources,
    ``src/repro_torch/csrc/table_kernels.cu`` (K1-K4, K9, K10) and
-   ``src/repro_torch/csrc/paged_attn.cu`` (K5-K8), one process each, both
-   started together;
+   ``src/repro_torch/csrc/paged_attn.cu`` (K5-K8), and ``paged_attn.cu``
+   once more with ``BRAVO_CHUNK_PARENT=1`` (its chunk entry points run the
+   parent chunk design, timed beside K5-K8), one process each, all
+   started together; then ptxas's report (registers, spills, static
+   shared memory) on the chunk kernel's instantiations;
 3. kernels: each table kernel (K1-K4) against its plain PyTorch version on
    the card, exact, at the 4096-slot table with M in {1, 4, 16, 256}, K in
    {1, 5, 128} and seeded sweeps with collisions, cleared bias lanes, -1
@@ -28,22 +31,25 @@ non-zero exit and no result line:
    sweeps over the traps (-1 lanes
    inside and past ``cache_len``, ``cache_len`` 0, a partial last page,
    padding columns, ``new_lens`` 0, a chunk longer than the paged prefix,
-   every q/page type pair), within the stated tolerances; K5 also at
-   forced KV split counts (1, 2, 3, one per lane), on pages that are not
-   16-byte aligned and at the long-context shape (16 requests of
-   3584-4096 positions); K7 and K8 (the same over int8 pages with per-page
-   scales) against theirs over the same traps plus an all-zero page and a
-   page whose group max saturates (spikes of 6, absolute tolerance, and of
-   40, relative), K7 at the same forced splits, unaligned pages and
-   long-context shape, and against the float32 K5/K6 on the pages before
-   quantization; ``requant_scatter`` (the quantized store's
+   every q/page type pair), within the stated tolerances; K5 and K6 also
+   at forced KV split counts (1, 2, 3, one per lane) and on pages that are
+   not 16-byte aligned (K6 also with 48 query heads on one KV head and at
+   hd 12), K5 at the long-context shape (16 requests of 3584-4096
+   positions), K6 at the two long-prefix shapes (2 rows of 32 or 256
+   columns at the end of 3584-4096 positions); K7 and K8 (the same over
+   int8 pages with per-page scales) against theirs over the same traps
+   plus an all-zero page and a page whose group max saturates (spikes of
+   6, absolute tolerance, and of 40, relative), at the same forced splits,
+   unaligned pages and long shapes, and against the float32 K5/K6 on the
+   pages before quantization; ``requant_scatter`` (the quantized store's
    write path) on the card byte for byte against the CPU; then each
    kernel's time (CUDA events, median) at the engine's shapes beside its
    plain version's, its bound and, for K5-K8,
    ``scaled_dot_product_attention`` over K/V already gathered dense (and
-   dequantized, for K7/K8); K5/K7 also at the long-context shape, each
-   beside the parent design (the chunk kernel at S = 1) and the kernel
-   forced to one split, timed in the same run;
+   dequantized, for K7/K8); K5/K7 also at the long-context shape and
+   K6/K8 at the two long-prefix shapes; each K5-K8 time beside the parent
+   chunk design's (for K5/K7 called at S = 1) and the kernel's forced to
+   one split, timed in the same run;
 3c. device_bravo: the port's device-BRAVO benchmark
    (``repro_torch.benchmarks.device_bravo``, batch 64, 100 iterations):
    the single-lock ``DeviceLeaseTable`` (K2 acquire and release, K3 drain
@@ -75,7 +81,12 @@ non-zero exit and no result line:
    (``quant_kv=True``, int8 pages with float32 scales, 1.07 GB of K/V),
    which must launch K7 and K8 and neither K5 nor K6, count its quantized
    tokens and prefix hits, hold exactly half the bf16 run's K/V bytes and
-   agree with the bf16 run's tokens on at least the stated share;
+   agree with the bf16 run's tokens on at least the stated share; then the
+   bf16 run again on a store of ``EVICT_PAGES`` pages, where decode growth
+   evicts running requests: it must evict at least once and finish every
+   request with every page free and the table drained after ``stop()``;
+   its K6 launches and the share of its tokens equal to the roomy run's
+   are recorded;
 7. tokens: with one request per batch and no swap, the handler-mode
    engine's tokens equal a direct greedy loop through the port's
    prefill/decode steps;
@@ -116,6 +127,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 INT_OPS_PER_S = 67e12          # H100 SXM float32 rate outside tensor cores
+TENSOR_OPS_PER_S = 989e12      # H100 SXM bf16 tensor-core rate, dense
 SECTOR = 32                    # bytes: the least a device-memory access moves
 EMBED_SCALE = 0.01
 # Phase 7's tolerances: max |a - b| / max |b| over the logits of every step,
@@ -169,6 +181,13 @@ QUANT_VS_BF16_SHARE = 0.5
 # in a 4096-page store, cache_len drawn from [3584, 4096].
 LONG_CONTEXT = dict(b=16, h=32, kvh=8, hd=64, ps=16, lanes=256, n_pages=4096)
 LONG_LENGTHS = (3584, 4096)
+# The chunk kernel's long-prefix shapes (K6/K8 checks and times): 2 rows
+# (the scheduler's prefill_rows) of a chunk at the end of a prefix of
+# 3584-4096 positions, on llama3.2-1b's attention and 256 lanes of 16 in a
+# 4096-page store; the chunk 32 columns wide (the scheduler's
+# prefill_chunk) or 256 (a wide chunked-prefill width for long prompts).
+LONG_PREFIX = dict(b=2, h=32, kvh=8, hd=64, ps=16, lanes=256, n_pages=4096)
+LONG_PREFIX_COLUMNS = {"long_prefix": 32, "long_prefix_wide": 256}
 # The head shapes of two dense configs of the reference that K5-K8 refused
 # before they looped warps over heads and took hd 256: gemma-2b (8 query
 # heads on 1 KV head, head_dim 256) and granite-20b (48 on 1, head_dim 128).
@@ -196,6 +215,21 @@ DECODE_SPLIT_SHAPES = [dict(b=5, s=1, h=8, kvh=2, hd=64, ps=4, lanes=9,
                             n_pages=512),
                        dict(b=5, s=1, h=6, kvh=6, hd=12, ps=4, lanes=9,
                             n_pages=64)]
+# K6/K8 at forced split counts and on unaligned pages (_chunk_variants):
+# short rows, rows of up to 1024 positions (20 columns x 4 heads = 80
+# pairs), 160 pairs (more than one block in every layout), granite-20b's
+# 48 query heads on one KV head (blocks that cut a column's heads), and hd
+# 12 (rows of 24 and 12 bytes, copied element by element)
+CHUNK_SPLIT_SHAPES = [dict(b=5, s=5, h=8, kvh=2, hd=64, ps=4, lanes=9,
+                           n_pages=64),
+                      dict(b=5, s=20, h=8, kvh=2, hd=64, ps=16, lanes=64,
+                           n_pages=512),
+                      dict(b=4, s=40, h=32, kvh=8, hd=64, ps=16, lanes=16,
+                           n_pages=256),
+                      dict(b=4, s=3, h=48, kvh=1, hd=128, ps=8, lanes=12,
+                           n_pages=64),
+                      dict(b=5, s=3, h=6, kvh=6, hd=12, ps=4, lanes=9,
+                           n_pages=64)]
 # The int8 trap page with a spike of 40 (outputs of ~40) against the plain
 # K7/K8: float32 outputs within 1e-5 of the largest output, relative, since
 # float32 rounding at that magnitude alone reaches 1e-5 absolute.
@@ -205,6 +239,10 @@ QUANT_SPIKE_REL = 1e-5
 BIG_BATCH = 3000
 SOURCES = {"table": "src/repro_torch/csrc/table_kernels.cu",
            "paged": "src/repro_torch/csrc/paged_attn.cu"}
+# builds: (source, build-time switches); "parent" runs the parent chunk
+# design in the chunk entry points, for timing only
+BUILDS = {"table": (SOURCES["table"], ()), "paged": (SOURCES["paged"], ()),
+          "parent": (SOURCES["paged"], ("BRAVO_CHUNK_PARENT=1",))}
 REPLACES = {
     "fused_publish_multi": "src/repro/kernels/table_publish.py:204",
     "fused_publish": "src/repro/kernels/table_publish.py:111",
@@ -229,6 +267,11 @@ LEGACY_KERNELS = list(REPLACES)[8:]
 SCHED = dict(max_slots=8, page_size=16, max_seq=128, prefill_chunk=32,
              prefill_rows=2, token_budget=64, prefix_cache=True)
 SCHED_PAGES = 4096
+# the eviction run: the same scheduler phase on a store so small that
+# decode growth evicts (a request needs up to 6 pages of 16; wave 1's six
+# need about 27); at 12-20 pages the port's CPU run of the smoke config
+# evicted 1-2 times
+EVICT_PAGES = 16
 
 
 def emit(obj) -> None:
@@ -494,6 +537,7 @@ def check_paged_kernels(dev, seeds=range(3)) -> dict:
 
     from repro_torch.kernels import ops as K
     from repro_torch.kernels import paged_attn as PA
+    from repro_torch.kernels import paged_chunk_attn as PCA
     from repro_torch.kernels import ref as R
 
     out = {name: {"cases": 0, "max_abs_err": 0.0, "matched": True,
@@ -516,13 +560,10 @@ def check_paged_kernels(dev, seeds=range(3)) -> dict:
         for sh, (qd, kd), traps in cases:
             q, kp, vp, pi, cl, nl = _paged_case(
                 rng, dev, q_dtype=qd, kv_dtype=kd, traps=traps, **sh)
-            s = q.shape[1]
-            col = torch.arange(s, device=dev)
-            pad = ((col[None, :] < s - nl[:, None])
-                   | (cl[:, None] - s + col[None, :] < 0))
             _paged_agree(out, "paged_chunk_attention",
                          K.paged_chunk_attention(q, kp, vp, pi, cl, nl),
-                         R.paged_chunk_attn_ref(q, kp, vp, pi, cl, nl), pad)
+                         R.paged_chunk_attn_ref(q, kp, vp, pi, cl, nl),
+                         _padding(q, cl, nl))
             q1 = q[:, -1].contiguous()
             _paged_agree(out, "paged_attention",
                          K.paged_attention(q1, kp, vp, pi, cl),
@@ -542,13 +583,40 @@ def check_paged_kernels(dev, seeds=range(3)) -> dict:
         _paged_agree(out, "paged_attention",
                      K.paged_attention(q1, kp, vp, pi, cl),
                      R.paged_attn_ref(q1, kp, vp, pi, cl), cl <= 0)
+    for (qd, kd), sh in itertools.product(types, CHUNK_SPLIT_SHAPES):
+        q, kp, vp, pi, cl, nl = _paged_case(rng, dev, q_dtype=qd,
+                                            kv_dtype=kd, **sh)
+        want = R.paged_chunk_attn_ref(q, kp, vp, pi, cl, nl)
+        for got in _chunk_variants(PCA.paged_chunk_attention, q, (kp, vp),
+                                   (), pi, cl, nl):
+            _paged_agree(out, "paged_chunk_attention", got, want,
+                         _padding(q, cl, nl))
+    for name, cols in LONG_PREFIX_COLUMNS.items():
+        q, kp, vp, pi, cl, nl = _long_prefix_case(rng, dev, torch.bfloat16,
+                                                  cols)
+        want = R.paged_chunk_attn_ref(q, kp, vp, pi, cl, nl)
+        for got in _chunk_variants(PCA.paged_chunk_attention, q, (kp, vp),
+                                   (), pi, cl, nl,
+                                   forced=name == "long_prefix"):
+            _paged_agree(out, "paged_chunk_attention", got, want, None)
     torch.cuda.synchronize()
     return out
 
 
+def _padding(q, cl, nl):
+    """(B, S) True where a chunk column is no query (padding, or a
+    position before 0): its output must be exactly zero."""
+    import torch
+
+    s = q.shape[1]
+    col = torch.arange(s, device=q.device)
+    return ((col[None, :] < s - nl[:, None])
+            | (cl[:, None] - s + col[None, :] < 0))
+
+
 def _unaligned(x):
     """The same values at an address one element past 16-byte alignment:
-    the decode kernel then copies its rows element by element."""
+    the paged kernels then copy their rows element by element."""
     import torch
 
     flat = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
@@ -571,6 +639,45 @@ def _decode_variants(fn, q, pages, scales, pi, cl):
     bad = [_unaligned(x) for x in pages]
     for n in (1, 3):
         yield PA._decode(q, *bad, scales, pi, cl, n_split=n)
+
+
+def _chunk_variants(fn, q, pages, scales, pi, cl, nl, forced=True):
+    """K6 or K8 on one case: the split and layout the wrapper ``fn`` picks
+    and, with ``forced``, in each layout (64 pairs a CTA; 128 and 16 where
+    head_dim is 33 to 64) forced splits of 1, 2, 3 and one per lane (so
+    splits past ``cache_len`` and splits of -1 lanes only occur) and pages
+    that are not 16-byte aligned (one split and three); else one split
+    besides in each layout."""
+    from repro_torch.kernels import paged_chunk_attn as PCA
+
+    lanes = pi.shape[1]
+    yield fn(q, *pages, *scales, pi, cl, nl)
+    lo, hi = PCA.PAIRS_HD
+    layouts = ([PCA.WIDE_PAIRS, PCA.SMALL_PAIRS]
+               if lo <= q.shape[-1] <= hi else [PCA.CHUNK_PAIRS])
+    bad = [_unaligned(x) for x in pages]
+    for pairs in layouts:
+        for n in (1, 2, 3, lanes) if forced else (1,):
+            yield PCA._chunk(q, *pages, scales, pi, cl, nl, n_split=n,
+                             pairs=pairs)
+        for n in (1, 3) if forced else ():
+            yield PCA._chunk(q, *bad, scales, pi, cl, nl, n_split=n,
+                             pairs=pairs)
+
+
+def _long_prefix_case(rng, dev, kv_dtype, cols):
+    """A long-prefix chunk: 2 rows of ``cols`` columns, every one real, at
+    the end of 3584-4096 positions on 256 lanes of 16 (``LONG_PREFIX``),
+    float32 q; -> _paged_case's tuple."""
+    import numpy as np
+    import torch
+
+    b = LONG_PREFIX["b"]
+    return _paged_case(rng, dev, s=cols, q_dtype=torch.float32,
+                       kv_dtype=kv_dtype, traps=False,
+                       clen=rng.integers(LONG_LENGTHS[0], LONG_LENGTHS[1] + 1,
+                                         b),
+                       nl=np.full(b, cols), **LONG_PREFIX)
 
 
 def _long_case(rng, dev, kv_dtype):
@@ -626,6 +733,7 @@ def check_quant_kernels(dev, seeds=range(3)) -> dict:
 
     from repro_torch.kernels import ops as K
     from repro_torch.kernels import paged_attn as PA
+    from repro_torch.kernels import paged_chunk_attn as PCA
     from repro_torch.kernels import ref as R
 
     out = {name: {"cases": 0, "max_abs_err": 0.0, "matched": True,
@@ -655,10 +763,7 @@ def check_quant_kernels(dev, seeds=range(3)) -> dict:
             kp, vp, kq, vq, ks, vs = _quantized(
                 kp, vp, pi, traps, *(() if spike is None else (spike,)))
             rel = None if spike is None else QUANT_SPIKE_REL
-            s = q.shape[1]
-            col = torch.arange(s, device=dev)
-            pad = ((col[None, :] < s - nl[:, None])
-                   | (cl[:, None] - s + col[None, :] < 0))
+            pad = _padding(q, cl, nl)
             q1 = q[:, -1].contiguous()
             got = {
                 "paged_chunk_attention_quant": K.paged_chunk_attention_quant(
@@ -707,6 +812,24 @@ def check_quant_kernels(dev, seeds=range(3)) -> dict:
     _paged_agree(out, "paged_attention_quant",
                  K.paged_attention_quant(q1, kq, vq, ks, vs, pi, cl),
                  R.paged_attn_quant_ref(q1, kq, vq, ks, vs, pi, cl), cl <= 0)
+    for qd, sh in itertools.product(q_types, CHUNK_SPLIT_SHAPES):
+        q, kp, vp, pi, cl, nl = _paged_case(rng, dev, q_dtype=qd,
+                                            kv_dtype=torch.float32, **sh)
+        _, _, kq, vq, ks, vs = _quantized(kp, vp, pi, traps=True)
+        want = R.paged_chunk_attn_quant_ref(q, kq, vq, ks, vs, pi, cl, nl)
+        for got in _chunk_variants(PCA.paged_chunk_attention_quant, q,
+                                   (kq, vq), (ks, vs), pi, cl, nl):
+            _paged_agree(out, "paged_chunk_attention_quant", got, want,
+                         _padding(q, cl, nl))
+    for name, cols in LONG_PREFIX_COLUMNS.items():
+        q, kp, vp, pi, cl, nl = _long_prefix_case(rng, dev, torch.float32,
+                                                  cols)
+        _, _, kq, vq, ks, vs = _quantized(kp, vp, pi, traps=False)
+        want = R.paged_chunk_attn_quant_ref(q, kq, vq, ks, vs, pi, cl, nl)
+        for got in _chunk_variants(PCA.paged_chunk_attention_quant, q,
+                                   (kq, vq), (ks, vs), pi, cl, nl,
+                                   forced=name == "long_prefix"):
+            _paged_agree(out, "paged_chunk_attention_quant", got, want, None)
     torch.cuda.synchronize()
     return out
 
@@ -925,24 +1048,32 @@ def time_paged_kernels(dev, seed=0, quant=False) -> dict:
     ``quant``, K7 and K8 at the same shapes over int8 pages and their
     scales (the quantized scheduler phase's store).  K5/K7 also at the
     long-context shape (``LONG_CONTEXT``: 16 rows of 3584-4096 positions,
-    whose K/V exceed the 50 MB L2), under the record's ``long_context``.
+    whose K/V exceed the 50 MB L2), under the record's ``long_context``;
+    K6/K8 also at the two long-prefix shapes (``LONG_PREFIX``: 2 rows of
+    32 or 256 columns at the end of 3584-4096 positions), under
+    ``long_prefix`` and ``long_prefix_wide``.
 
-    For K5/K7 each record also holds, timed in the same windows' way,
-    ``parent_ms``: the parent design, the chunk kernel at S = 1 (one CTA
-    per request and KV head walking all its positions, no split, no
-    asynchronous copies), and ``one_split_ms``: the new kernel forced to
-    one split (the ablation of the KV split); ``splits`` is the split
-    count the wrapper picked.
+    Each record also holds, timed in the same windows' way and in turns
+    with the kernel (parent, kernel, kernel, parent), ``parent_ms``: the
+    parent chunk design (``paged_attn.parent_lib()``, the build whose
+    chunk entry points run the chunk kernel that predates the KV split
+    and the tensor cores: one CTA per request, block of columns and KV
+    head walking all its positions, one element a thread staged as
+    float32, SIMT arithmetic), called at S = 1 for K5/K7; and
+    ``one_split_ms``: the kernel forced to one split (the ablation of the
+    KV split); ``splits`` is the split count the wrapper picked.
 
     The bound counts what one call must move, in 32-byte sectors at the
     HBM rate: each valid K and V row once per KV head (hd bf16 = 4
     sectors, hd int8 = 2), for int8 pages the sectors of the (page, KV
     head) scales those rows need, q and out, the page indices and lengths;
-    and the float32 operations outside the tensor cores (4 * hd per query
-    head and KV position it attends to) at 67 TFLOP/s.  ``library_ms`` is
-    ``scaled_dot_product_attention`` over the same K/V already gathered
-    dense (and dequantized; neither step timed), with a boolean mask and
-    GQA: a yardstick only, the port never calls it."""
+    and the operations (4 * hd per query head and KV position it attends
+    to) at the bf16 tensor-core rate, 989 TFLOP/s (``bound_ms``), and at
+    the float32 rate outside the tensor cores, 67 TFLOP/s
+    (``bound_simt_ms``).  ``library_ms`` is ``scaled_dot_product_attention``
+    over the same K/V already gathered dense (and dequantized; neither
+    step timed), with a boolean mask and GQA: a yardstick only, the port
+    never calls it."""
     import numpy as np
     import torch
 
@@ -961,6 +1092,9 @@ def time_paged_kernels(dev, seed=0, quant=False) -> dict:
     long = _long_case(rng, dev, base["kv_dtype"])
     out[names[0]]["long_context"] = _time_paged_case(dev, long, quant,
                                                      plain_n=10)
+    for key, cols in LONG_PREFIX_COLUMNS.items():
+        case = _long_prefix_case(rng, dev, base["kv_dtype"], cols)
+        out[names[1]][key] = _time_paged_case(dev, case, quant, plain_n=10)
     return out
 
 
@@ -970,8 +1104,8 @@ def _time_paged_case(dev, case, quant, plain_n=100) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ops as K
     from repro_torch.kernels import paged_attn as PA
+    from repro_torch.kernels import paged_chunk_attn as PCA
     from repro_torch.kernels import quant as Q
     from repro_torch.kernels import ref as R
 
@@ -1001,39 +1135,44 @@ def _time_paged_case(dev, case, quant, plain_n=100) -> dict:
                 + torch.arange(kvh, device=dev)[None, :])
         sectors += 2 * _sectors(sidx)
     flops = 4 * hd * h * int(seen.sum())
-    extra = {}
+    parent_lib = PA.parent_lib()
     if s == 1:
         args = (q[:, 0].contiguous(), kp, vp, *scales, pi, cl)
         fn = PA.paged_attention_quant if quant else PA.paged_attention
         kern = functools.partial(fn, *args)
         plain = functools.partial(
             R.paged_attn_quant_ref if quant else R.paged_attn_ref, *args)
-        chunk = (K.paged_chunk_attention_quant if quant
-                 else K.paged_chunk_attention)
-        parent = functools.partial(chunk, q, kp, vp, *scales, pi, cl, nl)
         one = functools.partial(PA._decode, args[0], kp, vp, scales, pi, cl,
                                 n_split=1)
         splits, pps = PA.decode_plan(args[0], kp, pi.shape[1])
-        # parent and new kernel in turns: parent, new, new, parent
-        p0, k0 = _median_ms(parent), _median_ms(kern)
-        k1, p1 = _median_ms(kern), _median_ms(parent)
-        o = _median_ms(one)
-        extra = {"parent_ms": (p0["graph_ms"] + p1["graph_ms"]) / 2,
-                 "parent_readings_ms": [p0["graph_ms"], p1["graph_ms"]],
-                 "readings_ms": [k0["graph_ms"], k1["graph_ms"]],
-                 "one_split_ms": o["graph_ms"], "splits": splits,
-                 "split_pages": pps}
-        k = {"graph_ms": (k0["graph_ms"] + k1["graph_ms"]) / 2,
-             "call_ms": (k0["call_ms"] + k1["call_ms"]) / 2}
     else:
         args = (q, kp, vp, *scales, pi, cl, nl)
-        kern = functools.partial(
-            K.paged_chunk_attention_quant if quant
-            else K.paged_chunk_attention, *args)
+        fn = (PCA.paged_chunk_attention_quant if quant
+              else PCA.paged_chunk_attention)
+        kern = functools.partial(fn, *args)
         plain = functools.partial(
             R.paged_chunk_attn_quant_ref if quant
             else R.paged_chunk_attn_ref, *args)
-        k = _median_ms(kern)
+        one = functools.partial(PCA._chunk, q, kp, vp, scales, pi, cl, nl,
+                                n_split=1)
+        pairs, splits, pps = PCA.chunk_plan(q, kp, pi.shape[1])
+    parent = functools.partial(PCA._chunk, q, kp, vp, scales, pi, cl, nl,
+                               n_split=1, lib=parent_lib)
+    # parent and kernel in turns: parent, kernel, kernel, parent
+    p0, k0 = _median_ms(parent), _median_ms(kern)
+    k1, p1 = _median_ms(kern), _median_ms(parent)
+    o = _median_ms(one)
+    k = {"graph_ms": (k0["graph_ms"] + k1["graph_ms"]) / 2,
+         "call_ms": (k0["call_ms"] + k1["call_ms"]) / 2}
+    extra = {"parent_ms": (p0["graph_ms"] + p1["graph_ms"]) / 2,
+             "parent_readings_ms": [p0["graph_ms"], p1["graph_ms"]],
+             "readings_ms": [k0["graph_ms"], k1["graph_ms"]],
+             "one_split_ms": o["graph_ms"], "splits": splits,
+             "split_pages": pps}
+    if s > 1:
+        resident, smem = PCA.chunk_residency(q, kp, pairs)
+        extra.update(pairs_per_cta=pairs, resident_ctas=resident,
+                     smem_bytes=smem)
     idx = torch.where(pi >= 0, pi, 0).long()
     dense = [x[idx] if not quant else Q.dequantize_pages(x[idx], sc[idx])
              for x, sc in zip((kp, vp), scales or (None, None))]
@@ -1046,15 +1185,18 @@ def _time_paged_case(dev, case, quant, plain_n=100) -> dict:
             if quant else R.paged_chunk_attn_ref(q, kp, vp, pi, cl, nl))
     err = float((lib().transpose(1, 2).float() - want.float()).abs().max())
     t_bytes = sectors * SECTOR / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / INT_OPS_PER_S * 1e3
+    t_ops = flops / TENSOR_OPS_PER_S * 1e3
+    t_simt = flops / INT_OPS_PER_S * 1e3
     p, lb = _median_ms(plain, n=plain_n), _median_ms(lib, n=plain_n)
     bound = max(t_bytes, t_ops)
     return {"ms": k["graph_ms"], "plain_ms": p["graph_ms"],
             "library_ms": lb["graph_ms"], "call_ms": k["call_ms"],
             "plain_call_ms": p["call_ms"], "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_share": bound / k["graph_ms"], **extra,
-            "bytes": sectors * SECTOR, "ops": flops,
+            "bound_share": bound / k["graph_ms"],
+            "bound_simt_ms": max(t_bytes, t_simt),
+            "bound_simt_by": "bytes" if t_bytes >= t_simt else "operations",
+            **extra, "bytes": sectors * SECTOR, "ops": flops,
             "kv_rows": rows, "library_max_abs_err": err,
             "shape": {"B": b, "S": s, "H": h, "KVH": kvh, "hd": hd,
                       "page": ps, "lanes": pi.shape[1],
@@ -1489,17 +1631,21 @@ def _sched_prompts(seed, vocab, ps=16):
 
 
 def run_scheduler(cfg, params, dev, *, seed, max_new=16,
-                  quant_kv=False) -> dict:
+                  quant_kv=False, n_pages=SCHED_PAGES) -> dict:
     """Two waves of six requests through ``ServingEngine(scheduler=...)``
     under hot-swap (every 0.25 s) and compaction (every 0.2 s).  Wave 2 is
     submitted once wave 1 has finished, since a prefix enters the index
     only when its request has finished prefill.  ``quant_kv``: the same on
-    the quantized store, whose attention must run in K7/K8 alone."""
+    the quantized store, whose attention must run in K7/K8 alone.
+    ``n_pages`` below ``SCHED_PAGES``: the eviction run, on a store so
+    small that decode growth evicts running requests (their re-prefill
+    then runs K6 on longer prefixes); it must evict at least once, and the
+    prefix cache need not save a page there."""
     from repro_torch.kernels import ops as K
     from repro_torch.serving.engine import Request, ServingEngine
     from repro_torch.serving.scheduler import SchedulerConfig
 
-    eng = ServingEngine(cfg, params, n_pages=SCHED_PAGES, device=dev,
+    eng = ServingEngine(cfg, params, n_pages=n_pages, device=dev,
                         quant_kv=quant_kv,
                         scheduler=SchedulerConfig(**SCHED))
     ticks = {"prefill": [], "decode": []}
@@ -1537,10 +1683,13 @@ def run_scheduler(cfg, params, dev, *, seed, max_new=16,
         assert ((r.out >= 0) & (r.out < cfg.vocab)).all(), r.out
     _check_varied([r.out.tolist() for r in reqs])
     es = st["engine"]
-    assert free == SCHED_PAGES, free
+    assert free == n_pages, free
     assert pool["refcount_total"] == 0 and pool["shared_pages"] == 0, pool
     assert not held.any(), held.tolist()
-    assert es["pages_saved"] >= 1 and es["cow_copies"] >= 1, es
+    if n_pages == SCHED_PAGES:
+        assert es["pages_saved"] >= 1 and es["cow_copies"] >= 1, es
+    else:
+        assert st["scheduler"]["evictions"] >= 1, st["scheduler"]
     assert es["weight_swaps"] >= 1, es
     attn, other = ((QUANT_KERNELS, PAGED_KERNELS) if quant_kv
                    else (PAGED_KERNELS, QUANT_KERNELS))
@@ -1556,7 +1705,7 @@ def run_scheduler(cfg, params, dev, *, seed, max_new=16,
     tokens = sum(len(r.out) for r in reqs)
     leaf_bytes = {name: x.numel() * x.element_size()
                   for name, x in eng._pages_kv.items()}
-    return {"config": SCHED, "n_pages": SCHED_PAGES, "quant_kv": quant_kv,
+    return {"config": SCHED, "n_pages": n_pages, "quant_kv": quant_kv,
             "page_store_bytes": sum(leaf_bytes.values()),
             "leaf_bytes": leaf_bytes,
             "hbm_bytes_gauge": eng.metrics.gauge("pool.hbm_bytes").value,
@@ -1678,6 +1827,30 @@ def quant_vs_bf16(sched, qsched) -> dict:
     return out
 
 
+def eviction_summary(esched, sched) -> dict:
+    """The eviction run (``run_scheduler`` at ``EVICT_PAGES``, which has
+    already checked that it evicted, that every request finished with its
+    tokens, and that every page is free and no lease held after
+    ``stop()``) beside the roomy bf16 run on the same prompts: its
+    evictions, K6 launches and the share of its tokens equal to the roomy
+    run's (recorded, not gated: a requeued request re-prefills its prompt
+    and generated tokens in other chunks, so bf16 rounding differs)."""
+    if esched["prompts"] != sched["prompts"]:
+        raise AssertionError("the eviction run served other prompts")
+    same = [[a == b for a, b in zip(e, f)]
+            for e, f in zip(esched["outputs"], sched["outputs"])]
+    keys = ("n_pages", "requests", "tokens", "wall_s", "tokens_per_s",
+            "decode_ticks", "prefill_ticks", "weight_swaps", "scheduler",
+            "pages_free", "held_after", "launches")
+    return {**{k: esched[k] for k in keys},
+            "evictions": esched["scheduler"]["evictions"],
+            "k6_launches": esched["launches"]["paged_chunk_attention"],
+            "equal_token_share_vs_roomy": sum(map(sum, same))
+            / sum(map(len, same)),
+            "first_difference": [s.index(False) if not all(s) else None
+                                 for s in same]}
+
+
 def scheduler_vs_greedy(cfg, params, dev, sched) -> dict:
     """The scheduler engine's bf16 tokens against the handler-mode direct
     greedy loop (``greedy_reference``) on the same prompts: the share of
@@ -1708,18 +1881,62 @@ def scheduler_vs_greedy(cfg, params, dev, sched) -> dict:
 
 
 def build_all() -> dict:
-    """Compile both CUDA sources, one nvcc each, started together."""
+    """Compile the CUDA sources, one nvcc for each build in ``BUILDS``, all
+    started together."""
     from repro_torch.kernels import _build
 
     t0 = time.monotonic()
-    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as ex:
+    with concurrent.futures.ThreadPoolExecutor(len(BUILDS)) as ex:
         futs = {k: ex.submit(_build.compile_source,
-                             _build.CSRC / os.path.basename(src))
-                for k, src in SOURCES.items()}
-        built = {SOURCES[k]: f.result() for k, f in futs.items()}
+                             _build.CSRC / os.path.basename(src), defines)
+                for k, (src, defines) in BUILDS.items()}
+        built = {k: f.result() for k, f in futs.items()}
     return {"sources": list(SOURCES.values()),
+            "builds": {k: {"source": src, "defines": list(d)}
+                       for k, (src, d) in BUILDS.items()},
             "seconds": time.monotonic() - t0,
             "nvcc_seconds": {k: v[1] for k, v in built.items()}}
+
+
+def ptxas_chunk_report() -> list:
+    """ptxas's report on the chunk kernel's instantiations in the wrappers'
+    build of ``paged_attn.cu``: registers, stack frame, spill stores and
+    loads, static shared memory (the tiles are dynamic shared memory: see the
+    ``chunk_smem`` of the kernel checks)."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    text = _build.ptxas_report(
+        _build.CSRC / os.path.basename(SOURCES["paged"])) or ""
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)} if "chunk_attn_kernel" in \
+                m.group(1) else None
+            if cur is not None:
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            (cur["stack_frame"], cur["spill_stores"],
+             cur["spill_loads"]) = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem_static"] = int(sm.group(1)) if sm else 0
+    if out and shutil.which("c++filt"):
+        names = run(["c++filt", *[r["kernel"] for r in out]]).splitlines()
+        for r, name in zip(out, names):
+            m = re.search(r"chunk_attn_kernel<[^>]*>", name)
+            r["kernel"] = m.group(0) if m else name
+    return out
 
 
 def main(argv=None) -> int:
@@ -1750,6 +1967,8 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count(), "nvidia_smi": card})
 
     emit({"phase": "build", **build_all()})
+    emit({"phase": "ptxas", "source": SOURCES["paged"],
+          "chunk_kernels": ptxas_chunk_report()})
 
     checks = check_kernels(dev)
     checks.update(check_paged_kernels(dev))
@@ -1765,7 +1984,11 @@ def main(argv=None) -> int:
     times.update(time_paged_kernels(dev, seed=args.seed, quant=True))
     emit({"phase": "kernel_times", "card": card, "batch": slots,
           "bound_assumes": "32-byte sectors at the HBM rate, 3.35 TB/s; "
-                           "float32 operations at 67 TFLOP/s",
+                           "K1-K4, K9, K10: integer operations at 67 "
+                           "TOP/s; K5-K8 (bound_ms): operations at the "
+                           "bf16 tensor-core rate, 989 TFLOP/s (the least "
+                           "time), and (bound_simt_ms) at the float32 "
+                           "rate outside the tensor cores, 67 TFLOP/s",
           "times": times})
 
     bench = lease_benchmarks(dev)
@@ -1797,6 +2020,10 @@ def main(argv=None) -> int:
                            quant_kv=True)
     emit({"phase": "scheduler_quant", "card": card, **qsched,
           "vs_bf16": quant_vs_bf16(sched, qsched)})
+    esched = run_scheduler(cfg, params, dev, seed=args.seed + 3,
+                           n_pages=EVICT_PAGES)
+    emit({"phase": "scheduler_evict", "card": card,
+          **eviction_summary(esched, sched)})
 
     emit({"phase": "tokens", **token_check(cfg, params, dev, n_req=2,
                                            prompt_len=16, max_new=8,

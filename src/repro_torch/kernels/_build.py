@@ -26,7 +26,8 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _mu = threading.Lock()
 _libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
@@ -86,7 +87,9 @@ def compile_source(source: pathlib.Path,
     path, seconds spent in nvcc).  ``defines`` (``NAME=VALUE``) set a
     source's build-time switches, for a timing sweep's variants; the
     wrappers build with none.  Writes to a temporary name and renames, so
-    concurrent builds never load a half-written library."""
+    concurrent builds never load a half-written library.  ptxas's report
+    (registers, spills, shared memory of each kernel) goes beside the
+    library (:func:`ptxas_report`)."""
     out = _lib_path(source, defines)
     if out.exists():
         return out, 0.0
@@ -100,11 +103,20 @@ def compile_source(source: pathlib.Path,
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source.name}:\n"
                                f"{res.stdout}\n{res.stderr}")
+        out.with_suffix(".log").write_text(res.stdout + res.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out, time.monotonic() - t0
+
+
+def ptxas_report(source: pathlib.Path, defines: Sequence[str] = ()
+                 ) -> Optional[str]:
+    """What ptxas printed when :func:`compile_source` built ``source`` with
+    ``defines`` (None if that build left no report)."""
+    log = _lib_path(source, defines).with_suffix(".log")
+    return log.read_text() if log.exists() else None
 
 
 def load(source: str, signatures: Dict[str, list],

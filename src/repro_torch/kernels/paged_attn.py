@@ -38,8 +38,6 @@ from .table_publish import on_cpu
 
 SOURCE = "paged_attn.cu"
 MAX_HEAD_DIM = 256   # the widest instantiation; a smaller hd is padded
-MAX_WARPS = 16    # chunk kernel: warps of one CTA, looping over the
-                  # (column, query head) pairs
 DECODE_HEADS = 4  # decode kernel: query heads of one CTA
 MAX_SPLIT_PAGES = 512        # page lanes of one decode split
 # a split is worth a CTA from this many positions: splitting rows of 256
@@ -50,11 +48,15 @@ MIN_SPLIT_POSITIONS = 256
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "bravo_paged_attn": [_P] * 8 + [_I] * 11 + [_P],
-    "bravo_paged_chunk_attn": [_P] * 7 + [_I] * 11 + [_P],
+    "bravo_paged_chunk_attn": [_P] * 9 + [_I] * 13 + [_P],
     "bravo_paged_attn_quant": [_P] * 10 + [_I] * 10 + [_P],
     "bravo_paged_attn_residency": [_I] * 8 + [_P],
-    "bravo_paged_chunk_attn_quant": [_P] * 9 + [_I] * 10 + [_P],
+    "bravo_paged_chunk_attn_quant": [_P] * 11 + [_I] * 12 + [_P],
+    "bravo_paged_chunk_attn_residency": [_I] * 4 + [_P] * 2,
 }
+# the build whose chunk entry points run the parent chunk design (timing
+# only; nothing on the serving path loads it)
+PARENT_DEFINES = ("BRAVO_CHUNK_PARENT=1",)
 
 PAGED_ATTENTION = _build.LaunchCounter("paged_attention")       # K5
 PAGED_ATTENTION_QUANT = _build.LaunchCounter("paged_attention_quant")  # K7
@@ -66,6 +68,13 @@ _KV_TYPES = (torch.bfloat16, torch.float32)
 def paged_lib() -> ctypes.CDLL:
     """The compiled ``paged_attn.cu`` (built at first use)."""
     return _build.load(SOURCE, SIGNATURES)
+
+
+def parent_lib() -> ctypes.CDLL:
+    """``paged_attn.cu`` built with ``PARENT_DEFINES``: its chunk entry
+    points run the parent chunk design (one CTA per request, block of
+    columns and KV head, no split), for timing beside the kernel."""
+    return _build.load(SOURCE, SIGNATURES, PARENT_DEFINES)
 
 
 def _need(cond: bool, msg: str) -> None:

@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the table kernels K1-K4, of the paged
 attention kernels K5/K6 and their quantized variants K7/K8, and of the
 legacy table kernels K9 (the revocation scan) and K10 (the sequential
-publish).
+publish); and, for the tests, transcriptions of the paged kernels' two
+passes over a KV split and of the chunk kernel's bf16 split of float32
+products.
 
 They define what each CUDA kernel computes: the CPU tests hold them against
 ``repro``'s Pallas kernels in interpret mode, ``chip_smoke.py`` holds each
@@ -350,6 +352,123 @@ def paged_attn_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
     den = torch.clamp((w * l_s).sum(dim=-1), min=1e-20)
     o = (w[..., None] * acc).sum(dim=-2) / den[..., None]
     return o.reshape(b, h, hd).to(q.dtype)
+
+
+def paged_chunk_attn_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor, page_idx: torch.Tensor,
+                               cache_len: torch.Tensor,
+                               new_lens: torch.Tensor, n_split: int,
+                               pages_per_split: int, k_scale=None,
+                               v_scale=None, tile: int = 64) -> torch.Tensor:
+    """K6 (K8 with int8 pages and their scales) as the CUDA kernel computes
+    it, in two passes; for tests only.  Pass 1: split ``s`` takes page lanes
+    ``[s * pages_per_split, (s + 1) * pages_per_split)`` and walks them in
+    tiles of ``tile`` positions with an online softmax, giving each query
+    (row, column, head) its split's state: the max score ``m`` (-inf when
+    the split holds no position the query may see), ``l = sum exp(score -
+    m)`` and ``acc = sum exp(score - m) * v``.  The kernel does this per
+    block of (column, head) pairs and stops a block's walk at the last
+    position any of its queries can see; the masks below already exclude
+    every position past it, so a split wholly past it gives the same empty
+    state.  Pass 2 merges the splits as :func:`paged_attn_split_ref` does:
+    ``M = max m``, weights ``exp(m - M)`` (0 for an empty split), ``out =
+    sum w acc / max(sum w l, 1e-20)``; a query with no valid position is
+    exactly zero."""
+    b, s, h, hd = q.shape
+    n_pages, ps, kvh, _ = k_pages.shape
+    g = h // kvh
+    lanes = page_idx.shape[1]
+    span = n_split * pages_per_split
+    if span < lanes:
+        raise ValueError(f"{n_split} splits of {pages_per_split} lanes do "
+                         f"not cover {lanes} lanes")
+    pi = torch.full((b, span), -1, dtype=page_idx.dtype, device=q.device)
+    pi[:, :lanes] = page_idx
+    lane_ok = (pi >= 0) & (pi < n_pages)
+    idx = torch.where(lane_ok, pi, 0).long()
+    per = pages_per_split * ps                    # positions of a split
+    n_t = -(-per // tile) if per else 0
+    pad = n_t * tile - per
+
+    def gathered(pages, scale):
+        x = pages[idx].float()                     # (B, span, ps, KVH, hd)
+        if scale is not None:
+            x = x * scale[idx][:, :, None, :, None]
+        x = x.reshape(b, n_split, per, kvh, hd)
+        return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+
+    k, v = gathered(k_pages, k_scale), gathered(v_pages, v_scale)
+    t = torch.arange(span * ps, device=q.device)
+    col = torch.arange(s, device=q.device)
+    clen = cache_len.long()
+    n_pos = torch.clamp(clen, max=lanes * ps)
+    q_pos = clen[:, None] - s + col[None, :]                       # (B, S)
+    real = (col[None, :] >= s - new_lens.long()[:, None]) & (q_pos >= 0)
+    valid = ((t[None, None, :] < n_pos[:, None, None])
+             & lane_ok.repeat_interleave(ps, dim=1)[:, None, :]
+             & (t[None, None, :] <= q_pos[:, :, None])
+             & real[:, :, None])                                  # (B,S,T)
+    valid = torch.nn.functional.pad(valid.reshape(b, s, n_split, per),
+                                    (0, pad))
+    qh = q.float().reshape(b, s, kvh, g, hd)
+    m = torch.full((b, s, kvh, g, n_split), -math.inf, device=q.device)
+    l_s = torch.zeros_like(m)
+    acc = torch.zeros((b, s, kvh, g, n_split, hd), device=q.device)
+    for i in range(n_t):
+        kt, vt = (x[:, :, i * tile:(i + 1) * tile] for x in (k, v))
+        vm = valid[..., i * tile:(i + 1) * tile][:, :, None, None]
+        sc = torch.einsum("bskgd,bntkd->bskgnt", qh, kt) / math.sqrt(hd)
+        sc = torch.where(vm, sc, -math.inf)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.where(vm, torch.exp(sc - m_safe[..., None]), 0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l_s = l_s * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bskgnt,bntkd->bskgnd",
+                                                   p, vt)
+        m = m_new
+    top = m.amax(dim=-1, keepdim=True)
+    top = torch.where(torch.isfinite(top), top, 0.0)
+    w = torch.where(torch.isfinite(m), torch.exp(m - top), 0.0)
+    den = torch.clamp((w * l_s).sum(dim=-1), min=1e-20)
+    o = (w[..., None] * acc).sum(dim=-2) / den[..., None]
+    return o.reshape(b, s, h, hd).to(q.dtype)
+
+
+def bf16_split3(x: torch.Tensor):
+    """The chunk kernel's split of float32 values into three bf16 pieces:
+    each piece is what is left with its low 16 bits cleared (bf16
+    truncation), and the rest, exact in float32, goes on to the next, so
+    ``hi + mid + lo`` is ``x`` exactly for normal values: 24 significand
+    bits in three pieces of at most 8.  -> (hi, mid, lo) bfloat16."""
+    r = x.float()
+    out = []
+    for _ in range(3):
+        piece = (r.view(torch.int32) & -65536).view(torch.float32)
+        out.append(piece.to(torch.bfloat16))       # exact: low bits are 0
+        r = r - piece
+    return tuple(out)
+
+
+def split3_dot(a: torch.Tensor, b: torch.Tensor,
+               b_pieces: int = 1) -> torch.Tensor:
+    """A plain emulation of the chunk kernel's products along the last
+    dimension: ``a`` (float32) in three bf16 pieces, ``b`` in ``b_pieces``
+    (1: ``b`` already bf16-exact, as bf16 and int8 pages are; 3: float32
+    pages), every product of two pieces of order <= 2 (the order of hi is
+    0, mid 1, lo 2) exact in float32, summed in float32, the smallest
+    products first.  -> float32 (..., ) dots of the broadcast leading
+    dimensions."""
+    ap = bf16_split3(a)
+    bp = bf16_split3(b)[:b_pieces] if b_pieces > 1 else (
+        b.to(torch.bfloat16),)
+    acc = torch.zeros(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]),
+                      dtype=torch.float32, device=a.device)
+    for j in reversed(range(len(bp))):
+        for i in reversed(range(3)):
+            if i + j <= 2:
+                acc = acc + (ap[i].float() * bp[j].float()).sum(dim=-1)
+    return acc
 
 
 def paged_attn_quant_ref(q: torch.Tensor, k_pages: torch.Tensor,
