@@ -49,7 +49,8 @@ non-zero exit and no result line:
    dequantized, for K7/K8); K5/K7 also at the long-context shape and
    K6/K8 at the two long-prefix shapes; each K5-K8 time beside the parent
    chunk design's (for K5/K7 called at S = 1) and the kernel's forced to
-   one split, timed in the same run;
+   one split, timed in the same run; and a kernel that does nothing,
+   launched and timed as K1-K4 are (``launch_floor_ms``);
 3c. device_bravo: the port's device-BRAVO benchmark
    (``repro_torch.benchmarks.device_bravo``, batch 64, 100 iterations):
    the single-lock ``DeviceLeaseTable`` (K2 acquire and release, K3 drain
@@ -87,16 +88,42 @@ non-zero exit and no result line:
    request with every page free and the table drained after ``stop()``;
    its K6 launches and the share of its tokens equal to the roomy run's
    are recorded;
+6b. slo: the port's closed-loop SLO benchmark
+   (``repro_torch.benchmarks.slo``) at full width: the latency-feedback
+   controller calibrated on the card, then the reference's smoke burst
+   trace (2.5 s, 8 requests/s, bursts of 5x) replayed against a static
+   and a closed-loop scheduler engine of 8 slots; zero dropped requests,
+   at least one controller decision, a valid Chrome export with counter
+   tracks, the sampled request's tokens the same in both replays and,
+   teacher-forced, within a near-tie of the dense greedy loop's best at
+   every step; the same request at float32 compute through the prefix
+   cache equal to the dense loop at float32; the closed loop's p99 TTFT /
+   goodput band recorded;
+6c. hotswap: the port's hot-swap benchmark
+   (``repro_torch.benchmarks.hotswap``) at full width and the twin's full
+   sizes: 8 identity swaps under 8 requests; the float32 parameters
+   (~4.9 GB) saved as a checkpoint, staged onto the card and swapped in
+   while a feeder keeps every slot decoding, timed apart, and a copy with
+   one corrupted CRC rejected at staging before any lock; a wedged
+   reader degrading the swap until its lane is scrubbed and the retry
+   lands; every request finishes with the tokens the same engine gives
+   without a swap, which stand, teacher-forced, within a near-tie of the
+   dense greedy loop's best;
+6d. faults: the seven-fault matrix (``repro_torch.ft.faults``) and its
+   golden run on the full-width weights, every invariant true;
+   ``corrupt_checkpoint`` links the hotswap phase's shards; the
+   checkpoint directory is deleted afterwards.  Each of 6b-6d counts its
+   launches alone and must launch K1, K2, K3, K5 and K6;
 7. tokens: with one request per batch and no swap, the handler-mode
-   engine's tokens equal a direct greedy loop through the port's
-   prefill/decode steps;
+   engine's tokens equal the dense greedy loop through the port's decode
+   step (``benchmarks.smoke.dense_reference``);
 8. precision: full-width decode steps with a float32 cache against one
    float32 forward pass over the same tokens (no cache); the engine's bf16
    compute against float32 compute on the same parameters; the paged path
    (prefill in chunks, then paged decode, float32 pages) against the same
    forward pass; the same over the quantized store (int8 pages, float32
    compute, through K8 and K7); and the scheduler engine's bf16 tokens
-   against the direct greedy loop on the same prompts, each within its
+   against the dense greedy loop on the same prompts, each within its
    stated tolerance.
 
 The random weights are the reference's distributions with the (tied)
@@ -119,6 +146,7 @@ import functools
 import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -267,6 +295,12 @@ LEGACY_KERNELS = list(REPLACES)[8:]
 SCHED = dict(max_slots=8, page_size=16, max_seq=128, prefill_chunk=32,
              prefill_rows=2, token_budget=64, prefix_cache=True)
 SCHED_PAGES = 4096
+# the writer-path phases (slo, hotswap, faults) at full width: the
+# checkpoint directory (the float32 parameters, ~4.9 GB of 256 MB shards)
+# is kept from the hotswap phase for the faults phase, deleted at the end
+CKPT_DIR = os.path.join(ROOT, ".chip_ckpt")
+WRITER_KERNELS = ["fused_publish_multi", "fused_publish", "revocation_poll",
+                  "paged_attention", "paged_chunk_attention"]
 # the eviction run: the same scheduler phase on a store so small that
 # decode growth evicts (a request needs up to 6 pages of 16; wave 1's six
 # need about 27); at 12-20 pages the port's CPU run of the smoke config
@@ -952,13 +986,18 @@ def time_kernels(dev, batch: int, n_locks: int) -> dict:
     reads the table and the request vectors and writes a new table and the
     grants.  Both run one request or slot per thread in one CTA.  K10's
     plain version loops over the requests in Python, a few launches each,
-    so its windows hold 10 calls instead of 100."""
+    so its windows hold 10 calls instead of 100.
+
+    ``launch_floor``: a kernel that does nothing, launched as the scans
+    are and timed the same way; each table kernel's ``above_floor_us`` is
+    its time less that floor."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import ops as K
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import table_publish as TP
+    from repro_torch.kernels import table_scan as TS
 
     rng = np.random.default_rng(0)
     c = _case(rng, batch, dev)
@@ -1016,6 +1055,9 @@ def time_kernels(dev, batch: int, n_locks: int) -> dict:
             2 * seq_m),
     }
     out = {}
+    floor = _median_ms(lambda: TS.empty_launch(dev))
+    out["launch_floor"] = {"ms": floor["graph_ms"],
+                           "call_ms": floor["call_ms"]}
     for name, (kern, plain, nbytes, ops) in shapes.items():
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / INT_OPS_PER_S * 1e3
@@ -1026,7 +1068,9 @@ def time_kernels(dev, batch: int, n_locks: int) -> dict:
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops
                      else "operations",
-                     "bytes": nbytes, "ops": ops}
+                     "bytes": nbytes, "ops": ops,
+                     "above_floor_us": (k["graph_ms"] - floor["graph_ms"])
+                     * 1e3}
     return out
 
 
@@ -1493,36 +1537,9 @@ def _profile(fn, steps=4) -> dict:
                     for e in top]}
 
 
-def greedy_reference(cfg, params, prompt, max_new, max_seq, dev):
-    """The engine's per-batch algorithm for one request, written out: one
-    prefill, then the prompt fed token by token through decode steps, then
-    greedy generation."""
-    import numpy as np
-    import torch
-
-    from repro_torch.models import model as M
-    from repro_torch.serving.steps import make_decode_step, make_prefill_step
-
-    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
-    toks = torch.from_numpy(np.asarray(prompt, np.int32)[None]).to(dev)
-    prefill(params, {"tokens": toks})
-    caches = M.init_caches(cfg, 1, max_seq, dtype=torch.bfloat16, device=dev)
-    cur, out = toks[:, :1], []
-    s = toks.shape[1]
-    for step in range(s - 1 + max_new):
-        clen = torch.full((1,), step + 1, dtype=torch.int32, device=dev)
-        nxt, _, caches = decode(params, caches, cur, clen)
-        if step + 1 < s:
-            cur = toks[:, step + 1:step + 2]
-        else:
-            cur = nxt
-            if len(out) < max_new:
-                out.append(int(nxt[0, 0]))
-    return out
-
-
 def token_check(cfg, params, dev, *, n_req, prompt_len, max_new, max_seq,
                 seed) -> dict:
+    from repro_torch.benchmarks import smoke as SM
     from repro_torch.serving.engine import Request, ServingEngine
 
     eng = ServingEngine(cfg, params, lock_name="bravo-ba", handlers=1,
@@ -1539,10 +1556,11 @@ def token_check(cfg, params, dev, *, n_req, prompt_len, max_new, max_seq,
             raise AssertionError(f"request {r.rid} timed out")
     eng.stop()
     for r, p in zip(reqs, prompts):
-        want = greedy_reference(cfg, params, p, max_new, max_seq, dev)
+        want = SM.dense_reference(cfg, params, p, max_new, dev,
+                                  max_seq=max_seq)
         if r.out.tolist() != want:
             raise AssertionError(f"request {r.rid}: engine {r.out.tolist()} "
-                                 f"!= direct greedy loop {want}")
+                                 f"!= dense greedy loop {want}")
     _check_varied([r.out.tolist() for r in reqs])
     return {"requests": n_req, "equal": True,
             "tokens": [r.out.tolist() for r in reqs]}
@@ -1852,17 +1870,20 @@ def eviction_summary(esched, sched) -> dict:
 
 
 def scheduler_vs_greedy(cfg, params, dev, sched) -> dict:
-    """The scheduler engine's bf16 tokens against the handler-mode direct
-    greedy loop (``greedy_reference``) on the same prompts: the share of
-    positions whose token is equal, at least ``SCHED_VS_GREEDY_SHARE``."""
+    """The scheduler engine's bf16 tokens against the dense greedy loop
+    (``benchmarks.smoke.dense_reference``) on the same prompts: the share
+    of positions whose token is equal, at least
+    ``SCHED_VS_GREEDY_SHARE``."""
+    from repro_torch.benchmarks import smoke as SM
+
     want = {}
     equal = total = 0
     first_diff = []
     for prompt, got in zip(sched["prompts"], sched["outputs"]):
         key = tuple(prompt)
         if key not in want:
-            want[key] = greedy_reference(cfg, params, prompt, len(got),
-                                         SCHED["max_seq"], dev)
+            want[key] = SM.dense_reference(cfg, params, prompt, len(got),
+                                           dev, max_seq=SCHED["max_seq"])
         ref = want[key]
         same = [a == b for a, b in zip(got, ref)]
         equal += sum(same)
@@ -1878,6 +1899,96 @@ def scheduler_vs_greedy(cfg, params, dev, sched) -> dict:
 
 
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# Phases 6b-6d: the writer path under load and faults at full width
+# ---------------------------------------------------------------------------
+
+
+def _writer_phase(name, run, kernels=WRITER_KERNELS):
+    """Run one writer-path phase with the launch counts set to 0 just
+    before it and read just after; raises on any failed check of the
+    benchmark twins (their ``[ok]`` lines go to stderr) and if a kernel of
+    its path never ran."""
+    from repro_torch.benchmarks import smoke as SM
+    from repro_torch.kernels import ops as K
+
+    SM.FAILURES.clear()
+    K.reset_launch_counts()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(sys.stderr):
+        rec = run()
+    counts = K.launch_counts()
+    if SM.FAILURES:
+        print(json.dumps({"phase": name, "failed_record": rec},
+                         default=str), file=sys.stderr, flush=True)
+        raise AssertionError(f"{name}: failed checks {SM.FAILURES}")
+    idle = [k for k in kernels if not counts[k]]
+    if idle:
+        raise AssertionError(f"{name}: {idle} never launched")
+    rec.update(launches=counts, seconds=time.monotonic() - t0)
+    return rec
+
+
+def slo_phase(cfg, params, dev) -> dict:
+    """The ``slo`` twin's calibrated static and closed-loop replays of the
+    reference's smoke trace (2.5 s at 8 requests/s, bursts of 5x for 30%
+    of every 1.25 s, seed 7) at ``max_slots`` 8: zero
+    dropped requests in both, at least one controller decision, the
+    Chrome export valid with its counter tracks.  The sampled request's
+    tokens are the same in both replays; bf16 rounds the paged path and
+    the dense greedy loop apart (as in the scheduler phase), so the dense
+    loop is fed the engine's tokens (teacher forcing) and at every step
+    the engine's token must stand within ``BF16_VS_F32_REL`` of the
+    largest logit of the loop's best (whether all were equal is
+    recorded).  The same request at float32 compute, its prompt pages
+    from the prefix cache, must equal the dense loop at float32 compute;
+    served alone without the prefix cache in bf16 it is recorded beside
+    the replays.  The closed loop's band (p99 TTFT within 10% of static,
+    or better goodput) is recorded, not gated."""
+    from repro_torch.benchmarks import slo as SLO
+
+    return _writer_phase("slo", lambda: SLO.bench_closed_loop(
+        cfg, params, dev, smoke=True, gate_band=False,
+        near_tie_rel=BF16_VS_F32_REL))
+
+
+def hotswap_phase(cfg, params, dev) -> dict:
+    """The ``hotswap`` twin's three sections at full width and its full
+    sizes (8 tokens a request): 8 identity swaps under 8 requests; the
+    float32 parameters saved to ``CKPT_DIR``, staged (streamed,
+    CRC-verified, onto the card) and swapped in while a feeder keeps every
+    slot decoding, and a copy with one corrupted manifest CRC rejected at
+    staging with the leaf's index and the epoch unchanged; a wedged reader
+    that degrades the swap until its lane is scrubbed and the retry lands.
+    Every request finishes.  bf16 rounds the paged path and the dense
+    greedy loop apart, so every request's tokens must equal those a fresh
+    engine gives its prompt with no swap, and those, teacher-forced, stand
+    within ``BF16_VS_F32_REL`` of the dense loop's best at every step."""
+    from repro_torch.benchmarks import hotswap as HS
+
+    return _writer_phase("hotswap", lambda: HS.run(
+        cfg, params, dev, directory=CKPT_DIR, near_tie_rel=BF16_VS_F32_REL))
+
+
+def faults_phase(cfg, params, dev) -> dict:
+    """The seven-fault matrix and its golden run at the reference's engine
+    settings (64 pages of 4 tokens) on the full-width weights;
+    ``corrupt_checkpoint`` corrupts a copy of the hotswap phase's
+    checkpoint (its manifest, the shards linked).  Every invariant of
+    every fault must hold, tokens equal to the golden run; a failing
+    fault prints its obs timeline."""
+    from repro_torch.ft import faults as F
+
+    def run():
+        res = F.run_matrix(0, cfg=cfg, params=params, device=dev,
+                           checkpoint=(CKPT_DIR, 1))
+        bad = [r["fault"] for r in res if not r["ok"]]
+        if bad:
+            raise AssertionError(f"faults: {bad} failed: {res}")
+        return {"faults": res, "n": len(res)}
+    return _writer_phase("faults", run)
 
 
 def build_all() -> dict:
@@ -1983,6 +2094,7 @@ def main(argv=None) -> int:
     times.update(time_paged_kernels(dev, seed=args.seed))
     times.update(time_paged_kernels(dev, seed=args.seed, quant=True))
     emit({"phase": "kernel_times", "card": card, "batch": slots,
+          "launch_floor_ms": times["launch_floor"]["ms"],
           "bound_assumes": "32-byte sectors at the HBM rate, 3.35 TB/s; "
                            "K1-K4, K9, K10: integer operations at 67 "
                            "TOP/s; K5-K8 (bound_ms): operations at the "
@@ -2024,6 +2136,20 @@ def main(argv=None) -> int:
                            n_pages=EVICT_PAGES)
     emit({"phase": "scheduler_evict", "card": card,
           **eviction_summary(esched, sched)})
+
+    emit({"phase": "slo", "card": card, **slo_phase(cfg, params, dev)})
+    param_bytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    emit({"phase": "hotswap_disk", "checkpoint_dir": CKPT_DIR,
+          "param_bytes": param_bytes,
+          "disk_free_bytes": shutil.disk_usage(CKPT_DIR).free})
+    try:
+        emit({"phase": "hotswap", "card": card,
+              **hotswap_phase(cfg, params, dev)})
+        emit({"phase": "faults", "card": card,
+              **faults_phase(cfg, params, dev)})
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
     emit({"phase": "tokens", **token_check(cfg, params, dev, n_req=2,
                                            prompt_len=16, max_new=8,

@@ -1,6 +1,9 @@
-"""The port's lease microbenchmarks: ``device_bravo`` (the single-lock lease
-table against the legacy host-looped path) and ``registry`` (the shared-bias
-flap, the registry against the single-lock table), with the pass/fail
-helpers they share in ``smoke``; and ``decode_sweep``, the timing sweep of
-the paged decode kernel K5/K7 (ablations, warp layout, KV split), which
-needs a CUDA card."""
+"""The port's benchmarks: ``device_bravo`` (the single-lock lease table
+against the legacy host-looped path) and ``registry`` (the shared-bias
+flap, the registry against the single-lock table); ``hotswap`` (weight
+swaps under traffic, from a checkpoint and past a wedged reader) and
+``slo`` (static admission against the latency-feedback controller on one
+seeded burst trace); the pass/fail helpers and the dense token oracle
+they share in ``smoke``; and ``decode_sweep`` and ``chunk_sweep``, the
+timing sweeps of the paged kernels K5/K7 and K6/K8, which need a CUDA
+card."""

@@ -1,15 +1,15 @@
-"""Shared pass/fail plumbing for the kernel-vs-plain smoke gates.
+"""Shared pass/fail plumbing for the port's benchmark gates.
 
-Both ``repro_torch.benchmarks.device_bravo`` and
-``repro_torch.benchmarks.registry`` exit nonzero on any mismatch; the
-check/timeit helpers live here once so the gate semantics cannot drift
-between them.
+``repro_torch.benchmarks.device_bravo``, ``.registry``, ``.hotswap`` and
+``.slo`` exit nonzero on any mismatch; the check/timeit helpers and the
+serving benchmarks' dense token oracle live here once so the gate
+semantics cannot drift between them.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 FAILURES: List[str] = []
 
@@ -91,3 +91,62 @@ def in_place(dev, table_of: Callable[[], object], pair: Callable[[], None],
     return {"pairs": pairs, "table_ptr_unchanged": same,
             "memory_growth_bytes": growth,
             "memory_check": "active" if growth is not None else "inactive"}
+
+
+# ---------------------------------------------------------------------------
+# The serving benchmarks' token oracle
+# ---------------------------------------------------------------------------
+
+
+def dense_reference(cfg, params, prompt, max_new: int, dev,
+                    max_seq: int = 64, logits: Optional[list] = None,
+                    forced: Optional[List[int]] = None) -> List[int]:
+    """Greedy tokens of one request through the dense (non-paged) decode
+    step: the prompt fed token by token into a bf16 cache, then
+    ``max_new`` generated tokens.  ``logits``: a list that receives each
+    generated step's float32 logits, (V,) on the host.  ``forced``: the
+    generated tokens to feed back in place of the loop's own (teacher
+    forcing), so ``logits`` holds each step's logits given that prefix."""
+    import torch
+
+    from ..models import model as M
+    from ..serving.steps import make_decode_step
+
+    decode = make_decode_step(cfg)
+    caches = M.init_caches(cfg, 1, max_seq, dtype=torch.bfloat16,
+                           device=dev)
+    toks = torch.as_tensor(prompt, dtype=torch.int32).to(dev)[None]
+    s = toks.shape[1]
+    out: List[int] = []
+    cur = toks[:, :1]
+    for step in range(s - 1 + max_new):
+        clen = torch.full((1,), step + 1, dtype=torch.int32, device=dev)
+        nxt, lg, caches = decode(params, caches, cur, clen)
+        if step + 1 < s:
+            cur = toks[:, step + 1:step + 2]
+        else:
+            out.append(int(nxt[0, 0]))
+            cur = nxt if forced is None else torch.full(
+                (1, 1), forced[len(out) - 1], dtype=torch.int32, device=dev)
+            if logits is not None:
+                logits.append(lg[0].float().cpu())
+    return out
+
+
+def deficit_rel(lg, tok) -> float:
+    """How far ``tok``'s logit stands below the best of ``lg``, relative
+    to the largest |logit|."""
+    return float((lg.max() - lg[tok]) / lg.abs().max())
+
+
+def teacher_forced(cfg, params, prompt, got, dev) -> dict:
+    """The dense loop fed the engine's tokens ``got``: at how many steps
+    the engine's token is not the loop's best given the same prefix, and
+    its largest :func:`deficit_rel` over all steps."""
+    logits: list = []
+    best = dense_reference(cfg, params, prompt, len(got), dev,
+                           logits=logits, forced=got)
+    return {"flips": sum(a != b for a, b in zip(got, best)),
+            "max_deficit_rel": max((deficit_rel(lg, t)
+                                    for lg, t in zip(logits, got)),
+                                   default=0.0)}

@@ -50,6 +50,7 @@ SIGNATURES = {
     "bravo_multi_poll": [_P, _I, _P, _I, _P, _P],
     "bravo_scan": [_P, _I, _I, _P, _P, _P],
     "bravo_publish_seq": [_P, _I, _P, _P, _P, _P, _I, _I, _P],
+    "bravo_empty": [_P],
 }
 
 FUSED_PUBLISH_MULTI = _build.LaunchCounter("fused_publish_multi")   # K1

@@ -13,6 +13,8 @@ the exact count, which the TPU kernel also returned exactly.
 
 CPU tensors take the plain versions in ``ref``; CUDA tensors launch the
 kernel or raise.  Each launch adds one to the kernel's counter.
+``empty_launch`` launches a kernel that does nothing, the floor the table
+kernels are timed against; it ports no TPU kernel and counts nothing.
 """
 
 from __future__ import annotations
@@ -91,3 +93,14 @@ def revocation_poll_multi(table2d: torch.Tensor,
             "revocation_poll_multi")
         REVOCATION_POLL_MULTI.add()
     return counts
+
+
+def empty_launch(device: torch.device) -> None:
+    """Launch a kernel that does nothing (one CTA, as K3/K4/K9 launch) on
+    ``device``'s current stream: the launch floor the table kernels are
+    timed against.  Nothing to do on the CPU."""
+    if device.type == "cpu":
+        return
+    lib = table_lib()
+    _build.check(lib, lib.bravo_empty(_build.stream_ptr(device)),
+                 "empty_launch")

@@ -34,11 +34,19 @@ Two modes:
   ``slots_per_handler`` requests, runs one prefill and then decode steps
   against a dense per-batch cache, beside the pool's page map.
 
-Not ported: the latency-feedback controller (``SchedulerConfig(controller=
-...)``, M11) and ``stage_checkpoint`` (M11) raise ``NotImplementedError``;
-``repro``'s
-host-only mode (``device_leases=False``) is not ported: every lock here
-mirrors its readers on the device.
+Scheduler mode also carries ``repro``'s latency-feedback admission
+(``SchedulerConfig(controller=ControllerConfig(...))``): windowed step and
+TTFT sensors feed a :class:`~.scheduler.LatencyFeedbackController` that
+moves the scheduler's slot cap and admission watermark at tick top level.
+The step sensor times a decode tick through its token readback, the
+tick's one synchronization, so it reads the card's time and not the
+launches' enqueue.  ``hot_swap(checkpoint=(dir, step))`` stages a
+checkpoint written by :mod:`repro_torch.ft.checkpoint` (or by ``repro``'s)
+leaf by leaf, CRC-verified, onto the engine's device before any lock is
+taken.
+
+Not ported: ``repro``'s host-only mode (``device_leases=False``); every
+lock here mirrors its readers on the device.
 """
 
 from __future__ import annotations
@@ -64,14 +72,10 @@ from ..models.common import ModelConfig
 from ..obs import TRACER as _TR
 from ..obs.metrics import MetricsRegistry
 from .kv_pool import KVPool, page_keys
-from .scheduler import Phase, Scheduler, SchedulerConfig, SlotState
+from .scheduler import (LatencyFeedbackController, Phase, Scheduler,
+                        SchedulerConfig, SlotState)
 from .steps import (make_decode_step, make_paged_prefill_step,
                     make_prefill_step)
-
-
-def _not_ported(what: str, milestone: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
-                               f"{milestone})")
 
 
 @dataclasses.dataclass
@@ -369,9 +373,6 @@ class ServingEngine:
                  scheduler: Optional[SchedulerConfig] = None,
                  engine_cfg: Optional[EngineConfig] = None,
                  quant_kv: bool = False, device: DeviceLike = None):
-        if scheduler is not None and scheduler.controller is not None:
-            raise _not_ported("the latency-feedback controller "
-                              "(SchedulerConfig(controller=...))", "M11")
         self.device = resolve(device)
         self.cfg = cfg
         self.ecfg = engine_cfg or EngineConfig()
@@ -453,7 +454,27 @@ class ServingEngine:
         # decode steps seen so far: the first obs_warmup_steps stay out of
         # the latency histogram
         self._steps_seen = 0
+        # latency-feedback admission: windowed sensors and the controller
+        # over the scheduler's runtime limits.  The engine observes into
+        # the windows next to the histograms and lets the controller read
+        # them at tick top level, never inside a lease window
+        self._controller = None
+        self._w_step = self._w_ttft = None
         self._h_ttft = self.metrics.histogram("engine.ttft_ns")
+        if sc.controller is not None:
+            cc = sc.controller
+            self._w_step = self.metrics.windowed(
+                "slo.step_ns", cc.window_s, cc.slices)
+            self._w_ttft = self.metrics.windowed(
+                "slo.ttft_ns", cc.window_s, cc.slices)
+            self._controller = LatencyFeedbackController(
+                cc, max_slots=sc.max_slots, free_frac=sc.admit_free_frac,
+                step_window=self._w_step, ttft_window=self._w_ttft)
+            self._g_slot_cap = self.metrics.gauge("sched.slot_cap")
+            self._g_free_frac = self.metrics.gauge("sched.admit_free_frac")
+            self._g_slot_cap.set(sc.max_slots)
+            self._g_free_frac.set(sc.admit_free_frac)
+            self._ctrl_next_ns = 0
 
     # ------------------------------------------------------------- handlers
     def _handler(self, hid: int) -> None:
@@ -798,7 +819,10 @@ class ServingEngine:
                 self._clen[row] = st.pos + 1
                 self._active[row] = 1
                 if st.admit_ns:
-                    self._h_ttft.observe(time.monotonic_ns() - st.admit_ns)
+                    ttft = time.monotonic_ns() - st.admit_ns
+                    self._h_ttft.observe(ttft)
+                    if self._w_ttft is not None:
+                        self._w_ttft.observe(ttft)
                 if _TR.enabled:
                     _TR.emit("req", "first_token", rid=st.rid)
                 if self.scheduler.on_token(st, tok):
@@ -851,6 +875,8 @@ class ServingEngine:
         self._steps_seen += 1
         if self._steps_seen > self.ecfg.obs_warmup_steps:
             self._h_step.observe(dt)
+            if self._w_step is not None:
+                self._w_step.observe(dt)
         if _TR.enabled:
             _TR.emit_span("engine", "decode_step", t0, dur_ns=dt,
                           batch=len(slots))
@@ -864,6 +890,36 @@ class ServingEngine:
         if self.quant_kv:
             self._c_quant_tok.add(len(slots))
 
+    def _ctrl_tick(self) -> None:
+        """Latency-feedback admission update, paced to the controller's
+        period.  Reads the windowed sensors (host aggregates, at tick top
+        level, never inside a lease window) and applies a decision through
+        ``scheduler.set_limits``."""
+        now = time.monotonic_ns()
+        if now < self._ctrl_next_ns:
+            return
+        ctrl = self._controller
+        self._ctrl_next_ns = now + int(ctrl.ccfg.period_s * 1e9)
+        decision = ctrl.update(now)
+        if decision is not None:
+            self.scheduler.set_limits(ctrl.slot_cap, ctrl.free_frac)
+            self._g_slot_cap.set(ctrl.slot_cap)
+            self._g_free_frac.set(ctrl.free_frac)
+            if _TR.enabled:
+                _TR.emit("sched", f"ctrl_{decision}", cap=ctrl.slot_cap,
+                         watermark_pct=round(ctrl.free_frac * 100, 1),
+                         p99_step_us=round(ctrl.last_step_p99_ns / 1e3, 1),
+                         p99_ttft_us=round(ctrl.last_ttft_p99_ns / 1e3, 1))
+        if _TR.enabled:
+            # a counter-track sample (Perfetto ``C`` events): the watermark
+            # and slot curves line up with the latency they track
+            _TR.emit("sched", "ctrl_state",
+                     watermark_pct=round(ctrl.free_frac * 100, 1),
+                     slot_cap=ctrl.slot_cap,
+                     active_slots=len(self.scheduler.running),
+                     p99_step_us=round(ctrl.last_step_p99_ns / 1e3, 1),
+                     p99_ttft_us=round(ctrl.last_ttft_p99_ns / 1e3, 1))
+
     def _schedule_tick(self) -> bool:
         """One policy round: service compaction, admit, run the plan.
         Returns False when idle (the loop then blocks on the queue)."""
@@ -876,6 +932,8 @@ class ServingEngine:
             self.stats.inc("compactions")
             if _TR.enabled:
                 _TR.emit("engine", "compact")
+        if self._controller is not None:
+            self._ctrl_tick()
         self._admit()
         plan = self.scheduler.plan()
         if plan.kind == "prefill":
@@ -913,7 +971,18 @@ class ServingEngine:
                 self.stats.inc("compactions")
 
     def stage_checkpoint(self, directory, step: int):
-        raise _not_ported("stage_checkpoint (ft/checkpoint.py)", "M11")
+        """Stream a checkpoint into a shadow params tree while serving
+        continues.  Each leaf is CRC-verified as it is read and put on the
+        engine's device in the dtype of the leaf it replaces, so the host
+        holds at most one shard; a corrupt leaf raises
+        :class:`~repro_torch.ft.checkpoint.CheckpointCorrupt` here, before
+        any lock is taken or epoch bumped."""
+        from ..ft.checkpoint import load_checkpoint
+
+        if _TR.enabled:
+            _TR.emit("engine", "swap_stage", step=step)
+        return load_checkpoint(directory, step, like=self.store.params,
+                               verify=True, device=self.device)
 
     def hot_swap(self, new_params: Any = None, *,
                  checkpoint: Optional[tuple] = None,
@@ -998,6 +1067,12 @@ class ServingEngine:
             self._spawn("compactor", self._compactor, compact_period_s)
 
     def submit(self, req: Request) -> None:
+        prompt = np.asarray(req.prompt)
+        if prompt.size and (prompt.min() < 0
+                            or prompt.max() >= self.cfg.vocab):
+            raise ValueError(
+                f"request {req.rid}: prompt tokens must lie in [0, "
+                f"{self.cfg.vocab})")
         if self.sched_cfg is not None and \
                 len(req.prompt) + req.max_new > self.sched_cfg.max_seq:
             raise ValueError(

@@ -104,16 +104,30 @@ def test_engine_end_to_end_under_swap_and_compaction(lock_name):
 
 def test_scheduler_mode_is_not_ported_yet():
     """Scheduler mode is ported (tests/test_torch_scheduler.py), the
-    quantized page store with it (tests/test_torch_quant_kv.py); what it
-    does not have yet, the latency-feedback controller, raises and names
-    its place in ROADMAP.md."""
+    quantized page store with it (tests/test_torch_quant_kv.py), and now
+    the latency-feedback controller too: the engine builds with a
+    ``ControllerConfig``, and ``_ctrl_tick`` reads the windowed sensors and
+    sets the scheduler's limits and the gauges
+    (tests/test_torch_controller.py holds it against ``repro``'s)."""
     from repro_torch.serving.scheduler import (ControllerConfig,
                                                SchedulerConfig)
     cfg = TC.get_smoke("llama3.2-1b")
     params = TM.init_params(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TE.ServingEngine(cfg, params, device="cpu", scheduler=SchedulerConfig(
-            controller=ControllerConfig()))
+    eng = TE.ServingEngine(cfg, params, device="cpu", n_pages=64,
+                           scheduler=SchedulerConfig(
+                               max_slots=8, controller=ControllerConfig(
+                                   step_p99_target_ms=1.0, min_samples=2,
+                                   watermark_step=0.1)))
+    slot_cap = eng.metrics.gauge("sched.slot_cap")
+    free_frac = eng.metrics.gauge("sched.admit_free_frac")
+    assert (slot_cap.value, free_frac.value) == (8, 0.0)
+    for _ in range(3):
+        eng._w_step.observe(5e6)            # 5 ms, over the 1 ms target
+    eng._ctrl_tick()
+    assert eng.scheduler.slot_cap == slot_cap.value == 4
+    assert eng.scheduler.admit_free_frac == free_frac.value == 0.1
+    eng._ctrl_tick()                        # paced: within the period
+    assert slot_cap.value == 4
 
 
 def _stores(kind, monkeypatch):

@@ -20,7 +20,8 @@ REF = ROOT / "src" / "repro"
 COPIES = ["core/errors.py", "core/atomics.py", "core/table.py",
           "core/rwlocks.py", "core/bravo.py", "core/factory.py",
           "obs/__init__.py", "obs/trace.py", "obs/metrics.py",
-          "obs/chrome.py", "obs/slo.py", "serving/scheduler.py"]
+          "obs/chrome.py", "obs/slo.py", "serving/scheduler.py",
+          "serving/loadgen.py", "ft/straggler.py"]
 
 
 # the reference and what only it may import; the port keeps its own copies

@@ -205,10 +205,27 @@ def test_scheduler_engine_matches_jax_engine(models, monkeypatch, name):
 
 
 def test_scheduler_mode_refuses_what_is_not_ported(models):
+    """What scheduler mode once refused, the latency-feedback controller,
+    now serves: the engine builds with one, its sensors fill as it serves,
+    and ``_ctrl_tick`` runs at the top of each tick.  What it refuses
+    still: a request past ``max_seq`` and prompt tokens outside the
+    vocabulary."""
     _, ct, _, tp = models
-    with pytest.raises(NotImplementedError, match="M11"):
-        TE.ServingEngine(ct, tp, device="cpu", scheduler=TS.SchedulerConfig(
-            controller=TS.ControllerConfig()))
+    ceng = TE.ServingEngine(ct, tp, device="cpu", n_pages=32,
+                            scheduler=TS.SchedulerConfig(
+                                page_size=4, max_seq=32,
+                                controller=TS.ControllerConfig(
+                                    ttft_p99_target_ms=1e6)))
+    ticks = []
+    tick = ceng._ctrl_tick
+    ceng._ctrl_tick = lambda: (ticks.append(1), tick())
+    ceng.start()
+    r = TE.Request(rid=0, prompt=np.arange(1, 9, dtype=np.int32), max_new=4)
+    ceng.submit(r)
+    assert r.done.wait(timeout=600)
+    ceng.stop()
+    assert len(r.out) == 4 and ticks
+    assert ceng._w_ttft.count() == 1 and ceng._controller.shrinks == 0
     # the quantized page store is ported: four leaves, int8 pages
     qeng = TE.ServingEngine(ct, tp, device="cpu", n_pages=16,
                             scheduler=TS.SchedulerConfig(), quant_kv=True)
@@ -219,3 +236,6 @@ def test_scheduler_mode_refuses_what_is_not_ported(models):
                            scheduler=TS.SchedulerConfig(max_seq=16))
     with pytest.raises(ValueError, match="max_seq"):
         eng.submit(TE.Request(rid=0, prompt=np.arange(1, 12), max_new=8))
+    with pytest.raises(ValueError, match="vocab|tokens"):
+        eng.submit(TE.Request(rid=1, prompt=np.asarray([1, ct.vocab]),
+                              max_new=2))
