@@ -9,11 +9,10 @@ non-zero exit and no result line:
 1. environment: torch, CUDA, nvcc and the card (name, power limit);
 2. build: nvcc compiles the two CUDA sources,
    ``src/repro_torch/csrc/table_kernels.cu`` (K1-K4, K9, K10) and
-   ``src/repro_torch/csrc/paged_attn.cu`` (K5-K8), and ``paged_attn.cu``
-   once more with ``BRAVO_CHUNK_PARENT=1`` (its chunk entry points run the
-   parent chunk design, timed beside K5-K8), one process each, all
-   started together; then ptxas's report (registers, spills, static
-   shared memory) on the chunk kernel's instantiations;
+   ``src/repro_torch/csrc/paged_attn.cu`` (K5-K8), and each once more per
+   timing build (``BUILDS``: the parent K1/K2 design, the parent chunk
+   design), one process each, all started together; then ptxas's report (registers,
+   spills, static shared memory) on the chunk kernel's instantiations;
 3. kernels: each table kernel (K1-K4) against its plain PyTorch version on
    the card, exact, at the 4096-slot table with M in {1, 4, 16, 256}, K in
    {1, 5, 128} and seeded sweeps with collisions, cleared bias lanes, -1
@@ -21,8 +20,12 @@ non-zero exit and no result line:
    scan) and K10 (the sequential publish) the same way, exact, with K10's
    sequential edge cases (duplicate unconditional stores, id 0, slots
    outside the table, a table past 48 KiB); K1/K2 also at a batch of
-   3000 (three chunks of 1024) and the single-lock K2 lease entries on
-   64-bit reader ids; the paged attention kernels
+   3000 (three chunks of 1024), at M in ``LEASE_MS`` (around a warp and a
+   chunk), the single-lock K2 lease entries on 64-bit reader ids, and
+   every K1/K2 entry on every K1/K2 build with collisions placed across
+   warp and chunk boundaries, denied requests on later winners' slots and
+   slots outside the table, on tables of 4096 and 65,536 slots over 128
+   and 129 lanes; the paged attention kernels
    K5 (decode) and K6 (chunk prefill) against theirs at the engine's
    shapes, at gemma-2b's and granite-20b's head shapes (hd 256; 48 query
    heads on one KV head), at head dims the kernels pad (hubert-xlarge's
@@ -49,8 +52,14 @@ non-zero exit and no result line:
    dequantized, for K7/K8); K5/K7 also at the long-context shape and
    K6/K8 at the two long-prefix shapes; each K5-K8 time beside the parent
    chunk design's (for K5/K7 called at S = 1) and the kernel's forced to
-   one split, timed in the same run; and a kernel that does nothing,
-   launched and timed as K1-K4 are (``launch_floor_ms``);
+   one split, timed in the same run; a kernel that does nothing,
+   launched and timed as K1-K4 are (``launch_floor_ms``), and two one-warp
+   floors under K1/K2 (``load_floor_ms``: a load and a store a thread;
+   ``chain_floor_ms``: two dependent loads and a store); K1 and K2 (the
+   release and the single-lock acquire) and the tick's acquire-release
+   pair on the wrappers' build and the parent design in turns at the tick
+   (4 requests over 5 lanes), at registry_bench's 128 over 32, at 1024
+   over 128 and at 3000 over 128 (``lease_designs``);
 3c. device_bravo: the port's device-BRAVO benchmark
    (``repro_torch.benchmarks.device_bravo``, batch 64, 100 iterations):
    the single-lock ``DeviceLeaseTable`` (K2 acquire and release, K3 drain
@@ -265,12 +274,26 @@ QUANT_SPIKE = 40.0
 QUANT_SPIKE_REL = 1e-5
 # K1/K2 at a batch of three 1024-request chunks
 BIG_BATCH = 3000
+# K1/K2 at batches around a warp and a chunk, with collisions placed across
+# warp and chunk boundaries (_placed_case), on the 4096-slot table and on
+# one of 65,536, over 128 lanes (the registry's most) and 129, on the
+# wrappers' build and the parent design
+LEASE_MS = (31, 32, 33, 64, 1023, 1024, 1025)
+LEASE_ROWS = (32, 512)
+LEASE_LANES = (128, 129)
+# K1/K2 timed against the parent design: (batch, lanes) of the tick, of
+# registry_bench, of a chunk and of three chunks
+LEASE_SHAPES = ((4, 5), (128, 32), (1024, 128), (BIG_BATCH, 128))
 SOURCES = {"table": "src/repro_torch/csrc/table_kernels.cu",
            "paged": "src/repro_torch/csrc/paged_attn.cu"}
-# builds: (source, build-time switches); "parent" runs the parent chunk
-# design in the chunk entry points, for timing only
-BUILDS = {"table": (SOURCES["table"], ()), "paged": (SOURCES["paged"], ()),
-          "parent": (SOURCES["paged"], ("BRAVO_CHUNK_PARENT=1",))}
+# builds: (source, build-time switches), the switches those of
+# table_publish.PARENT_DEFINES and paged_attn.PARENT_DEFINES.  Timing only:
+# "table_parent" runs the parent K1/K2 design, "paged_parent" the parent
+# chunk design
+BUILDS = {"table": (SOURCES["table"], ()),
+          "table_parent": (SOURCES["table"], ("BRAVO_TABLE_PARENT=1",)),
+          "paged": (SOURCES["paged"], ()),
+          "paged_parent": (SOURCES["paged"], ("BRAVO_CHUNK_PARENT=1",))}
 REPLACES = {
     "fused_publish_multi": "src/repro/kernels/table_publish.py:204",
     "fused_publish": "src/repro/kernels/table_publish.py:111",
@@ -368,10 +391,12 @@ def check_kernels(dev, seeds=range(8)) -> dict:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version by {err}")
 
-    ms = [1, 4, 16, 256]
+    ms = [1, 4, 16, 256, *LEASE_MS]
     for seed in seeds:
         rng = np.random.default_rng(seed)
         big = [BIG_BATCH] if seed < 2 else []
+        if seed < 2:
+            _check_lease_placements(rng, dev, agree, out)
         for m in ms + [int(rng.integers(2, 1025))] + big:
             c = _case(rng, m, dev)
             # K1, explicit slots
@@ -459,6 +484,148 @@ def check_kernels(dev, seeds=range(8)) -> dict:
     if dev.type == "cuda":
         torch.cuda.synchronize()
     return out
+
+
+def _placed_case(rng, m, dev, rows=32, n_locks=128):
+    """A table of ``rows`` x 128 slots (~7% occupied), ``n_locks`` bias
+    lanes (lane 0 set, lane 1 cleared, the rest 70% set) and M requests
+    with these placed where M reaches them: two biased requests for one
+    free slot in one warp (4, 29), in different warps (3, 40) and in
+    different chunks (1000, 1030); an earlier denied request on a later
+    winner's free slot across warps (5, 37) and across chunks (1023,
+    1024); biased requests for slots -1 (7) and n_slots + 3 (9).  The
+    hashed entries get the same placements: the pair's reader ids are
+    equal and lane 1 carries lane 0's lock value, so a denied and a biased
+    request hash to one slot; requests 11 and 13 name lanes -1 and n_locks
+    (slot -1)."""
+    import numpy as np
+    import torch
+
+    n_slots = rows * 128
+    table = np.zeros(n_slots, np.int32)
+    occ = rng.choice(n_slots, n_slots // 14, replace=False)
+    table[occ] = rng.integers(1, 50, occ.size)
+    free = np.flatnonzero(table == 0)
+    rbias = (rng.random(n_locks) < 0.7).astype(np.int32)
+    rbias[:2] = (1, 0)
+    pool = np.concatenate([occ[:8], rng.choice(n_slots, max(2, m // 2))])
+    slots = rng.choice(pool, m).astype(np.int32)
+    lidx = rng.integers(0, n_locks, m).astype(np.int32)
+    ids = rng.integers(1, 1000, m).astype(np.int32)
+    vals = rng.integers(1, 2**31 - 1, n_locks).astype(np.int32)
+    vals[1] = vals[0]
+    rids = rng.integers(0, 2**31 - 1, m).astype(np.int32)
+    mask = rng.random(m) < 0.8
+    spots = rng.choice(free, 5, replace=False)
+    for (a, b, lane_a), slot in zip(((4, 29, 0), (3, 40, 0), (1000, 1030, 0),
+                                     (5, 37, 1), (1023, 1024, 1)), spots):
+        if b < m:
+            slots[a] = slots[b] = slot
+            lidx[a], lidx[b] = lane_a, 0
+            rids[a] = rids[b]
+    for i, slot, lane in ((7, -1, 0), (9, n_slots + 3, 0), (11, -1, -1),
+                          (13, 5, n_locks)):
+        if i < m:
+            slots[i], lidx[i] = slot, lane
+    return {k: torch.from_numpy(v).to(dev) for k, v in dict(
+        table=table.reshape(rows, 128), rbias=rbias, slots=slots, lidx=lidx,
+        ids=ids, vals=vals, rids=rids, mask=mask).items()}
+
+
+def _lease_calls(c):
+    """Every K1/K2 entry on the placed case ``c``: (kernel, entry, launch,
+    plain); ``launch(lib, table, granted)`` runs the entry of build ``lib``
+    on ``table`` in place, ``plain(table)`` -> (new table, granted or
+    None)."""
+    import torch
+
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import table_publish as TP
+
+    dev = c["table"].device
+    zero, one = (torch.full((), v, dtype=torch.int32, device=dev)
+                 for v in (0, 1))
+    lane0 = torch.zeros((), dtype=torch.int32, device=dev)
+    rids64 = c["rids"].long() * (2**31 + 7) + 2**32
+    calls = [
+        ("fused_publish_multi", "publish_multi",
+         lambda lib, t, g: TP._launch_publish_multi(
+             lib, t, c["rbias"], c["slots"], c["lidx"], c["ids"], g),
+         lambda t: R.publish_multi_ref(t, c["rbias"], c["slots"], c["lidx"],
+                                       c["ids"])),
+        ("fused_publish_multi", "acquire_hashed",
+         lambda lib, t, g: TP._launch_acquire_hashed(
+             lib, t, c["rbias"], c["vals"], c["lidx"], 1, c["rids"], g),
+         lambda t: R.acquire_hashed_ref(t, c["rbias"], c["vals"], c["lidx"],
+                                        c["rids"])),
+        ("fused_publish_multi", "acquire_hashed_shared_lane",
+         lambda lib, t, g: TP._launch_acquire_hashed(
+             lib, t, c["rbias"], c["vals"], lane0.reshape(1), 0, c["rids"],
+             g),
+         lambda t: R.acquire_hashed_ref(t, c["rbias"], c["vals"], lane0,
+                                        c["rids"])),
+        ("fused_publish", "clear",
+         lambda lib, t, g: TP._launch_publish(
+             lib, t, one, c["slots"], torch.zeros_like(c["ids"]), g,
+             unconditional=True, check_rbias=False),
+         lambda t: (R.clear_ref(t, c["slots"]), None)),
+        ("fused_publish", "publish_hashed_64",
+         lambda lib, t, g: TP._launch_publish_hashed(
+             lib, t, one, c["vals"], c["lidx"], 1, rids64, g),
+         lambda t: R.publish_hashed_ref(t, one, c["vals"], c["lidx"],
+                                        rids64)),
+        ("fused_publish", "release_hashed",
+         lambda lib, t, g: TP._launch_release_hashed(
+             lib, t, c["vals"], c["lidx"], 1, c["rids"], c["mask"]),
+         lambda t: (R.release_hashed_ref(t, c["vals"], c["lidx"], c["rids"],
+                                         c["mask"]), None)),
+    ]
+    for rb, name in ((zero, "publish_bias_clear"), (one, "publish")):
+        calls.append((
+            "fused_publish", name,
+            lambda lib, t, g, rb=rb: TP._launch_publish(
+                lib, t, rb, c["slots"], c["ids"], g, unconditional=False,
+                check_rbias=True),
+            lambda t, rb=rb: R.publish_ref(t, rb, c["slots"], c["ids"])))
+    return calls
+
+
+def _check_lease_placements(rng, dev, agree, out) -> None:
+    """Every K1/K2 entry on ``_placed_case`` at each M of ``LEASE_MS``,
+    table size of ``LEASE_ROWS`` and lane count of ``LEASE_LANES``, against
+    its plain version, exact: on the wrappers' build (counted under the
+    kernel's name) and on the parent design's build
+    (``out["lease_builds"]``)."""
+    import torch
+
+    from repro_torch.kernels import table_publish as TP
+
+    libs = {"kernel": TP.table_lib(), "parent": TP.parent_lib()}
+    rec = out.setdefault("lease_builds", {k: {"cases": 0, "matched": True}
+                                          for k in libs if k != "kernel"})
+    for m in LEASE_MS:
+        for rows in LEASE_ROWS:
+            for n_locks in LEASE_LANES:
+                c = _placed_case(rng, m, dev, rows, n_locks)
+                for kernel, entry, launch, plain in _lease_calls(c):
+                    want_t, want_g = plain(c["table"].clone())
+                    for build, lib in libs.items():
+                        t = c["table"].clone()
+                        g = torch.empty(m, dtype=torch.bool, device=dev)
+                        launch(lib, t, g)
+                        if build == "kernel":
+                            agree(kernel, t, want_t)
+                            if want_g is not None:
+                                agree(kernel, g, want_g)
+                            continue
+                        ok = torch.equal(t, want_t) and (
+                            want_g is None or torch.equal(g, want_g))
+                        rec[build]["cases"] += 1
+                        if not ok:
+                            raise AssertionError(
+                                f"{entry} on the {build} build differs from "
+                                f"its plain version (M {m}, {rows} rows, "
+                                f"{n_locks} lanes)")
 
 
 def _check_legacy_edges(rng, dev, agree) -> None:
@@ -990,7 +1157,10 @@ def time_kernels(dev, batch: int, n_locks: int) -> dict:
 
     ``launch_floor``: a kernel that does nothing, launched as the scans
     are and timed the same way; each table kernel's ``above_floor_us`` is
-    its time less that floor."""
+    its time less that floor.  ``load_floor`` and ``chain_floor``: one warp
+    that does one load and one store a thread, or two dependent loads
+    (``vals[idx[t]]`` over a 4096-entry vector) and a store, timed the same
+    way; ``above_chain_us`` is a kernel's time less the chain floor."""
     import numpy as np
     import torch
 
@@ -1058,6 +1228,20 @@ def time_kernels(dev, batch: int, n_locks: int) -> dict:
     floor = _median_ms(lambda: TS.empty_launch(dev))
     out["launch_floor"] = {"ms": floor["graph_ms"],
                            "call_ms": floor["call_ms"]}
+    fsrc = torch.arange(TS.FLOOR_THREADS, dtype=torch.int32, device=dev)
+    fout = torch.empty_like(fsrc)
+    fvals = torch.arange(4096, dtype=torch.int32, device=dev)
+    fidx = torch.from_numpy(rng.integers(0, 4096, TS.FLOOR_THREADS)
+                            .astype(np.int32)).to(dev)
+    TS.chain_floor_launch(fidx, fvals, fout)
+    if not torch.equal(fout, fvals[fidx.long()]):
+        raise AssertionError("chain_floor_launch: wrong values")
+    for key, fn in (("load_floor", lambda: TS.load_floor_launch(fsrc, fout)),
+                    ("chain_floor",
+                     lambda: TS.chain_floor_launch(fidx, fvals, fout))):
+        f = _median_ms(fn)
+        out[key] = {"ms": f["graph_ms"], "call_ms": f["call_ms"]}
+    chain = out["chain_floor"]["ms"]
     for name, (kern, plain, nbytes, ops) in shapes.items():
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / INT_OPS_PER_S * 1e3
@@ -1070,7 +1254,73 @@ def time_kernels(dev, batch: int, n_locks: int) -> dict:
                      else "operations",
                      "bytes": nbytes, "ops": ops,
                      "above_floor_us": (k["graph_ms"] - floor["graph_ms"])
-                     * 1e3}
+                     * 1e3,
+                     "above_chain_us": (k["graph_ms"] - chain) * 1e3}
+    return out
+
+
+def time_lease_designs(dev) -> dict:
+    """K1 (the registry's acquire), K2 as the release and K2 as the
+    single-lock acquire (``publish_hashed``) at each (batch, lanes) of
+    ``LEASE_SHAPES`` on the 4096-slot table, on the wrappers' build and the
+    parent K1/K2 design in turns (parent, kernel, kernel, parent, twice),
+    each reading timed as :func:`time_kernels` times (graph replay
+    of 100 calls, median of 11 windows).  As in :func:`time_kernels`, every
+    slot these acquires ask for is taken after the first acquire, so they
+    read and lose.  ``acquire_release`` times the tick's pair instead, per
+    pair: a K1 acquire into slots the pair's release freed (so each request
+    first for a free slot wins and stores), then the K2 release of what it
+    was granted.  -> {shape: {entry: {build: {ms (mean of the readings),
+    spread_ms (largest less smallest), readings_ms}}}}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import table_publish as TP
+
+    libs = {"parent": TP.parent_lib(), "kernel": TP.table_lib()}
+    order = ["parent", "kernel", "kernel", "parent"] * 2
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    out = {}
+    for batch, n_locks in LEASE_SHAPES:
+        c = _case(np.random.default_rng(0), batch, dev)
+        table = c["table"]
+        lidx = c["lidx"] % n_locks
+        rbias = torch.ones(n_locks, dtype=torch.int32, device=dev)
+        vals = c["vals"][:n_locks].contiguous()
+        rids = c["rids"]
+        before = table.clone()
+        free = table.clone()
+        g = TP.acquire_hashed(table, rbias, vals, lidx, rids)
+        gp = torch.empty_like(g)
+
+        def pair(lib):
+            TP._launch_acquire_hashed(lib, free, rbias, vals, lidx, 1, rids,
+                                      gp)
+            TP._launch_release_hashed(lib, free, vals, lidx, 1, rids, gp)
+
+        entries = {
+            "acquire_hashed": lambda lib: TP._launch_acquire_hashed(
+                lib, table, rbias, vals, lidx, 1, rids, g),
+            "release_hashed": lambda lib: TP._launch_release_hashed(
+                lib, table, vals, lidx, 1, rids, g),
+            "publish_hashed": lambda lib: TP._launch_publish_hashed(
+                lib, table, one, vals, lidx, 1, rids, g),
+            "acquire_release": pair}
+        rec = {}
+        for entry, launch in entries.items():
+            readings = {}
+            for build in order:
+                lib = libs[build]
+                readings.setdefault(build, []).append(
+                    _median_ms(lambda: launch(lib))["graph_ms"])
+            rec[entry] = {b: {"ms": sum(r) / len(r),
+                              "spread_ms": max(r) - min(r),
+                              "readings_ms": r}
+                          for b, r in readings.items()}
+        if not torch.equal(free, before):
+            raise AssertionError("acquire_release: the pair left the table "
+                                 "changed")
+        out[f"{batch}x{n_locks}"] = rec
     return out
 
 
@@ -2095,6 +2345,9 @@ def main(argv=None) -> int:
     times.update(time_paged_kernels(dev, seed=args.seed, quant=True))
     emit({"phase": "kernel_times", "card": card, "batch": slots,
           "launch_floor_ms": times["launch_floor"]["ms"],
+          "load_floor_ms": times["load_floor"]["ms"],
+          "chain_floor_ms": times["chain_floor"]["ms"],
+          "lease_designs": time_lease_designs(dev),
           "bound_assumes": "32-byte sectors at the HBM rate, 3.35 TB/s; "
                            "K1-K4, K9, K10: integer operations at 67 "
                            "TOP/s; K5-K8 (bound_ms): operations at the "

@@ -17,24 +17,58 @@
 //                     (the legacy one-request-at-a-time CAS loop, writing a
 //                     new table)
 //
-// What bounds them on this card: nothing in the arithmetic.  Each call moves
-// at most the 16 KiB table plus a few hundred bytes of request vectors, which
-// is a few nanoseconds of HBM time at 3.35 TB/s; every call is bound by launch
-// latency.  So each kernel is one CTA that holds all of its work: no grid-wide
-// reduction, no second pass, no atomics in device memory, one launch per call.
+// What bounds them on this card: nothing in the arithmetic, and not the
+// bytes.  Each call moves at most the 16 KiB table plus a few hundred bytes
+// of request vectors, a few nanoseconds of HBM time at 3.35 TB/s.  So each
+// kernel is one CTA that holds all of its work: no grid-wide reduction, no
+// second pass, no atomics in device memory, one launch per call.
 //
-// Design notes per kernel:
-// * K1/K2 run one thread per request, in chunks of 1024 requests for a
-//   larger batch.  The TPU kernel resolved in-batch collisions with one-hot
-//   matmuls; here each thread scans the earlier requests' slots in shared
-//   memory (O(M^2), M is a serving batch), chunk by chunk, so the LOWEST
-//   index among attempting requests wins across the whole batch, exactly as
-//   a sequential CAS loop would.  A bare atomicCAS race would pick a winner
-//   in no fixed order.  Within a chunk all occupancy reads happen before the
-//   barrier and the unique winners store after it; a later chunk reads a
-//   slot only if no earlier request claimed it, so that no earlier store
-//   touched it: every decision sees the table as it was before the batch,
-//   as the TPU kernel's single table load did.
+// K1/K2, the lease acquire and release, are bound by DEPENDENT ROUND TRIPS
+// to memory, not by bytes.  A request's lane (lock_idx[i]) gives its lock
+// value and bias (lock_vals[lane], rbias[lane]), the value and the reader id
+// its slot (the splitmix64 hash), the slot its occupancy (table[slot]):
+// loads that each wait for the one before, then the store.  The tick's
+// batch is 4-16 requests, one warp, and each trip to L2 is a latency that
+// no parallel work hides.  The design (lease_kernel):
+// * The first trip carries every input of the request, loaded
+//   unconditionally (a thread past the batch loads request 0's and ignores
+//   them), so no lane diverges around a load; each thread computes its
+//   lane, id and slot once and keeps them in registers.
+// * The occupancy read, design (a): gathered after the hash and issued
+//   before the collision checks, so that its trip overlaps them.
+// * In-batch collisions without block barriers.  The LOWEST index among
+//   attempting requests wins each slot across the whole batch, exactly as a
+//   sequential CAS loop would (a bare atomicCAS race would pick a winner in
+//   no fixed order).  Within a warp, __match_any_sync over the slots, masked
+//   by the ballot of attempting lanes, names the first lane of each slot;
+//   across warps each warp writes its first lanes' slots to one shared list
+//   and one barrier publishes it; a batch past 1024 requests runs in chunks
+//   of 1024 and each chunk checks the lists of the chunks before it.  A
+//   batch of at most 32 requests (the tick) crosses no __syncthreads.  The
+//   hashed release stores 0 and grants nothing, so which of two requests
+//   for one slot stores does not matter: it checks no collision.
+// * Only a request that is first for its slot over the whole batch uses
+//   that slot's occupancy, and only it stores there.  So no store of the
+//   batch touches a slot before its read, in any order of warps or chunks:
+//   every decision sees the table as it was before the batch, as the TPU
+//   kernel's single table load did, without a block barrier between the
+//   reads and the stores (a __syncwarp orders each warp's reads before its
+//   stores).  A denied (unbiased) request attempts nothing and so shadows
+//   no later request.
+// Two alternatives were built and timed on the card against this design
+// and dropped (PERF.md section 6): the bias lanes and lock values staged in
+// shared memory within the first trip instead of gathered by lane (no
+// faster at the tick and slower at larger batches: the first trip, with
+// the lanes' loads in flight beside the request's own, took about as long
+// as the gather it removed), and design (b), the table copied into shared
+// memory by one bulk copy (cp.async.bulk on an mbarrier) at kernel entry
+// instead of each slot's occupancy gathered (slower than (a) at every shape
+// timed).
+// With -DBRAVO_TABLE_PARENT=1 the K1/K2 entry points run the parent design
+// instead (one thread per request, the trips in a row, each thread loading
+// its request twice, three __syncthreads a chunk), for timing only.
+//
+// Other notes:
 // * The hashed entries fold the registry's splitmix64 slot hash and the
 //   lock-value gather (lock_vals[lock_idx]) into the same launch, in native
 //   uint64, so a lease acquire or release is one launch.
@@ -62,12 +96,19 @@
 //   whole table to a NEW output, as the TPU kernel copied its table block
 //   input to output on every call.  A slot outside [0, n_slots) reads as
 //   free and stores nothing, as in K1/K2.
+// * Two floors, one warp each, for timing K1/K2 against: load_floor (each
+//   thread one load and one store) and chain_floor (two dependent loads and
+//   a store, the least a gathered acquire can do).
 //
 // Every entry point enqueues on the caller's stream, allocates nothing and
 // returns cudaGetLastError() after the launch.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#ifndef BRAVO_TABLE_PARENT
+#define BRAVO_TABLE_PARENT 0
+#endif
 
 namespace {
 
@@ -78,6 +119,8 @@ constexpr int kSeqChunk = 1024;   // K10 requests staged per pass
 // K10's dynamic shared memory (the staged table) beyond which the kernel
 // needs the opt-in attribute: 48 KiB per block less its static arrays
 constexpr size_t kSeqDefaultSmem = 48 * 1024 - 2 * kSeqChunk * sizeof(int);
+constexpr int kWarp = 32;
+constexpr unsigned kFull = 0xffffffffu;
 
 // splitmix64 finalizer over (lock, reader), as repro.core.table.mix_hash:
 // the lock is a 32-bit value zero-extended to 64 bits, the reader a 64-bit
@@ -96,6 +139,8 @@ __device__ __forceinline__ uint64_t mix_hash(uint32_t lock, uint64_t reader) {
 __device__ __forceinline__ bool in_table(int slot, int n_slots) {
   return slot >= 0 && slot < n_slots;
 }
+
+#if BRAVO_TABLE_PARENT   // the parent K1/K2 design, for timing only
 
 // Request i's lock lane, slot and published id.  Hashed mode derives slot
 // and id from lock_vals[lane] and reader_ids[i] (int32 bits of a uint32
@@ -259,6 +304,215 @@ publish_kernel(int32_t* __restrict__ table, int n_slots,
   }
 }
 
+#else  // the K1/K2 design for Hopper (see the note at the head)
+
+constexpr int kMaxWarps = kMaxRequests / kWarp;
+
+// Every argument of the five K1/K2 entry points.  K1 (kMulti): rbias is
+// the (n_locks,) bias lane vector; K2: the scalar bias, read when
+// check_rbias.  Hashed entries read lock_vals, lock_idx (stride 0: one lane
+// for all), reader_ids and, for the release, mask; explicit ones slots and
+// ids (K1 also lock_idx).  granted may be null (the release).
+struct LeaseArgs {
+  int32_t* table;
+  int n_slots;
+  const int32_t* rbias;
+  int check_rbias;
+  int unconditional;
+  const int32_t* lock_vals;
+  int n_locks;
+  const int32_t* slots;
+  const int32_t* ids;
+  const int32_t* lock_idx;
+  int lidx_stride;
+  const void* reader_ids;
+  int reader_wide;
+  const bool* mask;
+  bool* granted;
+  int m;
+};
+
+// What request i loads from its own vectors: independent of every other
+// load of the kernel.  The reader id stays in the width it was loaded in
+// until it is hashed, so that no instruction waits for it sooner.
+struct Inputs {
+  int lane = 0;
+  int32_t reader32 = 0;
+  int64_t reader64 = 0;
+  int slot = -1;
+  int id = 0;
+  bool keep = true;
+};
+
+// A request once its lane is resolved: its slot, the id it stores, and
+// whether it attempts at all (K1: its lane is biased; K2: always).
+struct Lease {
+  int slot;
+  int id;
+  bool attempt;
+};
+
+// Every load is unconditional (a thread past the batch loads request 0's
+// inputs and ignores them; the branches are uniform), so that no lane
+// diverges around a load.
+template <bool kHashed>
+__device__ __forceinline__ Inputs load_inputs(const LeaseArgs& a, int i) {
+  Inputs in;
+  const int j = i < a.m ? i : 0;
+  if (a.lock_idx != nullptr) in.lane = a.lock_idx[j * a.lidx_stride];
+  if (kHashed) {
+    if (a.reader_wide)
+      in.reader64 = static_cast<const int64_t*>(a.reader_ids)[j];
+    else
+      in.reader32 = static_cast<const int32_t*>(a.reader_ids)[j];
+    if (a.mask != nullptr) in.keep = a.mask[j];
+  } else {
+    in.slot = a.slots[j];
+    in.id = a.ids[j];
+  }
+  return in;
+}
+
+// The request's lock value and bias, gathered from device memory by its
+// lane (a load that waits for the lane's).
+template <bool kMulti, bool kHashed>
+__device__ __forceinline__ Lease resolve(const LeaseArgs& a,
+                                         const Inputs& in, bool active) {
+  Lease r{in.slot, in.id, false};
+  const bool lane_ok = in.lane >= 0 && in.lane < a.n_locks;
+  if (kHashed) {
+    const int32_t val = lane_ok ? a.lock_vals[in.lane] : 0;
+    const uint64_t reader =
+        a.reader_wide
+            ? static_cast<uint64_t>(in.reader64)
+            : static_cast<uint64_t>(static_cast<uint32_t>(in.reader32));
+    const uint64_t h = mix_hash(static_cast<uint32_t>(val), reader);
+    r.slot = lane_ok ? static_cast<int>(h & static_cast<uint64_t>(
+                                                a.n_slots - 1))
+                     : -1;
+    r.id = val;
+    if (!kMulti && a.unconditional) {   // the release: store 0, and never
+      r.id = 0;                          // into a denied reader's slot
+      if (!in.keep) r.slot = -1;
+    }
+  }
+  if (kMulti) {
+    const int rb = lane_ok ? a.rbias[in.lane] : 0;
+    r.attempt = active && rb != 0;
+  } else {
+    r.attempt = active;
+  }
+  return r;
+}
+
+// This warp's attempting slots, each once (its lowest attempting lane),
+// to the shared list (when `write`): row s_list[warp * 32, +32) holds the
+// s_count[warp] slots, padded with the first of them, so that a scan
+// compares whole 16-byte rows.  -> whether this lane is the first
+// attempting lane of its slot in the warp.
+__device__ __forceinline__ bool warp_list(const Lease& r, int lane, int warp,
+                                          bool write, int* s_list,
+                                          int* s_count) {
+  const unsigned below = (1u << lane) - 1u;
+  const unsigned same =
+      __match_any_sync(kFull, r.slot) & __ballot_sync(kFull, r.attempt);
+  const bool lead = r.attempt && (same & below) == 0;
+  const unsigned leads = __ballot_sync(kFull, lead);
+  if (write) {
+    const int n = __popc(leads);
+    const int pad = __shfl_sync(kFull, r.slot, leads ? __ffs(leads) - 1 : 0);
+    int* row = s_list + warp * kWarp;
+    if (lead) row[__popc(leads & below)] = r.slot;
+    if (lane >= n) row[lane] = pad;
+    if (lane == 0) s_count[warp] = n;
+  }
+  return lead;
+}
+
+// Whether any of the first n_warps warps' lists holds `slot`: per warp,
+// its count and eight 16-byte rows, all independent loads; a hit ends it.
+__device__ __forceinline__ bool listed(int slot, int n_warps,
+                                       const int* s_list,
+                                       const int* s_count) {
+  for (int w = 0; w < n_warps; ++w) {
+    const int4* row = reinterpret_cast<const int4*>(s_list + w * kWarp);
+    bool h = false;
+#pragma unroll
+    for (int q = 0; q < kWarp / 4; ++q) {
+      const int4 v = row[q];
+      h |= (v.x == slot) | (v.y == slot) | (v.z == slot) | (v.w == slot);
+    }
+    if (h && s_count[w] != 0) return true;
+  }
+  return false;
+}
+
+// K1 (kMulti) and K2, one thread per request of a chunk of 1024.  K1: CAS
+// 0 -> id where the request's bias lane is set, lowest attempting index
+// first per slot.  K2: the first request per slot (over all requests)
+// stores; unless unconditional only into a free slot; with check_rbias only
+// while *rbias != 0.
+template <bool kMulti, bool kHashed>
+__global__ void __launch_bounds__(kMaxRequests)
+lease_kernel(const LeaseArgs a) {
+  __shared__ __align__(16) int s_list[kMaxRequests];
+  __shared__ int s_count[kMaxWarps];
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  const int n_warps = blockDim.x / kWarp;   // 1 for a batch of <= 32
+  const bool conditional = kMulti || !a.unconditional;
+  // the hashed release stores 0 and grants nothing: which of two requests
+  // for one slot stores makes no difference, so it checks no collision
+  const bool any_order = kHashed && !conditional && a.granted == nullptr;
+
+  // the first trip: this thread's inputs and K2's scalar bias
+  Inputs in = load_inputs<kHashed>(a, tid);
+  const bool bias_ok = kMulti || !a.check_rbias || *a.rbias != 0;
+
+  for (int base = 0; base < a.m; base += kMaxRequests) {
+    const int i = base + tid;
+    const bool active = i < a.m;
+    if (base > 0) in = load_inputs<kHashed>(a, i);
+    const Lease r = resolve<kMulti, kHashed>(a, in, active);
+    // design (a): the occupancy read, issued here so that its trip overlaps
+    // the collision checks; a request that is not first ignores it
+    const bool reads =
+        r.attempt && conditional && in_table(r.slot, a.n_slots);
+    const int cur = reads ? a.table[r.slot] : 0;
+    bool first = r.attempt;
+    if (!any_order) {
+      // the chunks before this one (batches past 1024 requests only)
+      for (int b2 = 0; b2 < base; b2 += kMaxRequests) {
+        const Lease e = resolve<kMulti, kHashed>(
+            a, load_inputs<kHashed>(a, b2 + tid), true);
+        __syncthreads();   // the scans of the previous list are done
+        warp_list(e, lane, warp, true, s_list, s_count);
+        __syncthreads();
+        if (first) first = !listed(r.slot, n_warps, s_list, s_count);
+      }
+      // this chunk: the lanes below in this warp, then the warps before it
+      const bool multi = n_warps > 1;
+      if (multi && base > 0) __syncthreads();
+      first = warp_list(r, lane, warp, multi, s_list, s_count) && first;
+      if (multi) {
+        __syncthreads();
+        if (first) first = !listed(r.slot, warp, s_list, s_count);
+      }
+    }
+    // only a request first for its slot over the batch uses its occupancy
+    // (and only it stores there): every decision sees the table before the
+    // batch
+    bool win = first && bias_ok;
+    if (win && reads) win = cur == 0;
+    __syncwarp();   // this warp's occupancy reads before its first store
+    if (active) {
+      if (win && in_table(r.slot, a.n_slots)) a.table[r.slot] = r.id;
+      if (a.granted != nullptr) a.granted[i] = win;
+    }
+  }
+}
+
+#endif  // BRAVO_TABLE_PARENT
+
 // Sum of one int per thread over a CTA of kScanThreads threads.
 __device__ __forceinline__ int block_sum(int v) {
   __shared__ int s_warp[kScanThreads / 32];
@@ -363,6 +617,39 @@ inline int request_threads(int m) {
   return m < kMaxRequests ? ((m + 31) / 32) * 32 : kMaxRequests;
 }
 
+
+// The floors K1/K2 are timed against, one warp each: one global load and
+// one store a thread; two dependent loads (vals[idx[t]]) and a store.
+__global__ void __launch_bounds__(kWarp)
+load_floor_kernel(const int32_t* __restrict__ src, int32_t* __restrict__ out) {
+  out[threadIdx.x] = src[threadIdx.x];
+}
+
+__global__ void __launch_bounds__(kWarp)
+chain_floor_kernel(const int32_t* __restrict__ idx,
+                   const int32_t* __restrict__ vals,
+                   int32_t* __restrict__ out) {
+  out[threadIdx.x] = vals[idx[threadIdx.x]];
+}
+
+#if !BRAVO_TABLE_PARENT
+LeaseArgs lease_args(void* table, int n_slots, void* granted, int m) {
+  LeaseArgs a{};
+  a.table = static_cast<int32_t*>(table);
+  a.n_slots = n_slots;
+  a.granted = static_cast<bool*>(granted);
+  a.m = m;
+  return a;
+}
+
+template <bool kMulti, bool kHashed>
+int launch_lease(const LeaseArgs& a, void* stream) {
+  lease_kernel<kMulti, kHashed><<<1, request_threads(a.m), 0,
+                                  static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
+
 }  // namespace
 
 extern "C" {
@@ -374,6 +661,7 @@ const char* bravo_error_string(int err) {
 int bravo_publish_multi(void* table, int n_slots, const void* rbias,
                         int n_locks, const void* slots, const void* lock_idx,
                         const void* ids, void* granted, int m, void* stream) {
+#if BRAVO_TABLE_PARENT
   publish_multi_kernel<false>
       <<<1, request_threads(m), 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<int32_t*>(table), n_slots,
@@ -383,6 +671,16 @@ int bravo_publish_multi(void* table, int n_slots, const void* rbias,
           static_cast<const int32_t*>(ids), nullptr, 0,
           static_cast<bool*>(granted), m);
   return static_cast<int>(cudaGetLastError());
+#else
+  LeaseArgs a = lease_args(table, n_slots, granted, m);
+  a.rbias = static_cast<const int32_t*>(rbias);
+  a.n_locks = n_locks;
+  a.slots = static_cast<const int32_t*>(slots);
+  a.lock_idx = static_cast<const int32_t*>(lock_idx);
+  a.lidx_stride = 1;
+  a.ids = static_cast<const int32_t*>(ids);
+  return launch_lease<true, false>(a, stream);
+#endif
 }
 
 int bravo_acquire_hashed(void* table, int n_slots, const void* rbias,
@@ -390,6 +688,7 @@ int bravo_acquire_hashed(void* table, int n_slots, const void* rbias,
                          const void* lock_idx, int lidx_stride,
                          const void* reader_ids, void* granted, int m,
                          void* stream) {
+#if BRAVO_TABLE_PARENT
   publish_multi_kernel<true>
       <<<1, request_threads(m), 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<int32_t*>(table), n_slots,
@@ -398,11 +697,22 @@ int bravo_acquire_hashed(void* table, int n_slots, const void* rbias,
           static_cast<const int32_t*>(lock_idx), lidx_stride, nullptr,
           reader_ids, 0, static_cast<bool*>(granted), m);
   return static_cast<int>(cudaGetLastError());
+#else
+  LeaseArgs a = lease_args(table, n_slots, granted, m);
+  a.rbias = static_cast<const int32_t*>(rbias);
+  a.lock_vals = static_cast<const int32_t*>(lock_vals);
+  a.n_locks = n_locks;
+  a.lock_idx = static_cast<const int32_t*>(lock_idx);
+  a.lidx_stride = lidx_stride;
+  a.reader_ids = reader_ids;
+  return launch_lease<true, true>(a, stream);
+#endif
 }
 
 int bravo_publish(void* table, int n_slots, const void* rbias,
                   int check_rbias, int unconditional, const void* slots,
                   const void* ids, void* granted, int m, void* stream) {
+#if BRAVO_TABLE_PARENT
   publish_kernel<false>
       <<<1, request_threads(m), 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<int32_t*>(table), n_slots,
@@ -411,12 +721,22 @@ int bravo_publish(void* table, int n_slots, const void* rbias,
           static_cast<const int32_t*>(ids), nullptr, 0, nullptr, 0, nullptr,
           0, nullptr, static_cast<bool*>(granted), m);
   return static_cast<int>(cudaGetLastError());
+#else
+  LeaseArgs a = lease_args(table, n_slots, granted, m);
+  a.rbias = static_cast<const int32_t*>(rbias);
+  a.check_rbias = check_rbias;
+  a.unconditional = unconditional;
+  a.slots = static_cast<const int32_t*>(slots);
+  a.ids = static_cast<const int32_t*>(ids);
+  return launch_lease<false, false>(a, stream);
+#endif
 }
 
 int bravo_release_hashed(void* table, int n_slots, const void* lock_vals,
                          int n_locks, const void* lock_idx, int lidx_stride,
                          const void* reader_ids, int reader_wide,
                          const void* mask, int m, void* stream) {
+#if BRAVO_TABLE_PARENT
   publish_kernel<true>
       <<<1, request_threads(m), 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<int32_t*>(table), n_slots, nullptr, 0, 1, nullptr,
@@ -424,6 +744,18 @@ int bravo_release_hashed(void* table, int n_slots, const void* lock_vals,
           static_cast<const int32_t*>(lock_idx), lidx_stride, reader_ids,
           reader_wide, static_cast<const bool*>(mask), nullptr, m);
   return static_cast<int>(cudaGetLastError());
+#else
+  LeaseArgs a = lease_args(table, n_slots, nullptr, m);
+  a.unconditional = 1;
+  a.lock_vals = static_cast<const int32_t*>(lock_vals);
+  a.n_locks = n_locks;
+  a.lock_idx = static_cast<const int32_t*>(lock_idx);
+  a.lidx_stride = lidx_stride;
+  a.reader_ids = reader_ids;
+  a.reader_wide = reader_wide;
+  a.mask = static_cast<const bool*>(mask);
+  return launch_lease<false, true>(a, stream);
+#endif
 }
 
 int bravo_publish_hashed(void* table, int n_slots, const void* rbias,
@@ -431,6 +763,7 @@ int bravo_publish_hashed(void* table, int n_slots, const void* rbias,
                          const void* lock_idx, int lidx_stride,
                          const void* reader_ids, int reader_wide,
                          void* granted, int m, void* stream) {
+#if BRAVO_TABLE_PARENT
   publish_kernel<true>
       <<<1, request_threads(m), 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<int32_t*>(table), n_slots,
@@ -439,6 +772,18 @@ int bravo_publish_hashed(void* table, int n_slots, const void* rbias,
           static_cast<const int32_t*>(lock_idx), lidx_stride, reader_ids,
           reader_wide, nullptr, static_cast<bool*>(granted), m);
   return static_cast<int>(cudaGetLastError());
+#else
+  LeaseArgs a = lease_args(table, n_slots, granted, m);
+  a.rbias = static_cast<const int32_t*>(rbias);
+  a.check_rbias = 1;
+  a.lock_vals = static_cast<const int32_t*>(lock_vals);
+  a.n_locks = n_locks;
+  a.lock_idx = static_cast<const int32_t*>(lock_idx);
+  a.lidx_stride = lidx_stride;
+  a.reader_ids = reader_ids;
+  a.reader_wide = reader_wide;
+  return launch_lease<false, true>(a, stream);
+#endif
 }
 
 int bravo_poll(const void* table, int n_slots, int lock_id, void* count,
@@ -487,6 +832,20 @@ int bravo_publish_seq(const void* table, int n_slots, void* out,
 
 int bravo_empty(void* stream) {
   empty_kernel<<<1, kScanThreads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
+int bravo_load_floor(const void* src, void* out, void* stream) {
+  load_floor_kernel<<<1, kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(src), static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int bravo_chain_floor(const void* idx, const void* vals, void* out,
+                      void* stream) {
+  chain_floor_kernel<<<1, kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(idx), static_cast<const int32_t*>(vals),
+      static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,7 +15,10 @@ caller's table tensor IN PLACE and return that same tensor.  K10
 no alias and copied its table on every call: it returns a NEW table.
 
 K1/K2 run in one CTA and take a batch of any size, in chunks of 1024
-requests with the lowest index winning across chunks.
+requests with the lowest index winning across chunks.  ``parent_lib()``
+loads a build of the same source whose K1/K2 run the parent design, for
+timing only.  The ``_launch_*`` functions launch one entry point of a
+given build and count nothing.
 
 A wrapper given CPU tensors runs the plain version from ``ref`` (and copies
 its result into the table); given CUDA tensors it launches the kernel or
@@ -33,6 +36,7 @@ from . import _build
 from . import ref as R
 
 LANES = 128
+PARENT_DEFINES = ("BRAVO_TABLE_PARENT=1",)
 # K10 stages the table in one CTA's shared memory: 227 KiB less the 8 KiB
 # of its request chunk
 MAX_SEQ_SLOTS = (232448 - 8192) // 4
@@ -51,6 +55,8 @@ SIGNATURES = {
     "bravo_scan": [_P, _I, _I, _P, _P, _P],
     "bravo_publish_seq": [_P, _I, _P, _P, _P, _P, _I, _I, _P],
     "bravo_empty": [_P],
+    "bravo_load_floor": [_P, _P, _P],
+    "bravo_chain_floor": [_P, _P, _P, _P],
 }
 
 FUSED_PUBLISH_MULTI = _build.LaunchCounter("fused_publish_multi")   # K1
@@ -61,6 +67,12 @@ PUBLISH = _build.LaunchCounter("publish")                           # K10
 def table_lib() -> ctypes.CDLL:
     """The compiled ``table_kernels.cu`` (built at first use)."""
     return _build.load(SOURCE, SIGNATURES)
+
+
+def parent_lib() -> ctypes.CDLL:
+    """``table_kernels.cu`` built with ``PARENT_DEFINES``: its K1/K2 entry
+    points run the parent design (timing only)."""
+    return _build.load(SOURCE, SIGNATURES, PARENT_DEFINES)
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:
@@ -150,14 +162,19 @@ def fused_publish_multi(table2d: torch.Tensor, rbias_vec: torch.Tensor,
         return table2d, granted
     granted = torch.empty(m, dtype=torch.bool, device=table2d.device)
     if m:
-        lib = table_lib()
-        _build.check(lib, lib.bravo_publish_multi(
-            _build.ptr(table2d), table2d.numel(), _build.ptr(rbias_vec),
-            rbias_vec.shape[0], _build.ptr(slots), _build.ptr(lock_idx),
-            _build.ptr(ids), _build.ptr(granted), m,
-            _build.stream_ptr(table2d.device)), "fused_publish_multi")
+        _launch_publish_multi(table_lib(), table2d, rbias_vec, slots,
+                              lock_idx, ids, granted)
         FUSED_PUBLISH_MULTI.add()
     return table2d, granted
+
+
+def _launch_publish_multi(lib, table2d, rbias_vec, slots, lock_idx, ids,
+                          granted) -> None:
+    _build.check(lib, lib.bravo_publish_multi(
+        _build.ptr(table2d), table2d.numel(), _build.ptr(rbias_vec),
+        rbias_vec.shape[0], _build.ptr(slots), _build.ptr(lock_idx),
+        _build.ptr(ids), _build.ptr(granted), slots.shape[0],
+        _build.stream_ptr(table2d.device)), "fused_publish_multi")
 
 
 def acquire_hashed(table2d: torch.Tensor, rbias_vec: torch.Tensor,
@@ -182,14 +199,20 @@ def acquire_hashed(table2d: torch.Tensor, rbias_vec: torch.Tensor,
         return granted
     granted = torch.empty(m, dtype=torch.bool, device=table2d.device)
     if m:
-        lib = table_lib()
-        _build.check(lib, lib.bravo_acquire_hashed(
-            _build.ptr(table2d), n_slots, _build.ptr(rbias_vec),
-            _build.ptr(lock_vals), lock_vals.shape[0], _build.ptr(lock_idx),
-            stride, _build.ptr(reader_ids), _build.ptr(granted), m,
-            _build.stream_ptr(table2d.device)), "acquire_hashed")
+        _launch_acquire_hashed(table_lib(), table2d, rbias_vec, lock_vals,
+                               lock_idx, stride, reader_ids, granted)
         FUSED_PUBLISH_MULTI.add()
     return granted
+
+
+def _launch_acquire_hashed(lib, table2d, rbias_vec, lock_vals, lock_idx,
+                           stride, reader_ids, granted) -> None:
+    _build.check(lib, lib.bravo_acquire_hashed(
+        _build.ptr(table2d), table2d.numel(), _build.ptr(rbias_vec),
+        _build.ptr(lock_vals), lock_vals.shape[0], _build.ptr(lock_idx),
+        stride, _build.ptr(reader_ids), _build.ptr(granted),
+        reader_ids.shape[0], _build.stream_ptr(table2d.device)),
+        "acquire_hashed")
 
 
 def fused_publish(table2d: torch.Tensor, rbias: torch.Tensor,
@@ -212,14 +235,19 @@ def fused_publish(table2d: torch.Tensor, rbias: torch.Tensor,
         return table2d, granted
     granted = torch.empty(m, dtype=torch.bool, device=table2d.device)
     if m:
-        lib = table_lib()
-        _build.check(lib, lib.bravo_publish(
-            _build.ptr(table2d), table2d.numel(), _build.ptr(rbias),
-            int(check_rbias), int(unconditional), _build.ptr(slots),
-            _build.ptr(ids), _build.ptr(granted), m,
-            _build.stream_ptr(table2d.device)), "fused_publish")
+        _launch_publish(table_lib(), table2d, rbias, slots, ids, granted,
+                        unconditional=unconditional, check_rbias=check_rbias)
         FUSED_PUBLISH.add()
     return table2d, granted
+
+
+def _launch_publish(lib, table2d, rbias, slots, ids, granted, *,
+                    unconditional: bool, check_rbias: bool) -> None:
+    _build.check(lib, lib.bravo_publish(
+        _build.ptr(table2d), table2d.numel(), _build.ptr(rbias),
+        int(check_rbias), int(unconditional), _build.ptr(slots),
+        _build.ptr(ids), _build.ptr(granted), slots.shape[0],
+        _build.stream_ptr(table2d.device)), "fused_publish")
 
 
 def publish_hashed(table2d: torch.Tensor, rbias: torch.Tensor,
@@ -238,7 +266,7 @@ def publish_hashed(table2d: torch.Tensor, rbias: torch.Tensor,
     _check_pow2(n_slots)
     check_vec(rbias.reshape(-1), "rbias", 1)
     check_vec(lock_vals, "lock_vals")
-    wide = check_readers(reader_ids)
+    check_readers(reader_ids)
     stride, lanes = _lanes(lock_idx, table2d, m)
     if on_cpu(table2d, rbias, lock_vals, lanes, reader_ids):
         new, granted = R.publish_hashed_ref(table2d, rbias, lock_vals, lanes,
@@ -247,14 +275,20 @@ def publish_hashed(table2d: torch.Tensor, rbias: torch.Tensor,
         return granted
     granted = torch.empty(m, dtype=torch.bool, device=table2d.device)
     if m:
-        lib = table_lib()
-        _build.check(lib, lib.bravo_publish_hashed(
-            _build.ptr(table2d), n_slots, _build.ptr(rbias),
-            _build.ptr(lock_vals), lock_vals.shape[0], _build.ptr(lock_idx),
-            stride, _build.ptr(reader_ids), wide, _build.ptr(granted), m,
-            _build.stream_ptr(table2d.device)), "publish_hashed")
+        _launch_publish_hashed(table_lib(), table2d, rbias, lock_vals,
+                               lock_idx, stride, reader_ids, granted)
         FUSED_PUBLISH.add()
     return granted
+
+
+def _launch_publish_hashed(lib, table2d, rbias, lock_vals, lock_idx, stride,
+                           reader_ids, granted) -> None:
+    _build.check(lib, lib.bravo_publish_hashed(
+        _build.ptr(table2d), table2d.numel(), _build.ptr(rbias),
+        _build.ptr(lock_vals), lock_vals.shape[0], _build.ptr(lock_idx),
+        stride, _build.ptr(reader_ids), int(reader_ids.dtype == torch.int64),
+        _build.ptr(granted), reader_ids.shape[0],
+        _build.stream_ptr(table2d.device)), "publish_hashed")
 
 
 def release_hashed(table2d: torch.Tensor, lock_vals: torch.Tensor,
@@ -270,7 +304,7 @@ def release_hashed(table2d: torch.Tensor, lock_vals: torch.Tensor,
     n_slots = check_table(table2d)
     _check_pow2(n_slots)
     check_vec(lock_vals, "lock_vals")
-    wide = check_readers(reader_ids)
+    check_readers(reader_ids)
     stride, lanes = _lanes(lock_idx, table2d, m)
     ts = [table2d, lock_vals, lanes, reader_ids]
     if mask is not None:
@@ -281,14 +315,20 @@ def release_hashed(table2d: torch.Tensor, lock_vals: torch.Tensor,
                                            reader_ids, mask))
         return table2d
     if m:
-        lib = table_lib()
-        _build.check(lib, lib.bravo_release_hashed(
-            _build.ptr(table2d), n_slots, _build.ptr(lock_vals),
-            lock_vals.shape[0], _build.ptr(lock_idx), stride,
-            _build.ptr(reader_ids), wide, _build.ptr(mask), m,
-            _build.stream_ptr(table2d.device)), "release_hashed")
+        _launch_release_hashed(table_lib(), table2d, lock_vals, lock_idx,
+                               stride, reader_ids, mask)
         FUSED_PUBLISH.add()
     return table2d
+
+
+def _launch_release_hashed(lib, table2d, lock_vals, lock_idx, stride,
+                           reader_ids, mask) -> None:
+    _build.check(lib, lib.bravo_release_hashed(
+        _build.ptr(table2d), table2d.numel(), _build.ptr(lock_vals),
+        lock_vals.shape[0], _build.ptr(lock_idx), stride,
+        _build.ptr(reader_ids), int(reader_ids.dtype == torch.int64),
+        _build.ptr(mask), reader_ids.shape[0],
+        _build.stream_ptr(table2d.device)), "release_hashed")
 
 
 def publish(table2d: torch.Tensor, slots: torch.Tensor, ids: torch.Tensor, *,

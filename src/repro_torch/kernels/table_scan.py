@@ -14,7 +14,10 @@ the exact count, which the TPU kernel also returned exactly.
 CPU tensors take the plain versions in ``ref``; CUDA tensors launch the
 kernel or raise.  Each launch adds one to the kernel's counter.
 ``empty_launch`` launches a kernel that does nothing, the floor the table
-kernels are timed against; it ports no TPU kernel and counts nothing.
+kernels are timed against; ``load_floor_launch`` and ``chain_floor_launch``
+launch one warp that does one load and one store a thread, or two
+dependent loads and a store, the floors under K1/K2's round trips.  They
+port no TPU kernel and count nothing.
 """
 
 from __future__ import annotations
@@ -104,3 +107,36 @@ def empty_launch(device: torch.device) -> None:
     lib = table_lib()
     _build.check(lib, lib.bravo_empty(_build.stream_ptr(device)),
                  "empty_launch")
+
+
+FLOOR_THREADS = 32   # the load and chain floors run one warp
+
+
+def load_floor_launch(src: torch.Tensor, out: torch.Tensor) -> None:
+    """One warp: ``out[t] = src[t]`` for t < 32 (int32 CUDA tensors of at
+    least 32 entries), one global load and one store a thread."""
+    for t, name in ((src, "src"), (out, "out")):
+        check_vec(t, name)
+        if t.shape[0] < FLOOR_THREADS or t.device.type != "cuda":
+            raise ValueError(f"{name}: need an int32 CUDA vector of at "
+                             f"least {FLOOR_THREADS} entries")
+    lib = table_lib()
+    _build.check(lib, lib.bravo_load_floor(
+        _build.ptr(src), _build.ptr(out), _build.stream_ptr(src.device)),
+        "load_floor_launch")
+
+
+def chain_floor_launch(idx: torch.Tensor, vals: torch.Tensor,
+                       out: torch.Tensor) -> None:
+    """One warp: ``out[t] = vals[idx[t]]`` for t < 32, two dependent global
+    loads and a store a thread.  The caller's ``idx`` must index ``vals``
+    (the launch checks nothing on the card)."""
+    for t, name in ((idx, "idx"), (vals, "vals"), (out, "out")):
+        check_vec(t, name)
+        if t.shape[0] < FLOOR_THREADS or t.device.type != "cuda":
+            raise ValueError(f"{name}: need an int32 CUDA vector of at "
+                             f"least {FLOOR_THREADS} entries")
+    lib = table_lib()
+    _build.check(lib, lib.bravo_chain_floor(
+        _build.ptr(idx), _build.ptr(vals), _build.ptr(out),
+        _build.stream_ptr(idx.device)), "chain_floor_launch")
