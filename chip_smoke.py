@@ -16,10 +16,14 @@ non-zero exit and no result line:
 3. kernels: each table kernel (K1-K4) against its plain PyTorch version on
    the card, exact, at the 4096-slot table with M in {1, 4, 16, 256}, K in
    {1, 5, 128} and seeded sweeps with collisions, cleared bias lanes, -1
-   slots and occupied slots; the legacy table kernels K9 (the revocation
-   scan) and K10 (the sequential publish) the same way, exact, with K10's
-   sequential edge cases (duplicate unconditional stores, id 0, slots
-   outside the table, a table past 48 KiB); K1/K2 also at a batch of
+   slots and occupied slots; K3 also on tables of 1024 to 1,048,576 slots
+   and on an unaligned view, for locks in no slot, one, only the last and
+   every slot; the legacy table kernels K9 (the revocation scan) and K10
+   (the sequential publish) the same way, exact, with K10's sequential
+   edge cases (duplicate unconditional stores, id 0, slots outside the
+   table) and, in both modes, at M in ``SEQ_MS`` with collisions placed
+   across warps and chunks on tables of 1024 to 1,048,576 slots and on an
+   unaligned view, its input table unchanged; K1/K2 also at a batch of
    3000 (three chunks of 1024), at M in ``LEASE_MS`` (around a warp and a
    chunk), the single-lock K2 lease entries on 64-bit reader ids, and
    every K1/K2 entry on every K1/K2 build with collisions placed across
@@ -59,7 +63,11 @@ non-zero exit and no result line:
    release and the single-lock acquire) and the tick's acquire-release
    pair on the wrappers' build and the parent design in turns at the tick
    (4 requests over 5 lanes), at registry_bench's 128 over 32, at 1024
-   over 128 and at 3000 over 128 (``lease_designs``);
+   over 128 and at 3000 over 128 (``lease_designs``); K3 and K10 the same
+   way against their parent designs, K3 on 4096 and 65,536 slots, K10 in
+   both modes at 64, 1024 and 3000 requests on 4096 slots and at 64 on
+   65,536 and 1,048,576, where the parent refuses the table
+   (``poll_publish_designs``);
 3c. device_bravo: the port's device-BRAVO benchmark
    (``repro_torch.benchmarks.device_bravo``, batch 64, 100 iterations):
    the single-lock ``DeviceLeaseTable`` (K2 acquire and release, K3 drain
@@ -284,12 +292,23 @@ LEASE_LANES = (128, 129)
 # K1/K2 timed against the parent design: (batch, lanes) of the tick, of
 # registry_bench, of a chunk and of three chunks
 LEASE_SHAPES = ((4, 5), (128, 32), (1024, 128), (BIG_BATCH, 128))
+# K10 checked at batches around a warp and a chunk and at three chunks, with
+# collisions placed across warps and chunks (_seq_placed_case), and K3 and
+# K10 on tables of 1024, 4096, 65,536 and 1,048,576 slots (the parent K10
+# took at most 56,064)
+SEQ_MS = (1, 31, 32, 33, 64, 1023, 1024, 1025, BIG_BATCH)
+TABLE_ROWS = (8, 32, 512, 8192)
+# K3 and K10 timed against the parent designs: K3 on 4096 and 65,536 slots;
+# K10 (batch, rows) at the legacy pair's 64 requests on 4096 slots, at a
+# chunk and three chunks, and at 64 on the larger tables
+POLL_ROWS = (32, 512)
+SEQ_SHAPES = ((64, 32), (1024, 32), (BIG_BATCH, 32), (64, 512), (64, 8192))
 SOURCES = {"table": "src/repro_torch/csrc/table_kernels.cu",
            "paged": "src/repro_torch/csrc/paged_attn.cu"}
 # builds: (source, build-time switches), the switches those of
 # table_publish.PARENT_DEFINES and paged_attn.PARENT_DEFINES.  Timing only:
-# "table_parent" runs the parent K1/K2 design, "paged_parent" the parent
-# chunk design
+# "table_parent" runs the parent K1/K2, K3 and K10 designs, "paged_parent"
+# the parent chunk design
 BUILDS = {"table": (SOURCES["table"], ()),
           "table_parent": (SOURCES["table"], ("BRAVO_TABLE_PARENT=1",)),
           "paged": (SOURCES["paged"], ()),
@@ -464,6 +483,7 @@ def check_kernels(dev, seeds=range(8)) -> dict:
         # K3 and K4 on this seed's table, plus a full table
         c = _case(rng, 4, dev)
         full = torch.full((32, 128), 7, dtype=torch.int32, device=dev)
+        _check_poll_tables(rng, dev, agree)
         for table in (c["table"], full):
             for lock in (0, 1, 7, int(c["table"].max()), 10_000):
                 agree("revocation_poll", K.revocation_poll(table, lock),
@@ -480,7 +500,7 @@ def check_kernels(dev, seeds=range(8)) -> dict:
                 want_m, want_c = R.scan_ref(table, lock)
                 agree("revocation_scan", mask, want_m)
                 agree("revocation_scan", cnt, want_c)
-        _check_legacy_edges(rng, dev, agree)
+        _check_legacy_edges(rng, dev, agree, placed=seed < 2)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     return out
@@ -628,11 +648,78 @@ def _check_lease_placements(rng, dev, agree, out) -> None:
                                 f"{n_locks} lanes)")
 
 
-def _check_legacy_edges(rng, dev, agree) -> None:
+def _check_poll_tables(rng, dev, agree) -> None:
+    """K3 on tables of each of ``TABLE_ROWS``, for a lock that matches no
+    slot, one slot, only the last slot and every slot, on the table and on
+    a copy of it one element past 16-byte alignment (the scalar path)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import ref as R
+
+    for rows in TABLE_ROWS:
+        n = rows * 128
+        flat = rng.integers(1, 50, n).astype(np.int32)
+        flat[rng.integers(0, n - 1)] = 60          # one slot
+        flat[-1] = 61                              # only the last slot
+        tables = [(flat, (77, 60, 61)), (np.full(n, 7, np.int32), (7,))]
+        for values, locks in tables:
+            t = torch.from_numpy(values.reshape(rows, 128)).to(dev)
+            for table in (t, _unaligned(t)):
+                for lock in locks:
+                    agree("revocation_poll", K.revocation_poll(table, lock),
+                          R.poll_ref(table, lock))
+
+
+def _seq_placed_case(rng, m, rows):
+    """K10 operands as numpy arrays: a table of ``rows`` x 128 slots (~7%
+    occupied) and M requests (ids 0-999, a fifth of them 0) on a pool of
+    occupied and free slots, with these placed where M reaches them: two
+    nonzero ids for one free slot in one warp (4, 29), in different warps
+    (3, 40) and in different chunks (1000, 1030), three in three chunks
+    (10, 1500, 2500); id 0 before a nonzero id across warps (6, 45) and
+    across chunks (1020, 1028); a nonzero id before id 0 (8, 50); both on
+    an occupied slot (12, 60); slots -2, -1 and n_slots (14, 15, 16).
+    -> (table (rows, 128), slots, ids), int32."""
+    import numpy as np
+
+    n_slots = rows * 128
+    table = np.zeros(n_slots, np.int32)
+    occ = rng.choice(n_slots, n_slots // 14, replace=False)
+    table[occ] = rng.integers(1, 50, occ.size)
+    free = np.flatnonzero(table == 0)
+    pool = np.concatenate([occ[:8], rng.choice(n_slots, max(2, m // 2))])
+    slots = rng.choice(pool, m).astype(np.int32)
+    ids = rng.integers(1, 1000, m).astype(np.int32)
+    ids[rng.random(m) < 0.2] = 0
+    spots = rng.choice(free, 8, replace=False)
+    groups = (((4, 29), (5, 6)), ((3, 40), (7, 8)), ((1000, 1030), (9, 10)),
+              ((10, 1500, 2500), (11, 12, 13)), ((6, 45), (0, 14)),
+              ((1020, 1028), (0, 15)), ((8, 50), (16, 0)))
+    for (idx, vals), slot in zip(groups, spots):
+        for i, v in zip(idx, vals):
+            if i < m:
+                slots[i], ids[i] = slot, v
+    for i, v in ((12, 17), (60, 0)):
+        if i < m:
+            slots[i], ids[i] = occ[0], v
+    for i, slot in ((14, -2), (15, -1), (16, n_slots)):
+        if i < m:
+            slots[i] = slot
+    return table.reshape(rows, 128), slots, ids
+
+
+def _check_legacy_edges(rng, dev, agree, placed=False) -> None:
     """K9 on tables of 8 and 64 rows; K10's sequential cases on small
     slots (duplicate unconditional stores with different ids, id 0, slots
-    outside the table) and on a 128-row table (64 KiB of shared memory,
-    past the 48 KiB a block has without opting in)."""
+    outside the table) and on a 128-row table; with ``placed``, K10 in both
+    modes on ``_seq_placed_case`` at each M of ``SEQ_MS`` on tables of each
+    of ``TABLE_ROWS`` (up to 1,048,576 slots), and at M 64 and 1025 on a
+    table one element past 16-byte alignment (the scalar copy).  Each K10
+    case is exact against ``publish_seq_ref`` (run on the CPU for the
+    placed cases, where it loops in Python over up to 3000 requests) and
+    leaves its input table unchanged."""
     import numpy as np
     import torch
 
@@ -642,6 +729,17 @@ def _check_legacy_edges(rng, dev, agree) -> None:
 
     def dev_t(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def publish(table, slots, ids, host=False):
+        before = table.clone()
+        for unc in (False, True):
+            got = TP.publish(table, slots, ids, unconditional=unc)
+            args = [x.cpu() if host else x for x in (table, slots, ids)]
+            want = R.publish_seq_ref(*args, unconditional=unc)
+            agree("publish", got[0].to(want[0].device), want[0])
+            agree("publish", got[1].to(want[1].device), want[1])
+        if not torch.equal(table, before):
+            raise AssertionError("publish: the input table changed")
 
     for rows in (8, 64):
         table = dev_t(rng.integers(0, 4, (rows, 128)).astype(np.int32))
@@ -655,12 +753,15 @@ def _check_legacy_edges(rng, dev, agree) -> None:
         table.reshape(-1)[rng.choice(rows * 128, 9, replace=False)] = 4
         slots = rng.integers(-2, span + 2, 200).astype(np.int32)
         ids = rng.integers(0, 3, 200).astype(np.int32)
-        for unc in (False, True):
-            args = (dev_t(table), dev_t(slots), dev_t(ids))
-            got = TP.publish(*args, unconditional=unc)
-            want = R.publish_seq_ref(*args, unconditional=unc)
-            agree("publish", got[0], want[0])
-            agree("publish", got[1], want[1])
+        publish(dev_t(table), dev_t(slots), dev_t(ids))
+    if not placed:
+        return
+    for m in SEQ_MS:
+        for rows in TABLE_ROWS:
+            table, slots, ids = map(dev_t, _seq_placed_case(rng, m, rows))
+            publish(table, slots, ids, host=True)
+            if rows == 32 and m in (64, 1025):
+                publish(_unaligned(table), slots, ids, host=True)
 
 
 # ---------------------------------------------------------------------------
@@ -816,8 +917,9 @@ def _padding(q, cl, nl):
 
 
 def _unaligned(x):
-    """The same values at an address one element past 16-byte alignment:
-    the paged kernels then copy their rows element by element."""
+    """The same values at an address one element past 16-byte alignment
+    (a contiguous view at an odd storage offset): the paged kernels then
+    copy their rows element by element, K3 and K10 read 4-byte words."""
     import torch
 
     flat = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
@@ -1151,9 +1253,11 @@ def time_kernels(dev, batch: int, n_locks: int) -> dict:
     K9 (the revocation scan) reads the table and writes its int8 mask and
     the count; K10 (the legacy publish) at the legacy path's batch of 64
     reads the table and the request vectors and writes a new table and the
-    grants.  Both run one request or slot per thread in one CTA.  K10's
-    plain version loops over the requests in Python, a few launches each,
-    so its windows hold 10 calls instead of 100.
+    grants.  K9 runs one slot per thread in one CTA; K10 one request per
+    thread in each CTA of a grid that cuts the table's copy into one slice
+    a CTA (no table is staged in shared memory).  K10's plain version loops over the
+    requests in Python, a few launches each, so its windows hold 10 calls
+    instead of 100.
 
     ``launch_floor``: a kernel that does nothing, launched as the scans
     are and timed the same way; each table kernel's ``above_floor_us`` is
@@ -1263,9 +1367,9 @@ def time_lease_designs(dev) -> dict:
     """K1 (the registry's acquire), K2 as the release and K2 as the
     single-lock acquire (``publish_hashed``) at each (batch, lanes) of
     ``LEASE_SHAPES`` on the 4096-slot table, on the wrappers' build and the
-    parent K1/K2 design in turns (parent, kernel, kernel, parent, twice),
-    each reading timed as :func:`time_kernels` times (graph replay
-    of 100 calls, median of 11 windows).  As in :func:`time_kernels`, every
+    parent K1/K2 design in turns (:func:`_in_turns`), each reading timed as
+    :func:`time_kernels` times (graph replay of 100 calls, median of 11
+    windows).  As in :func:`time_kernels`, every
     slot these acquires ask for is taken after the first acquire, so they
     read and lose.  ``acquire_release`` times the tick's pair instead, per
     pair: a K1 acquire into slots the pair's release freed (so each request
@@ -1278,7 +1382,6 @@ def time_lease_designs(dev) -> dict:
     from repro_torch.kernels import table_publish as TP
 
     libs = {"parent": TP.parent_lib(), "kernel": TP.table_lib()}
-    order = ["parent", "kernel", "kernel", "parent"] * 2
     one = torch.ones((), dtype=torch.int32, device=dev)
     out = {}
     for batch, n_locks in LEASE_SHAPES:
@@ -1306,21 +1409,97 @@ def time_lease_designs(dev) -> dict:
             "publish_hashed": lambda lib: TP._launch_publish_hashed(
                 lib, table, one, vals, lidx, 1, rids, g),
             "acquire_release": pair}
-        rec = {}
-        for entry, launch in entries.items():
-            readings = {}
-            for build in order:
-                lib = libs[build]
-                readings.setdefault(build, []).append(
-                    _median_ms(lambda: launch(lib))["graph_ms"])
-            rec[entry] = {b: {"ms": sum(r) / len(r),
-                              "spread_ms": max(r) - min(r),
-                              "readings_ms": r}
-                          for b, r in readings.items()}
+        rec = {entry: _in_turns(libs, launch)
+               for entry, launch in entries.items()}
         if not torch.equal(free, before):
             raise AssertionError("acquire_release: the pair left the table "
                                  "changed")
         out[f"{batch}x{n_locks}"] = rec
+    return out
+
+
+def _in_turns(libs, launch) -> dict:
+    """``launch(lib)`` on each build of ``libs`` (parent first), once, then
+    timed in turns (parent, kernel, kernel, parent, twice), each reading
+    the graph-replay time of :func:`_median_ms`.  A build whose first
+    launch raises (the parent K10 past 56,064 slots) is recorded as
+    refused.  -> {build: {ms (mean of the readings), spread_ms (largest
+    less smallest), readings_ms} or {refused: message}}."""
+    import torch
+
+    rec, readings = {}, {}
+    for build, lib in libs.items():
+        try:
+            launch(lib)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            rec[build] = {"refused": str(e)}
+    names = [b for b in libs if b not in rec]
+    for build in (names + names[::-1]) * 2:
+        readings.setdefault(build, []).append(
+            _median_ms(lambda: launch(libs[build]))["graph_ms"])
+    rec.update({b: {"ms": sum(r) / len(r), "spread_ms": max(r) - min(r),
+                    "readings_ms": r} for b, r in readings.items()})
+    return rec
+
+
+def time_poll_publish_designs(dev) -> dict:
+    """K3 and K10 on the wrappers' build and the parent designs in turns
+    (:func:`_in_turns`), each reading timed as :func:`time_kernels` times
+    (graph replay of 100 calls, median of 11 windows).  K3 on tables of
+    each of ``POLL_ROWS`` (a lock held in ~2% of the slots); K10 in both
+    modes (``publish``, conditional, and ``clear``, unconditional, the
+    legacy pair's two launches) at each (batch, rows) of ``SEQ_SHAPES``,
+    into one preallocated output.  Before timing, each build's result on
+    the timed inputs is held exactly against the plain version.
+    -> {"poll": {slots: rec}, "publish": {"MxSLOTS": {mode: rec}}}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import table_publish as TP
+    from repro_torch.kernels import table_scan as TS
+
+    libs = {"parent": TP.parent_lib(), "kernel": TP.table_lib()}
+    rng = np.random.default_rng(0)
+    out = {"poll": {}, "publish": {}}
+    for rows in POLL_ROWS:
+        flat = rng.integers(1, 50, rows * 128).astype(np.int32)
+        table = torch.from_numpy(flat.reshape(rows, 128)).to(dev)
+        count = torch.empty((), dtype=torch.int32, device=dev)
+        for build, lib in libs.items():
+            TS._launch_poll(lib, table, 7, count)
+            if not torch.equal(count, R.poll_ref(table, 7)):
+                raise AssertionError(f"revocation_poll on the {build} build "
+                                     f"differs from its plain version")
+        out["poll"][str(rows * 128)] = _in_turns(
+            libs, lambda lib: TS._launch_poll(lib, table, 7, count))
+    for m, rows in SEQ_SHAPES:
+        table, slots, ids = (torch.from_numpy(x).to(dev)
+                             for x in _seq_placed_case(rng, m, rows))
+        new = torch.empty_like(table)
+        granted = torch.empty(m, dtype=torch.bool, device=dev)
+        rec = {}
+        for mode, unc in (("publish", False), ("clear", True)):
+            args = (table, slots, torch.zeros_like(ids) if unc else ids)
+            want = R.publish_seq_ref(*(x.cpu() for x in args),
+                                     unconditional=unc)
+
+            def launch(lib, args=args, unc=unc):
+                TP._launch_publish_seq(lib, args[0], new, *args[1:], granted,
+                                       unconditional=unc)
+
+            rec[mode] = _in_turns(libs, launch)
+            for build in rec[mode]:
+                if "refused" in rec[mode][build]:
+                    continue
+                launch(libs[build])
+                if not (torch.equal(new.cpu(), want[0])
+                        and torch.equal(granted.cpu(), want[1])):
+                    raise AssertionError(f"publish on the {build} build "
+                                         f"differs from its plain version "
+                                         f"({m} x {rows * 128})")
+        out["publish"][f"{m}x{rows * 128}"] = rec
     return out
 
 
@@ -2348,6 +2527,7 @@ def main(argv=None) -> int:
           "load_floor_ms": times["load_floor"]["ms"],
           "chain_floor_ms": times["chain_floor"]["ms"],
           "lease_designs": time_lease_designs(dev),
+          "poll_publish_designs": time_poll_publish_designs(dev),
           "bound_assumes": "32-byte sectors at the HBM rate, 3.35 TB/s; "
                            "K1-K4, K9, K10: integer operations at 67 "
                            "TOP/s; K5-K8 (bound_ms): operations at the "

@@ -64,9 +64,12 @@
 // memory by one bulk copy (cp.async.bulk on an mbarrier) at kernel entry
 // instead of each slot's occupancy gathered (slower than (a) at every shape
 // timed).
-// With -DBRAVO_TABLE_PARENT=1 the K1/K2 entry points run the parent design
-// instead (one thread per request, the trips in a row, each thread loading
-// its request twice, three __syncthreads a chunk), for timing only.
+// With -DBRAVO_TABLE_PARENT=1 the K1/K2, K3 and K10 entry points run the
+// parent designs instead, for timing only: K1/K2 one thread per request,
+// the trips in a row, each thread loading its request twice, three
+// __syncthreads a chunk; K3 1024 threads of 4-byte loads and a two-level
+// block sum; K10 the table staged in shared memory and walked in order by
+// one thread (it refuses a table past 56,064 slots, which does not fit).
 //
 // Other notes:
 // * The hashed entries fold the registry's splitmix64 slot hash and the
@@ -75,27 +78,60 @@
 // * A slot outside [0, n_slots) matches no table entry: it reads as free and
 //   stores nothing, like the TPU kernel's one-hot selectors.  The sign is
 //   tested before any division or indexing (-1 / 128 == 0 in C).
-// * K3/K4 are one 1024-thread CTA over the table with a block reduction.  K3
-//   returns the exact count, which meets the TPU kernel's contract (exact
-//   when zero, a lower bound >= 1 otherwise); the TPU version stopped early
-//   because its grid ran in order, which CTAs do not.  K4 keeps its K <= 128
+// * K3, the writer's drain poll, returns the exact count, which meets the
+//   TPU kernel's contract (exact when zero, a lower bound >= 1 otherwise);
+//   the TPU version stopped early because its grid ran in order, which CTAs
+//   do not.  What bounds it is one trip over the table and the reduction
+//   after it, not the bytes (16 KiB is ~5 ns of HBM time).  poll_kernel
+//   reads 16-byte groups of four slots, every load of a thread issued
+//   before any is compared (a compile-time count a thread that covers 4096
+//   slots in one trip, a loop beyond), sums with __reduce_add_sync and
+//   crosses warps through one barrier.  Three layouts were timed at 4096
+//   slots (PERF.md section 6): 8 warps of 4 loads a thread was fastest and
+//   ships; 32 warps of 1 (a larger CTA) came second; one warp of 32 loads
+//   (one scheduler issues every load and compare) was slowest.  Past 4096
+//   slots the launcher takes 32 warps of 1 load a trip, which ran fastest
+//   at 65,536 slots (8 warps loop four times as often there).  A table
+//   whose data pointer is not 16-byte aligned (a view at an odd storage
+//   offset) loads each group as four 4-byte loads.
+// * K4 is one 1024-thread CTA over the table that keeps its K <= 128
 //   counters in shared memory.
 // * The hashed K2 entries are the single-lock lease table's acquire
 //   (conditional, under the scalar bias, id = the lock value) and the
 //   release (unconditional, id 0, denied readers masked to slot -1).  They
 //   take 32-bit reader ids or 64-bit ones (host ids up to 2**64 - 1, hashed
 //   over all 64 bits as repro's host limbs are).
-// * K9 is K3 that also writes the int8 mask.  Its count is exact, as the
-//   TPU kernel's was: that one scanned every block in order.
-// * K10 keeps the TPU kernel's SEQUENTIAL semantics, which no parallel CAS
-//   race reproduces: an unconditional store to one slot twice keeps the
-//   LAST id, a conditional publish of id 0 leaves the slot free for a later
-//   request, and every decision sees the stores of the requests before it.
-//   So the CTA stages the table in shared memory (16 KiB at 4096 slots),
-//   one thread walks the requests in order there, and the CTA writes the
-//   whole table to a NEW output, as the TPU kernel copied its table block
-//   input to output on every call.  A slot outside [0, n_slots) reads as
-//   free and stores nothing, as in K1/K2.
+// * K9 is a 1024-thread CTA that writes the int8 mask and a block sum.  Its
+//   count is exact, as the TPU kernel's was: that one scanned every block
+//   in order.
+// * K10 keeps the TPU kernel's SEQUENTIAL semantics (its fori_loop over the
+//   requests), which no parallel CAS race reproduces, and writes a NEW
+//   table, as the TPU kernel copied its table block on every call.  Only
+//   requests for one slot depend on each other, and for a slot s with
+//   value t0 before the batch the loop's outcome has a closed form.
+//   Conditional: request i is granted iff t0 == 0 and no earlier request
+//   for s has a nonzero id (a publish of id 0 leaves the slot free), and s
+//   ends as t0, or the first nonzero id for s when t0 == 0.
+//   Unconditional: every request is granted and s ends as the LAST id for
+//   s.  A slot outside [0, n_slots) is granted and stores nothing, as in
+//   K1/K2.  So publish_seq_kernel resolves every request at once, like
+//   lease_kernel: in its first trip each thread loads its request and its
+//   16-byte groups of the table -> out copy, then gathers t0 from the INPUT
+//   table, which no store touches; __match_any_sync masked by a ballot
+//   gives the earlier nonzero (or later) requests for the slot within a
+//   warp, one list a warp and one barrier across warps, and chunks of 1024
+//   scan the earlier (or later) chunks' lists.  Exactly one request stores
+//   each slot that changes (the first nonzero id where t0 == 0, or the last
+//   request), and no decision reads `out`, so the one barrier that
+//   publishes the lists also orders the copy before those stores.  The
+//   copy is cut into slices, one a CTA (four 16-byte groups a thread):
+//   every CTA makes every decision, since they depend only on the requests
+//   and the input, and stores only those whose slot lies in its own slice,
+//   after its own barrier, so no store races the copy without a grid
+//   barrier; CTA 0 writes the grants.  What bounds it is two dependent
+//   trips (the request, then t0) and the barrier, not the bytes.  No table
+//   is staged, so K10 takes any table the other kernels take, and a large
+//   table's copy runs on as many SMs as it has slices.
 // * Two floors, one warp each, for timing K1/K2 against: load_floor (each
 //   thread one load and one store) and chain_floor (two dependent loads and
 //   a store, the least a gathered acquire can do).
@@ -115,12 +151,9 @@ namespace {
 constexpr int kMaxRequests = 1024;
 constexpr int kMaxLocks = 128;
 constexpr int kScanThreads = 1024;
-constexpr int kSeqChunk = 1024;   // K10 requests staged per pass
-// K10's dynamic shared memory (the staged table) beyond which the kernel
-// needs the opt-in attribute: 48 KiB per block less its static arrays
-constexpr size_t kSeqDefaultSmem = 48 * 1024 - 2 * kSeqChunk * sizeof(int);
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kSmallTable = 4096;   // slots: the table every caller uses
 
 // splitmix64 finalizer over (lock, reader), as repro.core.table.mix_hash:
 // the lock is a 32-bit value zero-extended to 64 bits, the reader a 64-bit
@@ -140,7 +173,19 @@ __device__ __forceinline__ bool in_table(int slot, int n_slots) {
   return slot >= 0 && slot < n_slots;
 }
 
-#if BRAVO_TABLE_PARENT   // the parent K1/K2 design, for timing only
+// Sum of one int per thread over a CTA of kScanThreads threads.
+__device__ __forceinline__ int block_sum(int v) {
+  __shared__ int s_warp[kScanThreads / 32];
+  v = __reduce_add_sync(0xffffffffu, v);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) s_warp[warp] = v;
+  __syncthreads();
+  v = threadIdx.x < kScanThreads / 32 ? s_warp[threadIdx.x] : 0;
+  if (warp == 0) v = __reduce_add_sync(0xffffffffu, v);
+  return v;  // valid in thread 0
+}
+
+#if BRAVO_TABLE_PARENT   // the parent K1/K2, K3 and K10 designs, timing only
 
 // Request i's lock lane, slot and published id.  Hashed mode derives slot
 // and id from lock_vals[lane] and reader_ids[i] (int32 bits of a uint32
@@ -304,7 +349,61 @@ publish_kernel(int32_t* __restrict__ table, int n_slots,
   }
 }
 
-#else  // the K1/K2 design for Hopper (see the note at the head)
+// K3: exact count of slots publishing lock_id.
+__global__ void __launch_bounds__(kScanThreads)
+poll_kernel(const int32_t* __restrict__ table, int n_slots, int32_t lock_id,
+            int32_t* __restrict__ count) {
+  int local = 0;
+  for (int s = threadIdx.x; s < n_slots; s += kScanThreads)
+    local += table[s] == lock_id;
+  const int total = block_sum(local);
+  if (threadIdx.x == 0) *count = total;
+}
+
+constexpr int kSeqChunk = 1024;   // K10 requests staged per pass
+// K10's dynamic shared memory (the staged table) beyond which the kernel
+// needs the opt-in attribute: 48 KiB per block less its static arrays; and
+// the most it can have, 227 KiB less the same
+constexpr size_t kSeqDefaultSmem = 48 * 1024 - 2 * kSeqChunk * sizeof(int);
+constexpr size_t kSeqMaxSmem = 232448 - 2 * kSeqChunk * sizeof(int);
+
+// K10: the requests in order, each `cur = t[slot]; ok = unconditional ||
+// cur == 0; if (ok) t[slot] = id; granted[i] = ok`, on a copy of the table
+// in shared memory, then the copy to `out`.
+__global__ void __launch_bounds__(kScanThreads)
+publish_seq_kernel(const int32_t* __restrict__ table, int n_slots,
+                   int32_t* __restrict__ out,
+                   const int32_t* __restrict__ slots,
+                   const int32_t* __restrict__ ids,
+                   bool* __restrict__ granted, int m, int unconditional) {
+  extern __shared__ int32_t s_table[];
+  __shared__ int s_slot[kSeqChunk];
+  __shared__ int s_id[kSeqChunk];
+  for (int s = threadIdx.x; s < n_slots; s += blockDim.x) s_table[s] = table[s];
+  for (int base = 0; base < m; base += kSeqChunk) {
+    const int n = min(kSeqChunk, m - base);
+    __syncthreads();  // the table is staged; the previous chunk is walked
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+      s_slot[j] = slots[base + j];
+      s_id[j] = ids[base + j];
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int j = 0; j < n; ++j) {
+        const int slot = s_slot[j];
+        const bool in = in_table(slot, n_slots);
+        const int cur = in ? s_table[slot] : 0;
+        const bool ok = unconditional || cur == 0;
+        if (ok && in) s_table[slot] = s_id[j];
+        granted[base + j] = ok;
+      }
+    }
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < n_slots; s += blockDim.x) out[s] = s_table[s];
+}
+
+#else  // the K1/K2, K3 and K10 designs for Hopper (see the note at the head)
 
 constexpr int kMaxWarps = kMaxRequests / kWarp;
 
@@ -405,10 +504,24 @@ __device__ __forceinline__ Lease resolve(const LeaseArgs& a,
   return r;
 }
 
+// The slots of this warp's lanes where `flag` is set, to the shared list:
+// row s_list[warp * 32, +32) holds the s_count[warp] slots, padded with the
+// first of them, so that a scan compares whole 16-byte rows.
+__device__ __forceinline__ void list_row(int slot, bool flag, int lane,
+                                         int warp, int* s_list,
+                                         int* s_count) {
+  const unsigned below = (1u << lane) - 1u;
+  const unsigned flags = __ballot_sync(kFull, flag);
+  const int n = __popc(flags);
+  const int pad = __shfl_sync(kFull, slot, flags ? __ffs(flags) - 1 : 0);
+  int* row = s_list + warp * kWarp;
+  if (flag) row[__popc(flags & below)] = slot;
+  if (lane >= n) row[lane] = pad;
+  if (lane == 0) s_count[warp] = n;
+}
+
 // This warp's attempting slots, each once (its lowest attempting lane),
-// to the shared list (when `write`): row s_list[warp * 32, +32) holds the
-// s_count[warp] slots, padded with the first of them, so that a scan
-// compares whole 16-byte rows.  -> whether this lane is the first
+// to the shared list (when `write`).  -> whether this lane is the first
 // attempting lane of its slot in the warp.
 __device__ __forceinline__ bool warp_list(const Lease& r, int lane, int warp,
                                           bool write, int* s_list,
@@ -417,24 +530,16 @@ __device__ __forceinline__ bool warp_list(const Lease& r, int lane, int warp,
   const unsigned same =
       __match_any_sync(kFull, r.slot) & __ballot_sync(kFull, r.attempt);
   const bool lead = r.attempt && (same & below) == 0;
-  const unsigned leads = __ballot_sync(kFull, lead);
-  if (write) {
-    const int n = __popc(leads);
-    const int pad = __shfl_sync(kFull, r.slot, leads ? __ffs(leads) - 1 : 0);
-    int* row = s_list + warp * kWarp;
-    if (lead) row[__popc(leads & below)] = r.slot;
-    if (lane >= n) row[lane] = pad;
-    if (lane == 0) s_count[warp] = n;
-  }
+  if (write) list_row(r.slot, lead, lane, warp, s_list, s_count);
   return lead;
 }
 
-// Whether any of the first n_warps warps' lists holds `slot`: per warp,
-// its count and eight 16-byte rows, all independent loads; a hit ends it.
-__device__ __forceinline__ bool listed(int slot, int n_warps,
+// Whether any list of the warps in [from, to) holds `slot`: per warp, its
+// count and eight 16-byte rows, all independent loads; a hit ends it.
+__device__ __forceinline__ bool listed(int slot, int from, int to,
                                        const int* s_list,
                                        const int* s_count) {
-  for (int w = 0; w < n_warps; ++w) {
+  for (int w = from; w < to; ++w) {
     const int4* row = reinterpret_cast<const int4*>(s_list + w * kWarp);
     bool h = false;
 #pragma unroll
@@ -487,7 +592,7 @@ lease_kernel(const LeaseArgs a) {
         __syncthreads();   // the scans of the previous list are done
         warp_list(e, lane, warp, true, s_list, s_count);
         __syncthreads();
-        if (first) first = !listed(r.slot, n_warps, s_list, s_count);
+        if (first) first = !listed(r.slot, 0, n_warps, s_list, s_count);
       }
       // this chunk: the lanes below in this warp, then the warps before it
       const bool multi = n_warps > 1;
@@ -495,7 +600,7 @@ lease_kernel(const LeaseArgs a) {
       first = warp_list(r, lane, warp, multi, s_list, s_count) && first;
       if (multi) {
         __syncthreads();
-        if (first) first = !listed(r.slot, warp, s_list, s_count);
+        if (first) first = !listed(r.slot, 0, warp, s_list, s_count);
       }
     }
     // only a request first for its slot over the batch uses its occupancy
@@ -511,30 +616,187 @@ lease_kernel(const LeaseArgs a) {
   }
 }
 
-#endif  // BRAVO_TABLE_PARENT
-
-// Sum of one int per thread over a CTA of kScanThreads threads.
-__device__ __forceinline__ int block_sum(int v) {
-  __shared__ int s_warp[kScanThreads / 32];
-  v = __reduce_add_sync(0xffffffffu, v);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) s_warp[warp] = v;
-  __syncthreads();
-  v = threadIdx.x < kScanThreads / 32 ? s_warp[threadIdx.x] : 0;
-  if (warp == 0) v = __reduce_add_sync(0xffffffffu, v);
-  return v;  // valid in thread 0
+// Group g of four slots (slots 4g .. 4g + 3): one 16-byte access (kVec), or
+// four 4-byte ones where the pointer is not 16-byte aligned.
+template <bool kVec>
+__device__ __forceinline__ int4 load_group(const int32_t* p, int g) {
+  if (kVec) return reinterpret_cast<const int4*>(p)[g];
+  return make_int4(p[4 * g], p[4 * g + 1], p[4 * g + 2], p[4 * g + 3]);
 }
 
-// K3: exact count of slots publishing lock_id.
-__global__ void __launch_bounds__(kScanThreads)
+template <bool kVec>
+__device__ __forceinline__ void store_group(int32_t* p, int g, int4 v) {
+  if (kVec) {
+    reinterpret_cast<int4*>(p)[g] = v;
+  } else {
+    p[4 * g] = v.x;
+    p[4 * g + 1] = v.y;
+    p[4 * g + 2] = v.z;
+    p[4 * g + 3] = v.w;
+  }
+}
+
+// K3: the exact count of slots equal to lock_id.  kWarps warps; each thread
+// loads kLoads groups of four slots a trip, all before it compares any.
+template <int kWarps, int kLoads, bool kVec>
+__global__ void __launch_bounds__(kWarps * kWarp)
 poll_kernel(const int32_t* __restrict__ table, int n_slots, int32_t lock_id,
             int32_t* __restrict__ count) {
+  constexpr int kThreads = kWarps * kWarp;
+  const int n_groups = n_slots / 4;   // tables are whole rows of 128 slots
+  const int miss = ~lock_id;           // matches nothing
   int local = 0;
-  for (int s = threadIdx.x; s < n_slots; s += kScanThreads)
-    local += table[s] == lock_id;
-  const int total = block_sum(local);
-  if (threadIdx.x == 0) *count = total;
+  for (int base = threadIdx.x; base < n_groups; base += kThreads * kLoads) {
+    int4 v[kLoads];
+#pragma unroll
+    for (int q = 0; q < kLoads; ++q) {
+      const int g = base + q * kThreads;
+      v[q] = g < n_groups ? load_group<kVec>(table, g)
+                          : make_int4(miss, miss, miss, miss);
+    }
+#pragma unroll
+    for (int q = 0; q < kLoads; ++q)
+      local += (v[q].x == lock_id) + (v[q].y == lock_id) +
+               (v[q].z == lock_id) + (v[q].w == lock_id);
+  }
+  local = __reduce_add_sync(kFull, local);
+  if constexpr (kWarps == 1) {
+    if (threadIdx.x == 0) *count = local;
+  } else {
+    __shared__ int s_warp[kWarps];
+    const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+    if (lane == 0) s_warp[warp] = local;
+    __syncthreads();
+    if (warp == 0) {
+      const int total =
+          __reduce_add_sync(kFull, lane < kWarps ? s_warp[lane] : 0);
+      if (lane == 0) *count = total;
+    }
+  }
 }
+
+// K10's copy of groups [g0, g1), out = table: kCopyGroups groups of four
+// slots a thread a trip, every load of a trip issued before its stores.
+// Each CTA copies one slice of kCopyGroups * blockDim.x groups in one trip.
+constexpr int kCopyGroups = 4;
+
+template <bool kVec>
+__device__ __forceinline__ void copy_table(const int32_t* __restrict__ table,
+                                           int32_t* __restrict__ out, int g0,
+                                           int g1) {
+  const int step = blockDim.x;
+  for (int base = g0 + threadIdx.x; base < g1; base += kCopyGroups * step) {
+    int4 v[kCopyGroups];
+#pragma unroll
+    for (int q = 0; q < kCopyGroups; ++q) {
+      const int g = base + q * step;
+      v[q] = g < g1 ? load_group<kVec>(table, g) : make_int4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int q = 0; q < kCopyGroups; ++q) {
+      const int g = base + q * step;
+      if (g < g1) store_group<kVec>(out, g, v[q]);
+    }
+  }
+}
+
+// Warps of a chunk of 32 * n_warps requests that hold any of the n left.
+__device__ __forceinline__ int warps_holding(int n, int n_warps) {
+  return min(n_warps, (n + kWarp - 1) / kWarp);
+}
+
+// K10: the TPU kernel's loop over the requests in order (`cur = t[slot];
+// ok = unconditional || cur == 0; if (ok) t[slot] = id; granted[i] = ok`),
+// resolved in parallel by its closed form (see the note at the head), into
+// a NEW table `out`.  One thread per request of a chunk of blockDim.x.
+// CTA b copies groups [b * slice, (b + 1) * slice) of the table, makes
+// every decision, and stores only those whose slot lies in its slice; CTA
+// 0 writes the grants.  The bound asks for one block of 1024 an SM, which
+// leaves each thread 64 registers: held to the 32 of two such blocks,
+// ptxas spilled the request's id to local memory in the first trip, and
+// that store waited for the load before the copy's loads issued.
+template <bool kVec>
+__global__ void __launch_bounds__(kMaxRequests, 1)
+publish_seq_kernel(const int32_t* __restrict__ table, int n_slots, int slice,
+                   int32_t* __restrict__ out,
+                   const int32_t* __restrict__ slots,
+                   const int32_t* __restrict__ ids,
+                   bool* __restrict__ granted, int m, int unconditional) {
+  __shared__ __align__(16) int s_list[kMaxRequests];
+  __shared__ int s_count[kMaxWarps];
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  const int chunk = blockDim.x, n_warps = chunk / kWarp;
+  const unsigned below = (1u << lane) - 1u;
+  const unsigned above = ~below & ~(1u << lane);
+  // the first trip: this thread's request (request 0's past the batch), and
+  // the copy's loads
+  int slot = 0, id = 0;
+  if (m > 0) {
+    slot = slots[tid < m ? tid : 0];
+    id = ids[tid < m ? tid : 0];
+  }
+  const int g0 = blockIdx.x * slice;
+  copy_table<kVec>(table, out, g0, min(n_slots / 4, g0 + slice));
+
+  for (int base = 0; base < m; base += chunk) {
+    const int i = base + tid;
+    const bool active = i < m;
+    if (base > 0) {
+      slot = slots[active ? i : 0];
+      id = ids[active ? i : 0];
+    }
+    const bool in = active && in_table(slot, n_slots);
+    // conditional: the slot's value before the batch, read from the input,
+    // which no store touches
+    const int t0 = !unconditional && in ? table[slot] : 0;
+    // the requests the others look for: conditional, the nonzero ids (the
+    // requests after one find its slot taken); unconditional, every request
+    // in the table (it overwrites the stores of the requests before it)
+    const bool lists = in && (unconditional || id != 0);
+    const unsigned same =
+        __match_any_sync(kFull, slot) & __ballot_sync(kFull, lists);
+    // none before it in the warp (conditional), none after it (unconditional)
+    bool decide = in && (same & (unconditional ? above : below)) == 0;
+    const bool lead = lists && decide;   // this warp's list entry for the slot
+    // the chunks before this one (conditional) or after it (unconditional)
+    const int lo = unconditional ? base + chunk : 0;
+    const int hi = unconditional ? m : base;
+    for (int b2 = lo; b2 < hi; b2 += chunk) {
+      const int j = b2 + tid;
+      const int sj = slots[j < m ? j : 0];
+      const int ij = ids[j < m ? j : 0];
+      const bool lj = j < m && in_table(sj, n_slots) &&
+                      (unconditional || ij != 0);
+      __syncthreads();   // the scans of the previous list are done
+      list_row(sj, lj, lane, warp, s_list, s_count);
+      __syncthreads();
+      if (decide)
+        decide = !listed(slot, 0, warps_holding(m - b2, n_warps), s_list,
+                         s_count);
+    }
+    // this chunk: the warps before this one (conditional), after it
+    // (unconditional)
+    if (base > 0 || lo < hi) __syncthreads();
+    list_row(slot, lead, lane, warp, s_list, s_count);
+    __syncthreads();   // the lists and, before the first stores, the copy
+    if (decide)
+      decide = unconditional
+                   ? !listed(slot, warp + 1, warps_holding(m - base, n_warps),
+                             s_list, s_count)
+                   : !listed(slot, 0, warp, s_list, s_count);
+    // decide: no request for the slot before this one has a nonzero id
+    // (conditional), or none comes after it (unconditional)
+    if (active) {
+      const bool mine = in && slot / 4 >= g0 && slot / 4 < g0 + slice;
+      if (mine && decide && (unconditional || (id != 0 && t0 == 0)))
+        out[slot] = id;
+      if (blockIdx.x == 0)
+        granted[i] = !in || unconditional || (decide && t0 == 0);
+    }
+  }
+}
+
+#endif  // BRAVO_TABLE_PARENT
 
 // K4: exact counts for k lock values in one pass over the table.
 __global__ void __launch_bounds__(kScanThreads)
@@ -569,42 +831,6 @@ scan_kernel(const int32_t* __restrict__ table, int n_slots, int32_t lock_id,
   }
   const int total = block_sum(local);
   if (threadIdx.x == 0) *count = total;
-}
-
-// K10: the requests in order, each `cur = t[slot]; ok = unconditional ||
-// cur == 0; if (ok) t[slot] = id; granted[i] = ok`, on a copy of the table
-// in shared memory, then the copy to `out`.
-__global__ void __launch_bounds__(kScanThreads)
-publish_seq_kernel(const int32_t* __restrict__ table, int n_slots,
-                   int32_t* __restrict__ out,
-                   const int32_t* __restrict__ slots,
-                   const int32_t* __restrict__ ids,
-                   bool* __restrict__ granted, int m, int unconditional) {
-  extern __shared__ int32_t s_table[];
-  __shared__ int s_slot[kSeqChunk];
-  __shared__ int s_id[kSeqChunk];
-  for (int s = threadIdx.x; s < n_slots; s += blockDim.x) s_table[s] = table[s];
-  for (int base = 0; base < m; base += kSeqChunk) {
-    const int n = min(kSeqChunk, m - base);
-    __syncthreads();  // the table is staged; the previous chunk is walked
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      s_slot[j] = slots[base + j];
-      s_id[j] = ids[base + j];
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int j = 0; j < n; ++j) {
-        const int slot = s_slot[j];
-        const bool in = in_table(slot, n_slots);
-        const int cur = in ? s_table[slot] : 0;
-        const bool ok = unconditional || cur == 0;
-        if (ok && in) s_table[slot] = s_id[j];
-        granted[base + j] = ok;
-      }
-    }
-  }
-  __syncthreads();
-  for (int s = threadIdx.x; s < n_slots; s += blockDim.x) out[s] = s_table[s];
 }
 
 // A kernel that does nothing, launched as the scans are (one CTA of
@@ -647,6 +873,39 @@ int launch_lease(const LeaseArgs& a, void* stream) {
   lease_kernel<kMulti, kHashed><<<1, request_threads(a.m), 0,
                                   static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <int kWarps, int kLoads>
+int launch_poll(const void* table, int n_slots, int lock_id, void* count,
+                cudaStream_t stream) {
+  const auto* t = static_cast<const int32_t*>(table);
+  auto* c = static_cast<int32_t*>(count);
+  if (aligned16(table))
+    poll_kernel<kWarps, kLoads, true>
+        <<<1, kWarps * kWarp, 0, stream>>>(t, n_slots, lock_id, c);
+  else
+    poll_kernel<kWarps, kLoads, false>
+        <<<1, kWarps * kWarp, 0, stream>>>(t, n_slots, lock_id, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10's launch: one thread per request of a chunk (at least a warp), and
+// the table cut into slices of kCopyGroups groups a thread, one a CTA.
+struct SeqGrid {
+  int threads, slice, blocks;
+};
+
+SeqGrid seq_grid(int m, int n_slots) {
+  SeqGrid g;
+  g.threads = m > kWarp ? request_threads(m) : kWarp;
+  g.slice = g.threads * kCopyGroups;
+  g.blocks = (n_slots / 4 + g.slice - 1) / g.slice;
+  if (g.blocks < 1) g.blocks = 1;
+  return g;
 }
 #endif
 
@@ -788,10 +1047,17 @@ int bravo_publish_hashed(void* table, int n_slots, const void* rbias,
 
 int bravo_poll(const void* table, int n_slots, int lock_id, void* count,
                void* stream) {
-  poll_kernel<<<1, kScanThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const auto s = static_cast<cudaStream_t>(stream);
+#if BRAVO_TABLE_PARENT
+  poll_kernel<<<1, kScanThreads, 0, s>>>(
       static_cast<const int32_t*>(table), n_slots, lock_id,
       static_cast<int32_t*>(count));
   return static_cast<int>(cudaGetLastError());
+#else
+  if (n_slots <= kSmallTable)
+    return launch_poll<8, 4>(table, n_slots, lock_id, count, s);
+  return launch_poll<32, 1>(table, n_slots, lock_id, count, s);
+#endif
 }
 
 int bravo_multi_poll(const void* table, int n_slots, const void* lock_ids,
@@ -814,19 +1080,33 @@ int bravo_scan(const void* table, int n_slots, int lock_id, void* mask,
 int bravo_publish_seq(const void* table, int n_slots, void* out,
                       const void* slots, const void* ids, void* granted,
                       int m, int unconditional, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* t = static_cast<const int32_t*>(table);
+  auto* o = static_cast<int32_t*>(out);
+  const auto* sl = static_cast<const int32_t*>(slots);
+  const auto* id = static_cast<const int32_t*>(ids);
+  auto* g = static_cast<bool*>(granted);
+#if BRAVO_TABLE_PARENT
   const size_t smem = static_cast<size_t>(n_slots) * sizeof(int32_t);
+  if (smem > kSeqMaxSmem)   // the staged table does not fit
+    return static_cast<int>(cudaErrorInvalidValue);
   if (smem > kSeqDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
         publish_seq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  publish_seq_kernel<<<1, kScanThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(table), n_slots,
-      static_cast<int32_t*>(out), static_cast<const int32_t*>(slots),
-      static_cast<const int32_t*>(ids), static_cast<bool*>(granted), m,
-      unconditional);
+  publish_seq_kernel<<<1, kScanThreads, smem, s>>>(t, n_slots, o, sl, id, g,
+                                                    m, unconditional);
+#else
+  const SeqGrid q = seq_grid(m, n_slots);
+  if (aligned16(table) && aligned16(out))
+    publish_seq_kernel<true><<<q.blocks, q.threads, 0, s>>>(
+        t, n_slots, q.slice, o, sl, id, g, m, unconditional);
+  else
+    publish_seq_kernel<false><<<q.blocks, q.threads, 0, s>>>(
+        t, n_slots, q.slice, o, sl, id, g, m, unconditional);
+#endif
   return static_cast<int>(cudaGetLastError());
 }
 

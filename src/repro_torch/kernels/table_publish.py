@@ -14,11 +14,11 @@ caller's table tensor IN PLACE and return that same tensor.  K10
 (``publish``, ``clear``) replaces the legacy ``_publish_kernel``, which had
 no alias and copied its table on every call: it returns a NEW table.
 
-K1/K2 run in one CTA and take a batch of any size, in chunks of 1024
-requests with the lowest index winning across chunks.  ``parent_lib()``
-loads a build of the same source whose K1/K2 run the parent design, for
-timing only.  The ``_launch_*`` functions launch one entry point of a
-given build and count nothing.
+K1/K2 run in one CTA and K10 in one CTA per slice of its table copy; each
+takes a batch of any size, in chunks of 1024 requests.  ``parent_lib()``
+loads a build of the same source whose K1/K2, K3 and K10 run the parent
+designs, for timing only.  The ``_launch_*`` functions launch one entry
+point of a given build and count nothing.
 
 A wrapper given CPU tensors runs the plain version from ``ref`` (and copies
 its result into the table); given CUDA tensors it launches the kernel or
@@ -37,9 +37,6 @@ from . import ref as R
 
 LANES = 128
 PARENT_DEFINES = ("BRAVO_TABLE_PARENT=1",)
-# K10 stages the table in one CTA's shared memory: 227 KiB less the 8 KiB
-# of its request chunk
-MAX_SEQ_SLOTS = (232448 - 8192) // 4
 SOURCE = "table_kernels.cu"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -70,8 +67,9 @@ def table_lib() -> ctypes.CDLL:
 
 
 def parent_lib() -> ctypes.CDLL:
-    """``table_kernels.cu`` built with ``PARENT_DEFINES``: its K1/K2 entry
-    points run the parent design (timing only)."""
+    """``table_kernels.cu`` built with ``PARENT_DEFINES``: its K1/K2, K3
+    and K10 entry points run the parent designs (timing only; the parent
+    K10 refuses a table past 56,064 slots)."""
     return _build.load(SOURCE, SIGNATURES, PARENT_DEFINES)
 
 
@@ -333,33 +331,37 @@ def _launch_release_hashed(lib, table2d, lock_vals, lock_idx, stride,
 
 def publish(table2d: torch.Tensor, slots: torch.Tensor, ids: torch.Tensor, *,
             unconditional: bool = False):
-    """K10: the requests one at a time, in order, on a copy of the table:
-    request ``i`` stores ``ids[i]`` if its slot is free (always, when
-    ``unconditional``) and is granted if it stored.  So a later request
-    sees every earlier store: duplicate unconditional stores keep the LAST
-    id, and a conditional publish of id 0 leaves its slot free.  A slot
-    outside the table reads as free and stores nothing.  -> (NEW table,
-    granted bool (M,)); the input table is not changed."""
+    """K10: the requests' outcome as if run one at a time, in order, on a
+    copy of the table: request ``i`` stores ``ids[i]`` if its slot is free
+    (always, when ``unconditional``) and is granted if it stored.  So a
+    later request sees every earlier store: duplicate unconditional stores
+    keep the LAST id, and a conditional publish of id 0 leaves its slot
+    free.  A slot outside the table reads as free and stores nothing.  The
+    kernel resolves every request at once from that closed form and takes
+    a table of any size.  -> (NEW table, granted bool (M,)); the input
+    table is not changed."""
     m = slots.shape[0]
-    n_slots = check_table(table2d)
+    check_table(table2d)
     check_vec(slots, "slots")
     check_vec(ids, "ids", m)
     if on_cpu(table2d, slots, ids):
         return R.publish_seq_ref(table2d, slots, ids,
                                  unconditional=unconditional)
-    if n_slots > MAX_SEQ_SLOTS:
-        raise ValueError(f"a table of {n_slots} slots does not fit one "
-                         f"CTA's shared memory; the kernel takes at most "
-                         f"{MAX_SEQ_SLOTS}")
     out = torch.empty_like(table2d)
     granted = torch.empty(m, dtype=torch.bool, device=table2d.device)
-    lib = table_lib()
-    _build.check(lib, lib.bravo_publish_seq(
-        _build.ptr(table2d), n_slots, _build.ptr(out), _build.ptr(slots),
-        _build.ptr(ids), _build.ptr(granted), m, int(unconditional),
-        _build.stream_ptr(table2d.device)), "publish")
+    _launch_publish_seq(table_lib(), table2d, out, slots, ids, granted,
+                        unconditional=unconditional)
     PUBLISH.add()
     return out, granted
+
+
+def _launch_publish_seq(lib, table2d, out, slots, ids, granted, *,
+                        unconditional: bool) -> None:
+    _build.check(lib, lib.bravo_publish_seq(
+        _build.ptr(table2d), table2d.numel(), _build.ptr(out),
+        _build.ptr(slots), _build.ptr(ids), _build.ptr(granted),
+        slots.shape[0], int(unconditional),
+        _build.stream_ptr(table2d.device)), "publish")
 
 
 def clear(table2d: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,9 @@ exact counts for up to 128 lock values in one pass.  K9
 the exact count, which the TPU kernel also returned exactly.
 
 CPU tensors take the plain versions in ``ref``; CUDA tensors launch the
-kernel or raise.  Each launch adds one to the kernel's counter.
+kernel or raise.  Each launch adds one to the kernel's counter;
+``_launch_poll`` launches K3 of a given build (``table_publish.parent_lib``
+for the parent design) and counts nothing.
 ``empty_launch`` launches a kernel that does nothing, the floor the table
 kernels are timed against; ``load_floor_launch`` and ``chain_floor_launch``
 launch one warp that does one load and one store a thread, or two
@@ -62,17 +64,20 @@ def revocation_poll(table2d: torch.Tensor, lock_id: int) -> torch.Tensor:
     """K3: -> 0-d int32 tensor on the table's device, the exact number of
     slots equal to ``lock_id`` (a host int: it travels as a kernel argument,
     so a poll uploads nothing)."""
-    n_slots = check_table(table2d)
+    check_table(table2d)
     lock_id = int(lock_id)
     if on_cpu(table2d):
         return R.poll_ref(table2d, lock_id)
     count = torch.empty((), dtype=torch.int32, device=table2d.device)
-    lib = table_lib()
-    _build.check(lib, lib.bravo_poll(
-        _build.ptr(table2d), n_slots, lock_id, _build.ptr(count),
-        _build.stream_ptr(table2d.device)), "revocation_poll")
+    _launch_poll(table_lib(), table2d, lock_id, count)
     REVOCATION_POLL.add()
     return count
+
+
+def _launch_poll(lib, table2d, lock_id: int, count) -> None:
+    _build.check(lib, lib.bravo_poll(
+        _build.ptr(table2d), table2d.numel(), lock_id, _build.ptr(count),
+        _build.stream_ptr(table2d.device)), "revocation_poll")
 
 
 def revocation_poll_multi(table2d: torch.Tensor,
