@@ -16,10 +16,14 @@ non-zero exit and no result line:
 3. kernels: each table kernel (K1-K4) against its plain PyTorch version on
    the card, exact, at the 4096-slot table with M in {1, 4, 16, 256}, K in
    {1, 5, 128} and seeded sweeps with collisions, cleared bias lanes, -1
-   slots and occupied slots; K3 also on tables of 1024 to 1,048,576 slots
-   and on an unaligned view, for locks in no slot, one, only the last and
-   every slot; the legacy table kernels K9 (the revocation scan) and K10
-   (the sequential publish) the same way, exact, with K10's sequential
+   slots and occupied slots; K3 and K9 also on tables of 1024 to 1,048,576
+   slots and on an unaligned view, for locks in no slot, one, only the
+   last, every slot and 0, -1, -2**31 and 2**31 - 1; K4 on the same
+   tables at K in ``MULTI_KS`` (1 to 1000, duplicates, those edge values
+   and values in no slot) and 5000, one CTA a value; ``held_multi`` of a
+   registry of 200 locks plus duplicates in one K4 launch (F4); the legacy
+   table kernels K9 (the revocation scan) and K10 (the sequential publish) the
+   same way, exact, with K10's sequential
    edge cases (duplicate unconditional stores, id 0, slots outside the
    table) and, in both modes, at M in ``SEQ_MS`` with collisions placed
    across warps and chunks on tables of 1024 to 1,048,576 slots and on an
@@ -67,7 +71,10 @@ non-zero exit and no result line:
    way against their parent designs, K3 on 4096 and 65,536 slots, K10 in
    both modes at 64, 1024 and 3000 requests on 4096 slots and at 64 on
    65,536 and 1,048,576, where the parent refuses the table
-   (``poll_publish_designs``);
+   (``poll_publish_designs``); K4 at ``MULTI_SHAPES`` (K 1-5000 on 4096
+   slots, K 5 and 1000 on 65,536) and K9 on 4096 and 65,536 slots against
+   the parents and K3 on the same table, in turns (``scan_designs``; the
+   parent K4 refuses K > 128);
 3c. device_bravo: the port's device-BRAVO benchmark
    (``repro_torch.benchmarks.device_bravo``, batch 64, 100 iterations):
    the single-lock ``DeviceLeaseTable`` (K2 acquire and release, K3 drain
@@ -303,6 +310,19 @@ TABLE_ROWS = (8, 32, 512, 8192)
 # chunk and three chunks, and at 64 on the larger tables
 POLL_ROWS = (32, 512)
 SEQ_SHAPES = ((64, 32), (1024, 32), (BIG_BATCH, 32), (64, 512), (64, 8192))
+# K4 (one CTA a lock value) checked at these numbers of lock values (up to
+# 1000, one value past the parent's 128, duplicates at 1000) on every table
+# of TABLE_ROWS, and at MULTI_BIG_K on those up to 65,536 slots.  Every
+# int32 is a lock value: EDGE_VALUES are in the tables and the lock vectors
+MULTI_KS = (1, 5, 8, 16, 128, 129, 1000)
+MULTI_BIG_K = 5000
+EDGE_VALUES = (0, -1, -2**31, 2**31 - 1)
+# K4 timed against the parent design: (slots, K) at the handler's 5, at
+# 1-16 and 128, at 1000 and 5000 (the parent refuses), and at 5 and 1000
+# on 65,536; K9 on SCAN_ROWS tables
+MULTI_SHAPES = ((4096, 1), (4096, 5), (4096, 8), (4096, 16), (4096, 128),
+                (4096, 1000), (4096, MULTI_BIG_K), (65536, 5), (65536, 1000))
+SCAN_ROWS = (32, 512)
 SOURCES = {"table": "src/repro_torch/csrc/table_kernels.cu",
            "paged": "src/repro_torch/csrc/paged_attn.cu"}
 # builds: (source, build-time switches), the switches those of
@@ -483,7 +503,7 @@ def check_kernels(dev, seeds=range(8)) -> dict:
         # K3 and K4 on this seed's table, plus a full table
         c = _case(rng, 4, dev)
         full = torch.full((32, 128), 7, dtype=torch.int32, device=dev)
-        _check_poll_tables(rng, dev, agree)
+        _check_poll_tables(rng, dev, agree, multi=seed < 2)
         for table in (c["table"], full):
             for lock in (0, 1, 7, int(c["table"].max()), 10_000):
                 agree("revocation_poll", K.revocation_poll(table, lock),
@@ -501,6 +521,7 @@ def check_kernels(dev, seeds=range(8)) -> dict:
                 agree("revocation_scan", mask, want_m)
                 agree("revocation_scan", cnt, want_c)
         _check_legacy_edges(rng, dev, agree, placed=seed < 2)
+    out["registry_held_multi"] = _check_registry_multi(dev, agree)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     return out
@@ -648,10 +669,53 @@ def _check_lease_placements(rng, dev, agree, out) -> None:
                                 f"{n_locks} lanes)")
 
 
-def _check_poll_tables(rng, dev, agree) -> None:
-    """K3 on tables of each of ``TABLE_ROWS``, for a lock that matches no
-    slot, one slot, only the last slot and every slot, on the table and on
-    a copy of it one element past 16-byte alignment (the scalar path)."""
+def _poll_tables(rng, rows):
+    """The tables K3, K4 and K9 are checked on, ``rows`` x 128 slots each,
+    as numpy arrays with the single locks K3 and K9 look for: values 1-49
+    with 60 in one slot and 61 only in the last (locks 77, in no slot, 60
+    and 61); every slot 7 (lock 7); and a table ~90% free holding every
+    value of ``EDGE_VALUES`` and values 1-49 (locks 0, -1, -2**31 and
+    2**31 - 1)."""
+    import numpy as np
+
+    n = rows * 128
+    flat = rng.integers(1, 50, n).astype(np.int32)
+    flat[rng.integers(0, n - 1)] = 60          # one slot
+    flat[-1] = 61                              # only the last slot
+    edges = np.zeros(n, np.int32)
+    used = rng.choice(n, n // 10, replace=False)
+    edges[used] = rng.choice(np.array([*EDGE_VALUES, *range(1, 50)],
+                                      np.int32), used.size)
+    edges[used[:len(EDGE_VALUES)]] = EDGE_VALUES
+    return [(flat, (77, 60, 61)), (np.full(n, 7, np.int32), (7,)),
+            (edges, EDGE_VALUES[1:] + (0,))]
+
+
+def _multi_locks(rng, k, values):
+    """K lock values for K4 over a table holding ``values``: drawn from
+    ``values``, ``EDGE_VALUES`` and values in no slot, the first entry
+    repeated last (a duplicate) from K = 2, each edge value among the
+    first four from K = 4.  -> int32 numpy vector."""
+    import numpy as np
+
+    absent = rng.integers(1000, 2**30, 16)
+    pool = np.unique(np.concatenate([values, EDGE_VALUES, absent]))
+    locks = rng.choice(pool, k).astype(np.int32)
+    if k >= 4:
+        locks[:4] = EDGE_VALUES
+    if k >= 2:
+        locks[-1] = locks[0]
+    return locks
+
+
+def _check_poll_tables(rng, dev, agree, multi=False) -> None:
+    """K3 and K9 on the tables of :func:`_poll_tables` for each of
+    ``TABLE_ROWS``, for a lock that matches no slot, one slot, only the
+    last slot, every slot and each edge value, on the table and on a copy
+    of it one element past 16-byte alignment (the scalar path).  With
+    ``multi``, K4 on the same tables at each K of ``MULTI_KS`` (and
+    ``MULTI_BIG_K`` up to 65,536 slots; :func:`_multi_locks`), through the
+    wrapper."""
     import numpy as np
     import torch
 
@@ -659,17 +723,57 @@ def _check_poll_tables(rng, dev, agree) -> None:
     from repro_torch.kernels import ref as R
 
     for rows in TABLE_ROWS:
-        n = rows * 128
-        flat = rng.integers(1, 50, n).astype(np.int32)
-        flat[rng.integers(0, n - 1)] = 60          # one slot
-        flat[-1] = 61                              # only the last slot
-        tables = [(flat, (77, 60, 61)), (np.full(n, 7, np.int32), (7,))]
-        for values, locks in tables:
+        for values, locks in _poll_tables(rng, rows):
             t = torch.from_numpy(values.reshape(rows, 128)).to(dev)
+            present = np.unique(values)
+            ks = MULTI_KS + ((MULTI_BIG_K,) if rows <= 512 else ())
+            lock_sets = [torch.from_numpy(_multi_locks(rng, k, present))
+                         .to(dev) for k in (ks if multi else ())]
             for table in (t, _unaligned(t)):
                 for lock in locks:
                     agree("revocation_poll", K.revocation_poll(table, lock),
                           R.poll_ref(table, lock))
+                    mask, cnt = K.revocation_scan(table, lock)
+                    want_m, want_c = R.scan_ref(table, lock)
+                    agree("revocation_scan", mask, want_m)
+                    agree("revocation_scan", cnt, want_c)
+                for ids in lock_sets:
+                    agree("revocation_poll_multi",
+                          K.revocation_poll_multi(table, ids),
+                          R.multi_count_ref(table, ids))
+
+
+def _check_registry_multi(dev, agree) -> dict:
+    """F4 at the registry: ``BravoRegistry(max_locks=200)`` with 200 locks,
+    every seventh held by 30 readers, and ``held_multi`` over all 200 plus
+    three duplicates, exact against ``multi_count_ref`` in one K4 launch.
+    -> {handles, launches, held}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.registry import BravoRegistry
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import table_scan as TS
+
+    rng = np.random.default_rng(21)
+    reg = BravoRegistry(max_locks=200, device=dev)
+    hs = [reg.alloc() for _ in range(200)]
+    for h in hs[::7]:
+        rids = rng.integers(0, 2**31 - 1, 30).astype(np.int32)
+        reg.acquire(h, torch.from_numpy(rids).to(dev))
+    handles = hs + [hs[0], hs[7], hs[199]]
+    before = TS.REVOCATION_POLL_MULTI.value
+    got = torch.from_numpy(reg.held_multi(handles))
+    launches = TS.REVOCATION_POLL_MULTI.value - before
+    want = R.multi_count_ref(reg.table, torch.tensor(
+        [h.lock_id for h in handles], dtype=torch.int32, device=dev))
+    agree("revocation_poll_multi", got, want.cpu())
+    held = int(want.sum())
+    expected = int(dev.type == "cuda")   # the CPU runs the plain version
+    if launches != expected or held == 0:
+        raise AssertionError(f"held_multi: {launches} K4 launches "
+                             f"({expected} expected), {held} slots held")
+    return {"handles": len(handles), "launches": launches, "held": held}
 
 
 def _seq_placed_case(rng, m, rows):
@@ -1253,7 +1357,8 @@ def time_kernels(dev, batch: int, n_locks: int) -> dict:
     K9 (the revocation scan) reads the table and writes its int8 mask and
     the count; K10 (the legacy publish) at the legacy path's batch of 64
     reads the table and the request vectors and writes a new table and the
-    grants.  K9 runs one slot per thread in one CTA; K10 one request per
+    grants.  K9 runs K3's layout and stores a mask word a thread a group
+    of four slots; K10 one request per
     thread in each CTA of a grid that cuts the table's copy into one slice
     a CTA (no table is staged in shared memory).  K10's plain version loops over the
     requests in Python, a few launches each, so its windows hold 10 calls
@@ -1421,9 +1526,12 @@ def time_lease_designs(dev) -> dict:
 def _in_turns(libs, launch) -> dict:
     """``launch(lib)`` on each build of ``libs`` (parent first), once, then
     timed in turns (parent, kernel, kernel, parent, twice), each reading
-    the graph-replay time of :func:`_median_ms`.  A build whose first
-    launch raises (the parent K10 past 56,064 slots) is recorded as
-    refused.  -> {build: {ms (mean of the readings), spread_ms (largest
+    the graph-replay time of :func:`_median_ms`.  The ``parent`` build
+    may refuse a launch (its K10 past 56,064 slots, its K4 past 128 lock
+    values): it is then recorded as refused.  Any other build's error
+    propagates.  ``libs`` may map names to
+    anything ``launch`` takes, e.g. to callables with ``launch`` calling
+    them.  -> {build: {ms (mean of the readings), spread_ms (largest
     less smallest), readings_ms} or {refused: message}}."""
     import torch
 
@@ -1433,6 +1541,8 @@ def _in_turns(libs, launch) -> dict:
             launch(lib)
             torch.cuda.synchronize()
         except RuntimeError as e:
+            if build != "parent":
+                raise
             rec[build] = {"refused": str(e)}
     names = [b for b in libs if b not in rec]
     for build in (names + names[::-1]) * 2:
@@ -1500,6 +1610,90 @@ def time_poll_publish_designs(dev) -> dict:
                                          f"differs from its plain version "
                                          f"({m} x {rows * 128})")
         out["publish"][f"{m}x{rows * 128}"] = rec
+    return out
+
+
+def _scan_case(rng, rows, k):
+    """A table of ``rows`` x 128 slots as a registry's holds it (~7% of
+    the slots hold one of 128 lock values) and K lock values to poll:
+    values held there, values in no slot, 0 (the free slots) and, past 128,
+    duplicates.  -> (table, locks) int32 numpy arrays."""
+    import numpy as np
+
+    n = rows * 128
+    vals = rng.integers(1, 2**31 - 1, 128).astype(np.int32)
+    table = np.zeros(n, np.int32)
+    held = rng.choice(n, n // 14, replace=False)
+    table[held] = rng.choice(vals, held.size)
+    pool = np.concatenate([vals, rng.integers(-2**31, 0, 128)])
+    locks = rng.choice(pool, k).astype(np.int32)
+    locks[0] = 0
+    return table.reshape(rows, 128), locks
+
+
+def time_scan_designs(dev) -> dict:
+    """K4 and K9 on the wrappers' build (``kernel``) and the parent designs
+    (``parent``) in turns (:func:`_in_turns`), each reading timed as
+    :func:`time_kernels` times (graph replay of 100 calls, median of 11
+    windows), with K3 on the same table (``poll``, the yardstick) in the
+    same turns.  K4 at each (slots, K) of ``MULTI_SHAPES`` on
+    :func:`_scan_case`'s tables; the parent refuses K > 128.  K9 on
+    tables of each of ``SCAN_ROWS`` (a lock held in ~2% of the slots).
+    Before timing, each build's result on the timed inputs is held exactly
+    against the plain version.  -> {"multi_poll": {"SLOTSxK": rec},
+    "scan": {slots: rec}}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import table_publish as TP
+    from repro_torch.kernels import table_scan as TS
+
+    parent, lib = TP.parent_lib(), TP.table_lib()
+    rng = np.random.default_rng(0)
+    out = {"multi_poll": {}, "scan": {}}
+
+    def exact(name, build, run, check):
+        try:
+            run()
+        except RuntimeError:   # the parent's refusal: _in_turns records it
+            if build != "parent":
+                raise
+            return
+        if not check():
+            raise AssertionError(f"{name} differs from its plain version")
+
+    for slots, k in MULTI_SHAPES:
+        table, locks = (torch.from_numpy(x).to(dev)
+                        for x in _scan_case(rng, slots // 128, k))
+        counts = torch.empty(k, dtype=torch.int32, device=dev)
+        count = torch.empty((), dtype=torch.int32, device=dev)
+        want = R.multi_count_ref(table, locks)
+        runs = {b: (lambda lb=lb: TS._launch_multi_poll(lb, table, locks,
+                                                        counts))
+                for b, lb in (("parent", parent), ("kernel", lib))}
+        for name, run in runs.items():
+            counts.fill_(-1)
+            exact(f"revocation_poll_multi ({name}, {slots} x {k})", name,
+                  run, lambda: torch.equal(counts, want))
+        lock0 = int(locks[0])
+        runs["poll"] = lambda: TS._launch_poll(lib, table, lock0, count)
+        out["multi_poll"][f"{slots}x{k}"] = _in_turns(runs, lambda r: r())
+    for rows in SCAN_ROWS:
+        flat = rng.integers(1, 50, rows * 128).astype(np.int32)
+        table = torch.from_numpy(flat.reshape(rows, 128)).to(dev)
+        mask = torch.empty(table.shape, dtype=torch.int8, device=dev)
+        count = torch.empty((), dtype=torch.int32, device=dev)
+        want_m, want_c = R.scan_ref(table, 7)
+        runs = {b: (lambda lb=lb: TS._launch_scan(lb, table, 7, mask, count))
+                for b, lb in (("parent", parent), ("kernel", lib))}
+        for name, run in runs.items():
+            mask.fill_(-1)
+            exact(f"revocation_scan ({name}, {rows * 128})", name, run,
+                  lambda: torch.equal(mask, want_m)
+                  and torch.equal(count, want_c))
+        runs["poll"] = lambda: TS._launch_poll(lib, table, 7, count)
+        out["scan"][str(rows * 128)] = _in_turns(runs, lambda r: r())
     return out
 
 
@@ -2528,6 +2722,7 @@ def main(argv=None) -> int:
           "chain_floor_ms": times["chain_floor"]["ms"],
           "lease_designs": time_lease_designs(dev),
           "poll_publish_designs": time_poll_publish_designs(dev),
+          "scan_designs": time_scan_designs(dev),
           "bound_assumes": "32-byte sectors at the HBM rate, 3.35 TB/s; "
                            "K1-K4, K9, K10: integer operations at 67 "
                            "TOP/s; K5-K8 (bound_ms): operations at the "

@@ -51,7 +51,7 @@ from .table import next_lock_id
 
 __all__ = ["BravoRegistry", "RegistryHandle", "MAX_LOCKS", "PARK_SLOTS"]
 
-MAX_LOCKS = 128   # bias lanes per registry (K4 polls up to 128 at once)
+MAX_LOCKS = 128   # bias lanes per registry by default (K4 polls any number)
 PARK_SLOTS = 16   # TWA-style waiting array: parking slots shared by lanes
 
 

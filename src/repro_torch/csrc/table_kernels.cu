@@ -20,8 +20,9 @@
 // What bounds them on this card: nothing in the arithmetic, and not the
 // bytes.  Each call moves at most the 16 KiB table plus a few hundred bytes
 // of request vectors, a few nanoseconds of HBM time at 3.35 TB/s.  So each
-// kernel is one CTA that holds all of its work: no grid-wide reduction, no
-// second pass, no atomics in device memory, one launch per call.
+// call is one launch with no grid-wide reduction, no second pass and no
+// atomics in device memory: one CTA, or (K4, K10) CTAs that each write
+// only their own outputs.
 //
 // K1/K2, the lease acquire and release, are bound by DEPENDENT ROUND TRIPS
 // to memory, not by bytes.  A request's lane (lock_idx[i]) gives its lock
@@ -64,12 +65,15 @@
 // memory by one bulk copy (cp.async.bulk on an mbarrier) at kernel entry
 // instead of each slot's occupancy gathered (slower than (a) at every shape
 // timed).
-// With -DBRAVO_TABLE_PARENT=1 the K1/K2, K3 and K10 entry points run the
-// parent designs instead, for timing only: K1/K2 one thread per request,
-// the trips in a row, each thread loading its request twice, three
-// __syncthreads a chunk; K3 1024 threads of 4-byte loads and a two-level
-// block sum; K10 the table staged in shared memory and walked in order by
-// one thread (it refuses a table past 56,064 slots, which does not fit).
+// With -DBRAVO_TABLE_PARENT=1 every entry point runs the parent design
+// instead, for timing only: K1/K2 one thread per request, the trips in a
+// row, each thread loading its request twice, three __syncthreads a chunk;
+// K3 and K9 1024 threads of 4-byte loads (K9 one byte store a slot) and a
+// two-level block sum; K4 the same CTA comparing every slot with each of
+// at most 128 lock values staged in shared memory, one shared atomicAdd a
+// match (it refuses more values, which would overrun its arrays); K10 the
+// table staged in shared memory and walked in order by one thread (it
+// refuses a table past 56,064 slots, which does not fit).
 //
 // Other notes:
 // * The hashed entries fold the registry's splitmix64 slot hash and the
@@ -94,16 +98,30 @@
 //   at 65,536 slots (8 warps loop four times as often there).  A table
 //   whose data pointer is not 16-byte aligned (a view at an odd storage
 //   offset) loads each group as four 4-byte loads.
-// * K4 is one 1024-thread CTA over the table that keeps its K <= 128
-//   counters in shared memory.
+// * K4, the exact hold counts of K lock values (any K >= 1, duplicates
+//   and every int32 value included; 0 counts the free slots), is bound as
+//   K3 is: a trip over the table and a reduction, not bytes.  In one CTA
+//   it is bound by instructions too, since each slot is compared with
+//   each value, so the values go to many SMs: K3's kernel in a grid of K
+//   CTAs, CTA j counting lock_ids[j] into counts[j] over the whole table,
+//   which is 16 KiB and stays in L2.  No atomics, no cross-CTA sum, one
+//   launch at any K.  PERF.md section 6 has what it beat: all the values
+//   in each thread's registers in one CTA (bound by one SM's instruction
+//   rate: ~0.18 us a value at 4096 slots); 2, 4 or 8 values a CTA (slower
+//   up to 256 values, ~0.1 us faster at 1000); a thread block cluster of 8
+//   CTAs that split the table and summed in distributed shared memory
+//   (~0.45 us of cluster overhead); and a hash of the values in shared
+//   memory, a CTA a chunk of 1024 values (slower up to 1000 values on 4096
+//   slots; faster only at K and table sizes no caller polls).
+// * K9, the int8 match mask and its exact count, is K3's kernel with the
+//   mask: each group of four slots stores its four mask bytes as one
+//   4-byte word (the mask comes from the wrapper's torch.empty, so it is
+//   aligned even where the table view is not), and the count sums as K3's.
 // * The hashed K2 entries are the single-lock lease table's acquire
 //   (conditional, under the scalar bias, id = the lock value) and the
 //   release (unconditional, id 0, denied readers masked to slot -1).  They
 //   take 32-bit reader ids or 64-bit ones (host ids up to 2**64 - 1, hashed
 //   over all 64 bits as repro's host limbs are).
-// * K9 is a 1024-thread CTA that writes the int8 mask and a block sum.  Its
-//   count is exact, as the TPU kernel's was: that one scanned every block
-//   in order.
 // * K10 keeps the TPU kernel's SEQUENTIAL semantics (its fori_loop over the
 //   requests), which no parallel CAS race reproduces, and writes a NEW
 //   table, as the TPU kernel copied its table block on every call.  Only
@@ -149,7 +167,6 @@
 namespace {
 
 constexpr int kMaxRequests = 1024;
-constexpr int kMaxLocks = 128;
 constexpr int kScanThreads = 1024;
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
@@ -173,6 +190,10 @@ __device__ __forceinline__ bool in_table(int slot, int n_slots) {
   return slot >= 0 && slot < n_slots;
 }
 
+#if BRAVO_TABLE_PARENT   // the parent designs of every entry, timing only
+
+constexpr int kMaxLocks = 128;   // the parent K4's shared arrays
+
 // Sum of one int per thread over a CTA of kScanThreads threads.
 __device__ __forceinline__ int block_sum(int v) {
   __shared__ int s_warp[kScanThreads / 32];
@@ -184,8 +205,6 @@ __device__ __forceinline__ int block_sum(int v) {
   if (warp == 0) v = __reduce_add_sync(0xffffffffu, v);
   return v;  // valid in thread 0
 }
-
-#if BRAVO_TABLE_PARENT   // the parent K1/K2, K3 and K10 designs, timing only
 
 // Request i's lock lane, slot and published id.  Hashed mode derives slot
 // and id from lock_vals[lane] and reader_ids[i] (int32 bits of a uint32
@@ -360,6 +379,41 @@ poll_kernel(const int32_t* __restrict__ table, int n_slots, int32_t lock_id,
   if (threadIdx.x == 0) *count = total;
 }
 
+// K4: exact counts for k lock values in one pass over the table.
+__global__ void __launch_bounds__(kScanThreads)
+multi_poll_kernel(const int32_t* __restrict__ table, int n_slots,
+                  const int32_t* __restrict__ lock_ids, int k,
+                  int32_t* __restrict__ counts) {
+  __shared__ int s_locks[kMaxLocks];
+  __shared__ int s_counts[kMaxLocks];
+  for (int t = threadIdx.x; t < k; t += kScanThreads) {
+    s_locks[t] = lock_ids[t];
+    s_counts[t] = 0;
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < n_slots; s += kScanThreads) {
+    const int v = table[s];
+    for (int j = 0; j < k; ++j)
+      if (s_locks[j] == v) atomicAdd(&s_counts[j], 1);
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < k; t += kScanThreads) counts[t] = s_counts[t];
+}
+
+// K9: int8 mask of the slots publishing lock_id, and their exact count.
+__global__ void __launch_bounds__(kScanThreads)
+scan_kernel(const int32_t* __restrict__ table, int n_slots, int32_t lock_id,
+            int8_t* __restrict__ mask, int32_t* __restrict__ count) {
+  int local = 0;
+  for (int s = threadIdx.x; s < n_slots; s += kScanThreads) {
+    const int hit = table[s] == lock_id;
+    mask[s] = static_cast<int8_t>(hit);
+    local += hit;
+  }
+  const int total = block_sum(local);
+  if (threadIdx.x == 0) *count = total;
+}
+
 constexpr int kSeqChunk = 1024;   // K10 requests staged per pass
 // K10's dynamic shared memory (the staged table) beyond which the kernel
 // needs the opt-in attribute: 48 KiB per block less its static arrays; and
@@ -403,7 +457,7 @@ publish_seq_kernel(const int32_t* __restrict__ table, int n_slots,
   for (int s = threadIdx.x; s < n_slots; s += blockDim.x) out[s] = s_table[s];
 }
 
-#else  // the K1/K2, K3 and K10 designs for Hopper (see the note at the head)
+#else  // the designs for Hopper (see the note at the head)
 
 constexpr int kMaxWarps = kMaxRequests / kWarp;
 
@@ -636,13 +690,22 @@ __device__ __forceinline__ void store_group(int32_t* p, int g, int4 v) {
   }
 }
 
-// K3: the exact count of slots equal to lock_id.  kWarps warps; each thread
-// loads kLoads groups of four slots a trip, all before it compares any.
-template <int kWarps, int kLoads, bool kVec>
+// What one poll_kernel CTA computes: K3's count of lock_id; K9's count
+// and match mask, one 4-byte word of four mask bytes a group (slot 4g + i
+// in byte i); or, K4, CTA j's count of lock_ids[j] into
+// count[j].
+enum class Poll { kCount, kMask, kMulti };
+
+// K3, K9 and K4: the exact count of slots equal to one lock
+// value.  kWarps warps; each thread loads kLoads groups of four slots a
+// trip, all before it compares any.
+template <int kWarps, int kLoads, bool kVec, Poll kMode>
 __global__ void __launch_bounds__(kWarps * kWarp)
 poll_kernel(const int32_t* __restrict__ table, int n_slots, int32_t lock_id,
+            const int32_t* __restrict__ lock_ids, uint32_t* __restrict__ mask,
             int32_t* __restrict__ count) {
   constexpr int kThreads = kWarps * kWarp;
+  if constexpr (kMode == Poll::kMulti) lock_id = lock_ids[blockIdx.x];
   const int n_groups = n_slots / 4;   // tables are whole rows of 128 slots
   const int miss = ~lock_id;           // matches nothing
   int local = 0;
@@ -655,23 +718,30 @@ poll_kernel(const int32_t* __restrict__ table, int n_slots, int32_t lock_id,
                           : make_int4(miss, miss, miss, miss);
     }
 #pragma unroll
-    for (int q = 0; q < kLoads; ++q)
-      local += (v[q].x == lock_id) + (v[q].y == lock_id) +
-               (v[q].z == lock_id) + (v[q].w == lock_id);
+    for (int q = 0; q < kLoads; ++q) {
+      if constexpr (kMode == Poll::kMask) {
+        const uint32_t hits = static_cast<uint32_t>(v[q].x == lock_id) |
+                              static_cast<uint32_t>(v[q].y == lock_id) << 8 |
+                              static_cast<uint32_t>(v[q].z == lock_id) << 16 |
+                              static_cast<uint32_t>(v[q].w == lock_id) << 24;
+        const int g = base + q * kThreads;
+        if (g < n_groups) mask[g] = hits;
+        local += __popc(hits);
+      } else {
+        local += (v[q].x == lock_id) + (v[q].y == lock_id) +
+                 (v[q].z == lock_id) + (v[q].w == lock_id);
+      }
+    }
   }
   local = __reduce_add_sync(kFull, local);
-  if constexpr (kWarps == 1) {
-    if (threadIdx.x == 0) *count = local;
-  } else {
-    __shared__ int s_warp[kWarps];
-    const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-    if (lane == 0) s_warp[warp] = local;
-    __syncthreads();
-    if (warp == 0) {
-      const int total =
-          __reduce_add_sync(kFull, lane < kWarps ? s_warp[lane] : 0);
-      if (lane == 0) *count = total;
-    }
+  __shared__ int s_warp[kWarps];
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  if (lane == 0) s_warp[warp] = local;
+  __syncthreads();
+  if (warp == 0) {
+    const int total =
+        __reduce_add_sync(kFull, lane < kWarps ? s_warp[lane] : 0);
+    if (lane == 0) count[kMode == Poll::kMulti ? blockIdx.x : 0] = total;
   }
 }
 
@@ -798,41 +868,6 @@ publish_seq_kernel(const int32_t* __restrict__ table, int n_slots, int slice,
 
 #endif  // BRAVO_TABLE_PARENT
 
-// K4: exact counts for k lock values in one pass over the table.
-__global__ void __launch_bounds__(kScanThreads)
-multi_poll_kernel(const int32_t* __restrict__ table, int n_slots,
-                  const int32_t* __restrict__ lock_ids, int k,
-                  int32_t* __restrict__ counts) {
-  __shared__ int s_locks[kMaxLocks];
-  __shared__ int s_counts[kMaxLocks];
-  for (int t = threadIdx.x; t < k; t += kScanThreads) {
-    s_locks[t] = lock_ids[t];
-    s_counts[t] = 0;
-  }
-  __syncthreads();
-  for (int s = threadIdx.x; s < n_slots; s += kScanThreads) {
-    const int v = table[s];
-    for (int j = 0; j < k; ++j)
-      if (s_locks[j] == v) atomicAdd(&s_counts[j], 1);
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < k; t += kScanThreads) counts[t] = s_counts[t];
-}
-
-// K9: int8 mask of the slots publishing lock_id, and their exact count.
-__global__ void __launch_bounds__(kScanThreads)
-scan_kernel(const int32_t* __restrict__ table, int n_slots, int32_t lock_id,
-            int8_t* __restrict__ mask, int32_t* __restrict__ count) {
-  int local = 0;
-  for (int s = threadIdx.x; s < n_slots; s += kScanThreads) {
-    const int hit = table[s] == lock_id;
-    mask[s] = static_cast<int8_t>(hit);
-    local += hit;
-  }
-  const int total = block_sum(local);
-  if (threadIdx.x == 0) *count = total;
-}
-
 // A kernel that does nothing, launched as the scans are (one CTA of
 // kScanThreads): its time in a graph replay is the floor under every table
 // kernel's, the cost of a launch with no work.
@@ -879,18 +914,35 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-template <int kWarps, int kLoads>
-int launch_poll(const void* table, int n_slots, int lock_id, void* count,
+// K3 and K9 in one CTA, K4 in `blocks` (one a lock value), of kWarps warps.
+template <int kWarps, int kLoads, Poll kMode>
+int launch_poll(const void* table, int n_slots, int lock_id,
+                const void* lock_ids, int blocks, void* mask, void* count,
                 cudaStream_t stream) {
   const auto* t = static_cast<const int32_t*>(table);
+  const auto* l = static_cast<const int32_t*>(lock_ids);
+  auto* m = static_cast<uint32_t*>(mask);
   auto* c = static_cast<int32_t*>(count);
+  constexpr int kThreads = kWarps * kWarp;
   if (aligned16(table))
-    poll_kernel<kWarps, kLoads, true>
-        <<<1, kWarps * kWarp, 0, stream>>>(t, n_slots, lock_id, c);
+    poll_kernel<kWarps, kLoads, true, kMode>
+        <<<blocks, kThreads, 0, stream>>>(t, n_slots, lock_id, l, m, c);
   else
-    poll_kernel<kWarps, kLoads, false>
-        <<<1, kWarps * kWarp, 0, stream>>>(t, n_slots, lock_id, c);
+    poll_kernel<kWarps, kLoads, false, kMode>
+        <<<blocks, kThreads, 0, stream>>>(t, n_slots, lock_id, l, m, c);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K3's layouts by table size: 8 warps of 4 loads a trip up to 4096 slots,
+// 32 of 1 past it.
+template <Poll kMode>
+int poll(const void* table, int n_slots, int lock_id, const void* lock_ids,
+         int blocks, void* mask, void* count, cudaStream_t stream) {
+  if (n_slots <= kSmallTable)
+    return launch_poll<8, 4, kMode>(table, n_slots, lock_id, lock_ids,
+                                    blocks, mask, count, stream);
+  return launch_poll<32, 1, kMode>(table, n_slots, lock_id, lock_ids, blocks,
+                                   mask, count, stream);
 }
 
 // K10's launch: one thread per request of a chunk (at least a warp), and
@@ -1054,27 +1106,43 @@ int bravo_poll(const void* table, int n_slots, int lock_id, void* count,
       static_cast<int32_t*>(count));
   return static_cast<int>(cudaGetLastError());
 #else
-  if (n_slots <= kSmallTable)
-    return launch_poll<8, 4>(table, n_slots, lock_id, count, s);
-  return launch_poll<32, 1>(table, n_slots, lock_id, count, s);
+  return poll<Poll::kCount>(table, n_slots, lock_id, nullptr, 1, nullptr,
+                            count, s);
 #endif
 }
 
 int bravo_multi_poll(const void* table, int n_slots, const void* lock_ids,
                      int k, void* counts, void* stream) {
-  multi_poll_kernel<<<1, kScanThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const auto s = static_cast<cudaStream_t>(stream);
+#if BRAVO_TABLE_PARENT
+  if (k > kMaxLocks)   // its shared arrays hold kMaxLocks values
+    return static_cast<int>(cudaErrorInvalidValue);
+  multi_poll_kernel<<<1, kScanThreads, 0, s>>>(
       static_cast<const int32_t*>(table), n_slots,
       static_cast<const int32_t*>(lock_ids), k,
       static_cast<int32_t*>(counts));
   return static_cast<int>(cudaGetLastError());
+#else
+  if (k <= 0) return static_cast<int>(cudaSuccess);
+  return poll<Poll::kMulti>(table, n_slots, 0, lock_ids, k, nullptr, counts,
+                            s);
+#endif
 }
 
 int bravo_scan(const void* table, int n_slots, int lock_id, void* mask,
                void* count, void* stream) {
-  scan_kernel<<<1, kScanThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const auto s = static_cast<cudaStream_t>(stream);
+#if BRAVO_TABLE_PARENT
+  scan_kernel<<<1, kScanThreads, 0, s>>>(
       static_cast<const int32_t*>(table), n_slots, lock_id,
       static_cast<int8_t*>(mask), static_cast<int32_t*>(count));
   return static_cast<int>(cudaGetLastError());
+#else
+  if (reinterpret_cast<uintptr_t>(mask) & 3)   // stored as 4-byte words
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  return poll<Poll::kMask>(table, n_slots, lock_id, nullptr, 1, mask, count,
+                           s);
+#endif
 }
 
 int bravo_publish_seq(const void* table, int n_slots, void* out,

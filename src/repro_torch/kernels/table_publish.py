@@ -16,7 +16,7 @@ no alias and copied its table on every call: it returns a NEW table.
 
 K1/K2 run in one CTA and K10 in one CTA per slice of its table copy; each
 takes a batch of any size, in chunks of 1024 requests.  ``parent_lib()``
-loads a build of the same source whose K1/K2, K3 and K10 run the parent
+loads a build of the same source whose table kernels run the parent
 designs, for timing only.  The ``_launch_*`` functions launch one entry
 point of a given build and count nothing.
 
@@ -67,9 +67,10 @@ def table_lib() -> ctypes.CDLL:
 
 
 def parent_lib() -> ctypes.CDLL:
-    """``table_kernels.cu`` built with ``PARENT_DEFINES``: its K1/K2, K3
+    """``table_kernels.cu`` built with ``PARENT_DEFINES``: its K1-K4, K9
     and K10 entry points run the parent designs (timing only; the parent
-    K10 refuses a table past 56,064 slots)."""
+    K4 refuses more than 128 lock values and K10 a table past 56,064
+    slots)."""
     return _build.load(SOURCE, SIGNATURES, PARENT_DEFINES)
 
 

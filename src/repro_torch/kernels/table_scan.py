@@ -7,14 +7,15 @@ stopped scanning at the first matching block, because its grid ran in order,
 and so returned only a lower bound once the count was non-zero.  Its
 contract (exact when zero, a lower bound >= 1 otherwise) is met by the exact
 count.  K4 (``revocation_poll_multi``) replaces ``_multi_poll_kernel``:
-exact counts for up to 128 lock values in one pass.  K9
-(``revocation_scan``) replaces ``_scan_kernel``: the int8 match mask and
-the exact count, which the TPU kernel also returned exactly.
+exact counts for any number of lock values (duplicates and every int32
+value included) in one launch.  K9 (``revocation_scan``) replaces
+``_scan_kernel``: the int8 match mask and the exact count, which the TPU
+kernel also returned exactly.
 
 CPU tensors take the plain versions in ``ref``; CUDA tensors launch the
-kernel or raise.  Each launch adds one to the kernel's counter;
-``_launch_poll`` launches K3 of a given build (``table_publish.parent_lib``
-for the parent design) and counts nothing.
+kernel or raise.  Each launch adds one to the kernel's counter; the
+``_launch_*`` functions launch K3, K4 or K9 of a given build
+(``table_publish.parent_lib`` for the parent designs) and count nothing.
 ``empty_launch`` launches a kernel that does nothing, the floor the table
 kernels are timed against; ``load_floor_launch`` and ``chain_floor_launch``
 launch one warp that does one load and one store a thread, or two
@@ -30,7 +31,6 @@ from . import _build
 from . import ref as R
 from .table_publish import check_table, check_vec, on_cpu, table_lib
 
-MAX_LOCKS = 128   # K4 keeps one shared-memory counter per lock value
 BLOCK_ROWS = 8    # the TPU kernels' row block: tables come in whole blocks
 
 REVOCATION_POLL = _build.LaunchCounter("revocation_poll")              # K3
@@ -42,7 +42,7 @@ def revocation_scan(table2d: torch.Tensor, lock_id: int):
     """K9: -> (int8 (rows, 128) mask of the slots equal to ``lock_id``,
     0-d int32 exact count), both on the table's device.  The table must
     hold whole blocks of 8 rows, as ``repro``'s ``_scan_call`` asserts."""
-    n_slots = check_table(table2d)
+    check_table(table2d)
     if table2d.shape[0] % BLOCK_ROWS:
         raise ValueError(f"table of {table2d.shape[0]} rows: the scan takes "
                          f"a multiple of {BLOCK_ROWS}")
@@ -51,13 +51,18 @@ def revocation_scan(table2d: torch.Tensor, lock_id: int):
         return R.scan_ref(table2d, lock_id)
     mask = torch.empty(table2d.shape, dtype=torch.int8, device=table2d.device)
     count = torch.empty((), dtype=torch.int32, device=table2d.device)
-    lib = table_lib()
-    _build.check(lib, lib.bravo_scan(
-        _build.ptr(table2d), n_slots, lock_id, _build.ptr(mask),
-        _build.ptr(count), _build.stream_ptr(table2d.device)),
-        "revocation_scan")
+    _launch_scan(table_lib(), table2d, lock_id, mask, count)
     REVOCATION_SCAN.add()
     return mask, count
+
+
+def _launch_scan(lib, table2d, lock_id: int, mask, count) -> None:
+    """K9 of build ``lib``; ``mask`` must be 4-byte aligned (a fresh
+    tensor is): the kernel stores it a word per four slots."""
+    _build.check(lib, lib.bravo_scan(
+        _build.ptr(table2d), table2d.numel(), lock_id, _build.ptr(mask),
+        _build.ptr(count), _build.stream_ptr(table2d.device)),
+        "revocation_scan")
 
 
 def revocation_poll(table2d: torch.Tensor, lock_id: int) -> torch.Tensor:
@@ -83,24 +88,27 @@ def _launch_poll(lib, table2d, lock_id: int, count) -> None:
 def revocation_poll_multi(table2d: torch.Tensor,
                           lock_ids: torch.Tensor) -> torch.Tensor:
     """K4: -> (K,) int32 exact hold counts, one per entry of the int32
-    ``lock_ids`` (K <= 128), in one pass over the table."""
-    n_slots = check_table(table2d)
+    ``lock_ids`` (any K; each duplicate gets its value's full count; 0
+    counts the free slots), in one launch.  K = 0 launches nothing."""
+    check_table(table2d)
     check_vec(lock_ids, "lock_ids")
-    k = lock_ids.shape[0]
     if on_cpu(table2d, lock_ids):
         return R.multi_count_ref(table2d, lock_ids)
-    if k > MAX_LOCKS:
-        raise ValueError(f"{k} lock values in one poll; the kernel takes at "
-                         f"most {MAX_LOCKS}")
-    counts = torch.empty(k, dtype=torch.int32, device=table2d.device)
-    if k:
-        lib = table_lib()
-        _build.check(lib, lib.bravo_multi_poll(
-            _build.ptr(table2d), n_slots, _build.ptr(lock_ids), k,
-            _build.ptr(counts), _build.stream_ptr(table2d.device)),
-            "revocation_poll_multi")
+    counts = torch.empty(lock_ids.shape[0], dtype=torch.int32,
+                         device=table2d.device)
+    if lock_ids.shape[0]:
+        _launch_multi_poll(table_lib(), table2d, lock_ids, counts)
         REVOCATION_POLL_MULTI.add()
     return counts
+
+
+def _launch_multi_poll(lib, table2d, lock_ids, counts) -> None:
+    """K4 of build ``lib`` (one CTA a lock value); the parent build refuses
+    K > 128."""
+    _build.check(lib, lib.bravo_multi_poll(
+        _build.ptr(table2d), table2d.numel(), _build.ptr(lock_ids),
+        lock_ids.shape[0], _build.ptr(counts),
+        _build.stream_ptr(table2d.device)), "revocation_poll_multi")
 
 
 def empty_launch(device: torch.device) -> None:
