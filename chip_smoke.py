@@ -112,17 +112,34 @@ non-zero exit and no result line:
    request with every page free and the table drained after ``stop()``;
    its K6 launches and the share of its tokens equal to the roomy run's
    are recorded;
+6a. the serving benchmark twins at full width, each with the reference's
+   gates and its repeated windows (``TWIN_WINDOWS``) reported as median,
+   least and largest: ``obs_bench`` (``repro_torch.benchmarks.obs``: the
+   emit site's cost, the tracing cost a decode step over untraced/traced
+   pairs in turns, an identity swap's Chrome timeline, the traced
+   registry pair under the sync gate), ``scheduler_bench`` (K5 at the
+   reference's shape, the scheduler engine against the dense loop, the
+   lease round trip and a paged decode step under the sync gate, the
+   handler engine and the admission sweep over ``max_slots`` 1-8),
+   ``prefill_bench`` (K6 against its plain version and the dense gather,
+   no dense KV buffer among the shapes K6's wrapper makes, the prefix
+   dedup sweep, K6 against the dense gather at three widths) and
+   ``quant_bench`` (int8 page economics at the smoke config and full
+   width, K7's error bounds, K5/K7 and K6/K8 timed in turns, the slo
+   trace's prefix-index collision rate); tokens, teacher-forced, within a
+   near-tie of the dense greedy loop's best;
 6b. slo: the port's closed-loop SLO benchmark
    (``repro_torch.benchmarks.slo``) at full width: the latency-feedback
    controller calibrated on the card, then the reference's smoke burst
    trace (2.5 s, 8 requests/s, bursts of 5x) replayed against a static
-   and a closed-loop scheduler engine of 8 slots; zero dropped requests,
+   and a closed-loop scheduler engine of 8 slots, three replays of each
+   in turns; zero dropped requests,
    at least one controller decision, a valid Chrome export with counter
    tracks, the sampled request's tokens the same in both replays and,
    teacher-forced, within a near-tie of the dense greedy loop's best at
    every step; the same request at float32 compute through the prefix
    cache equal to the dense loop at float32; the closed loop's p99 TTFT /
-   goodput band recorded;
+   goodput band on the medians of the replays recorded;
 6c. hotswap: the port's hot-swap benchmark
    (``repro_torch.benchmarks.hotswap``) at full width and the twin's full
    sizes: 8 identity swaps under 8 requests; the float32 parameters
@@ -136,8 +153,10 @@ non-zero exit and no result line:
 6d. faults: the seven-fault matrix (``repro_torch.ft.faults``) and its
    golden run on the full-width weights, every invariant true;
    ``corrupt_checkpoint`` links the hotswap phase's shards; the
-   checkpoint directory is deleted afterwards.  Each of 6b-6d counts its
-   launches alone and must launch K1, K2, K3, K5 and K6;
+   checkpoint directory is deleted afterwards.  Each of 6a-6d counts its
+   launches alone; ``obs_bench`` and 6b-6d must launch K1, K2, K3, K5 and
+   K6, ``scheduler_bench`` and ``prefill_bench`` K1, K2, K5 and K6,
+   ``quant_bench`` K5-K8;
 7. tokens: with one request per batch and no swap, the handler-mode
    engine's tokens equal the dense greedy loop through the port's decode
    step (``benchmarks.smoke.dense_reference``);
@@ -363,6 +382,14 @@ SCHED_PAGES = 4096
 CKPT_DIR = os.path.join(ROOT, ".chip_ckpt")
 WRITER_KERNELS = ["fused_publish_multi", "fused_publish", "revocation_poll",
                   "paged_attention", "paged_chunk_attention"]
+# the serving benchmark twins' phases (obs, scheduler, prefill, quant) at
+# full width: the kernels each must launch, and the repeated windows (obs:
+# untraced/traced pairs; scheduler: rounds of the admission sweep; prefill
+# and quant: timing readings in turns); slo: replays of each arm
+ENGINE_KERNELS = ["fused_publish_multi", "fused_publish", "paged_attention",
+                  "paged_chunk_attention"]
+TWIN_WINDOWS = {"obs": 5, "scheduler": 3, "prefill": 3, "quant": 3,
+                "slo": 3}
 # the eviction run: the same scheduler phase on a store so small that
 # decode growth evicts (a request needs up to 6 pages of 16; wave 1's six
 # need about 27); at 12-20 pages the port's CPU run of the smoke config
@@ -2525,12 +2552,13 @@ def scheduler_vs_greedy(cfg, params, dev, sched) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phases 6b-6d: the writer path under load and faults at full width
+# Phases 6a-6d: the serving benchmark twins, and the writer path under load
+# and faults, at full width
 # ---------------------------------------------------------------------------
 
 
-def _writer_phase(name, run, kernels=WRITER_KERNELS):
-    """Run one writer-path phase with the launch counts set to 0 just
+def _twin_phase(name, run, kernels=WRITER_KERNELS):
+    """Run one benchmark twin's phase with the launch counts set to 0 just
     before it and read just after; raises on any failed check of the
     benchmark twins (their ``[ok]`` lines go to stderr) and if a kernel of
     its path never ran."""
@@ -2554,6 +2582,67 @@ def _writer_phase(name, run, kernels=WRITER_KERNELS):
     return rec
 
 
+def obs_phase(cfg, params, dev) -> dict:
+    """The ``obs`` twin: the emit site's cost disabled and enabled; the
+    decode workload (6 requests of 8 tokens, 4 slots) untraced and traced
+    in ``TWIN_WINDOWS["obs"]`` pairs in turns, the tracing cost a step
+    under 2% of the median untraced decode p50 and the median of the
+    pairs' direct p50 deltas under 25%; an identity hot-swap mid-serve
+    whose Chrome export validates with every lifecycle complete; the
+    traced registry pair under the sync gate.  bf16 rounds the paged path
+    and the dense loop apart, so the traced and swapped runs' tokens must
+    equal the untraced run's, which stand, teacher-forced, within
+    ``BF16_VS_F32_REL`` of the dense loop's best."""
+    from repro_torch.benchmarks import obs as OBS
+
+    return _twin_phase("obs_bench", lambda: OBS.run(
+        cfg, params, dev, windows=TWIN_WINDOWS["obs"],
+        near_tie_rel=BF16_VS_F32_REL))
+
+
+def scheduler_bench_phase(cfg, params, dev) -> dict:
+    """The ``scheduler`` twin: K5 against its plain version (1e-5) and
+    dense attention at the reference's shape; the scheduler engine's
+    tokens, teacher-forced, within ``BF16_VS_F32_REL`` of the dense loop's
+    best, every page reclaimed; the lease round trip and one paged decode
+    step under the sync gate; the handler engine and ``max_slots`` 1, 2,
+    4, 8 in ``TWIN_WINDOWS["scheduler"]`` rounds (tokens/s, decode
+    p50/p99: median, least, largest)."""
+    from repro_torch.benchmarks import scheduler as SB
+
+    return _twin_phase("scheduler_bench", lambda: SB.run(
+        cfg, params, dev, windows=TWIN_WINDOWS["scheduler"],
+        near_tie_rel=BF16_VS_F32_REL), kernels=ENGINE_KERNELS)
+
+
+def prefill_bench_phase(cfg, params, dev) -> dict:
+    """The ``prefill`` twin: K6 against its plain version (1e-5) and the
+    dense gather; no dense KV buffer among the shapes K6's wrapper makes
+    (the plain version's dense gather found by the same recorder), the
+    rise of the peak allocation recorded; K6 under the sync gate; the
+    prefix dedup sweep (>= 2x fewer page allocations at 90% shared,
+    balanced refcounts); K6 against the dense gather at three widths in
+    ``TWIN_WINDOWS["prefill"]`` readings."""
+    from repro_torch.benchmarks import prefill as PB
+
+    return _twin_phase("prefill_bench", lambda: PB.run(
+        cfg, params, dev, windows=TWIN_WINDOWS["prefill"]),
+        kernels=ENGINE_KERNELS)
+
+
+def quant_bench_phase(cfg, params, dev) -> dict:
+    """The ``quant`` twin: int8 pages >= 2x smaller than bf16 at the smoke
+    config and full width; K7 against the quantized plain version (1e-5)
+    and the float32 one (0.05); K5/K7 and K6/K8 at the reference's shapes
+    in ``TWIN_WINDOWS["quant"]`` readings (CUDA events); the slo trace
+    through the prefix index, collision rate < 0.05."""
+    from repro_torch.benchmarks import quant as QB
+
+    return _twin_phase("quant_bench", lambda: QB.run(
+        cfg, params, dev, windows=TWIN_WINDOWS["quant"]),
+        kernels=PAGED_KERNELS + QUANT_KERNELS)
+
+
 def slo_phase(cfg, params, dev) -> dict:
     """The ``slo`` twin's calibrated static and closed-loop replays of the
     reference's smoke trace (2.5 s at 8 requests/s, bursts of 5x for 30%
@@ -2568,13 +2657,16 @@ def slo_phase(cfg, params, dev) -> dict:
     recorded).  The same request at float32 compute, its prompt pages
     from the prefix cache, must equal the dense loop at float32 compute;
     served alone without the prefix cache in bf16 it is recorded beside
-    the replays.  The closed loop's band (p99 TTFT within 10% of static,
-    or better goodput) is recorded, not gated."""
+    the replays.  Each arm is replayed ``TWIN_WINDOWS["slo"]`` times in
+    turns; the closed loop's band on the medians (p99 TTFT within 10% of
+    static, or within 50% with goodput no worse) is recorded, not gated:
+    it flips between cards even on the medians of three replays (ROADMAP
+    G1)."""
     from repro_torch.benchmarks import slo as SLO
 
-    return _writer_phase("slo", lambda: SLO.bench_closed_loop(
+    return _twin_phase("slo", lambda: SLO.bench_closed_loop(
         cfg, params, dev, smoke=True, gate_band=False,
-        near_tie_rel=BF16_VS_F32_REL))
+        near_tie_rel=BF16_VS_F32_REL, windows=TWIN_WINDOWS["slo"]))
 
 
 def hotswap_phase(cfg, params, dev) -> dict:
@@ -2591,7 +2683,7 @@ def hotswap_phase(cfg, params, dev) -> dict:
     within ``BF16_VS_F32_REL`` of the dense loop's best at every step."""
     from repro_torch.benchmarks import hotswap as HS
 
-    return _writer_phase("hotswap", lambda: HS.run(
+    return _twin_phase("hotswap", lambda: HS.run(
         cfg, params, dev, directory=CKPT_DIR, near_tie_rel=BF16_VS_F32_REL))
 
 
@@ -2611,7 +2703,7 @@ def faults_phase(cfg, params, dev) -> dict:
         if bad:
             raise AssertionError(f"faults: {bad} failed: {res}")
         return {"faults": res, "n": len(res)}
-    return _writer_phase("faults", run)
+    return _twin_phase("faults", run)
 
 
 def build_all() -> dict:
@@ -2764,6 +2856,15 @@ def main(argv=None) -> int:
                            n_pages=EVICT_PAGES)
     emit({"phase": "scheduler_evict", "card": card,
           **eviction_summary(esched, sched)})
+
+    emit({"phase": "obs_bench", "card": card,
+          **obs_phase(cfg, params, dev)})
+    emit({"phase": "scheduler_bench", "card": card,
+          **scheduler_bench_phase(cfg, params, dev)})
+    emit({"phase": "prefill_bench", "card": card,
+          **prefill_bench_phase(cfg, params, dev)})
+    emit({"phase": "quant_bench", "card": card,
+          **quant_bench_phase(cfg, params, dev)})
 
     emit({"phase": "slo", "card": card, **slo_phase(cfg, params, dev)})
     param_bytes = sum(x.numel() * x.element_size() for x in _leaves(params))

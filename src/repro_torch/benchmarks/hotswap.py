@@ -61,7 +61,7 @@ from ..ft.checkpoint import (CheckpointCorrupt, read_manifest,
 from ..ft.faults import corrupt_copy
 from ..serving.engine import EngineConfig, Request, ServingEngine
 from ..serving.scheduler import SchedulerConfig
-from .smoke import FAILURES, check, dense_reference, sync, teacher_forced
+from .smoke import FAILURES, check, dense_reference, hold_tokens, sync
 
 N_PAGES = 128
 
@@ -117,15 +117,15 @@ def _hold_tokens(cfg, params, dev, prompts, max_new, got,
                                    max_new)
     same = dropped == 0 and all(g == base[i % n]
                                 for i, g in enumerate(got))
-    tf = [teacher_forced(cfg, params, p, b, dev)
-          for p, b in zip(prompts, base)]
-    worst = max(t["max_deficit_rel"] for t in tf)
-    return {"ok": same and worst <= near_tie_rel,
+    held = hold_tokens(cfg, params, dev, prompts, base, max_new,
+                       near_tie_rel)
+    return {"ok": same and held["ok"],
             "oracle": f"no-swap engine, within {near_tie_rel} of the "
                       f"dense reference's best",
-            "tokens_exact": same and not any(t["flips"] for t in tf),
+            "tokens_exact": same and held["exact"],
             "equal_to_no_swap": same,
-            "flips": [t["flips"] for t in tf], "max_deficit_rel": worst}
+            "flips": held["flips"],
+            "max_deficit_rel": held["max_deficit_rel"]}
 
 
 # ---------------------------------------------------------------------------

@@ -27,14 +27,16 @@ Gates (each exits nonzero when lost):
   taken from the prefix cache, equals the dense loop at float32 compute;
 * the controller acted (>= 1 ``sched.ctrl_*`` decision event) and the
   closed loop held p99 TTFT no worse than static (band) or beat it on
-  goodput (``gate_band=False`` records the band without gating it);
+  goodput (``gate_band=False`` records the band without gating it); with
+  ``--windows N`` each arm is replayed N times in turns and the band reads
+  the medians;
 * the closed run's Chrome export validates, including the Perfetto
   counter tracks (``ph: "C"``) for watermark, active slots and p99;
 * the SLO report folds (per-tenant and per-class attainment) and the
   prefix-cache collision rate is recorded beside ``pages_saved``.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.slo [--smoke]
-        [--device cpu] [--out PATH]
+        [--device cpu] [--windows N] [--out PATH]
 
 Runs on the CUDA card unless ``--device cpu``, on the llama3.2-1b smoke
 config with parameters from seed 0; :func:`bench_closed_loop` takes any
@@ -66,7 +68,7 @@ from ..serving.engine import EngineConfig, Request, ServingEngine
 from ..serving.loadgen import (LoadgenConfig, fold_report, generate_trace,
                                replay)
 from ..serving.scheduler import ControllerConfig, SchedulerConfig
-from .smoke import (FAILURES, check, deficit_rel, dense_reference,
+from .smoke import (FAILURES, check, deficit_rel, dense_reference, spread,
                     teacher_forced)
 
 MAX_SLOTS = 8
@@ -223,18 +225,50 @@ def prefix_witness(cfg, params, dev, trace, tr, replayed) -> dict:
             "sharer_rid": None if sharer is None else sharer.rid}
 
 
+def _replay_record(run, arm: str, window: int, cc=None) -> dict:
+    """One replay's readings: p99 TTFT, goodput, wall and, for the closed
+    loop, its shrinks and which sensor stood over its target at each."""
+    rec = {"arm": arm, "window": window, **_summary(run, arm)}
+    if cc is not None:
+        ev = run["events"]
+        shrinks = [e for e in ev if e.cat == "sched"
+                   and e.name == "ctrl_shrink"]
+        rec["shrinks"] = len(shrinks)
+        rec["grows"] = sum(1 for e in ev if e.cat == "sched"
+                           and e.name == "ctrl_grow")
+        rec["shrinks_over_target"] = {
+            "step": sum(e.args["p99_step_us"] > cc.step_p99_target_ms * 1e3
+                        for e in shrinks),
+            "ttft": sum(e.args["p99_ttft_us"] > cc.ttft_p99_target_ms * 1e3
+                        for e in shrinks)}
+        rec["final_slot_cap"] = run["engine"].scheduler.stats().get(
+            "slot_cap")
+    return rec
+
+
+def band_held(sp99: float, cp99: float, sgp: float, cgp: float) -> bool:
+    """The reference's closed-loop claim: p99 TTFT within 10% of the
+    static replay's, or within 50% with goodput no worse."""
+    return (cp99 <= sp99 * 1.10) or (cp99 <= sp99 * 1.5 and cgp >= sgp)
+
+
 def bench_closed_loop(cfg, params, dev, smoke: bool, *,
                       gate_band: bool = True,
-                      near_tie_rel: float = None) -> dict:
+                      near_tie_rel: float = None,
+                      windows: int = 1) -> dict:
     """The calibrated static vs closed-loop replay of the seeded trace of
-    :func:`trace_config`.
+    :func:`trace_config`, ``windows`` replays of each arm in turns
+    (static, closed, static, closed, ...) on one calibration.  The band is
+    judged on the medians of the replays' p99 TTFT and goodput; each
+    replay's readings are recorded (``replays``), with the least and the
+    largest beside each median (``spread``).
 
     ``near_tie_rel``: where the paged engine and the dense loop round bf16
     differently (a full-width model computes a prompt's K/V in chunks on
     one side and token by token on the other), a greedy step whose top
     two logits lie closer than the rounding can flip, and the flipped
     token changes the rest of its request.  The sampled requests' tokens
-    are then held to the same tokens in both replays exactly, and, by
+    are then held to the same tokens in every replay exactly, and, by
     teacher forcing (the dense loop fed the engine's tokens), at every
     step to within ``near_tie_rel * max |logit|`` of the dense step's
     best logit.  None holds them to the dense reference exactly.  Either
@@ -261,8 +295,15 @@ def bench_closed_loop(cfg, params, dev, smoke: bool, *,
     check(len(trace.requests) >= 8,
           f"trace has enough load ({len(trace.requests)} requests)")
 
-    static = _run(cfg, params, dev, trace, None, label="static")
-    closed = _run(cfg, params, dev, trace, cc, label="closed_loop")
+    statics, closeds = [], []
+    for _ in range(windows):
+        statics.append(_run(cfg, params, dev, trace, None, label="static"))
+        closeds.append(_run(cfg, params, dev, trace, cc,
+                            label="closed_loop"))
+    replays = []
+    for w, (st, cl) in enumerate(zip(statics, closeds)):
+        replays += [_replay_record(st, "static", w),
+                    _replay_record(cl, "closed_loop", w, cc)]
 
     # --- tokens against the dense (non-paged) reference ----------------
     n_ref = 1 if smoke else 2
@@ -274,54 +315,69 @@ def bench_closed_loop(cfg, params, dev, smoke: bool, *,
         want = dense_reference(cfg, params, tr.prompt, tr.max_new, dev,
                                logits=logits)
         outs = {}
-        for run, label in ((static, "static"), (closed, "closed_loop")):
-            got = outs[label] = list(map(
-                int, run["reqs"][trace.requests.index(tr)].out))
-            rec = _versus_dense(got, want, logits)
-            rec["teacher_forced"] = teacher_forced(cfg, params, tr.prompt,
-                                                   got, dev)
-            if near_tie_rel is None:
-                check(got == want,
-                      f"{label}: rid {tr.rid} tokens == dense reference")
-            else:
-                worst = rec["teacher_forced"]["max_deficit_rel"]
-                check(worst <= near_tie_rel,
-                      f"{label}: rid {tr.rid} tokens, teacher-forced, "
-                      f"within a near-tie of the dense reference's best at "
-                      f"every step (worst {worst:.4f} of the largest "
-                      f"logit, limit {near_tie_rel})")
-            sampled.append({"rid": tr.rid, "run": label, **rec})
-        if near_tie_rel is not None:
-            check(outs["static"] == outs["closed_loop"],
-                  f"rid {tr.rid}: static tokens == closed-loop tokens")
+        forced = {}                     # teacher forcing once per token list
+        for w in range(windows):
+            for run, label in ((statics[w], "static"),
+                               (closeds[w], "closed_loop")):
+                got = list(map(
+                    int, run["reqs"][trace.requests.index(tr)].out))
+                outs.setdefault(label, got)
+                rec = _versus_dense(got, want, logits)
+                key = tuple(got)
+                if key not in forced:
+                    forced[key] = teacher_forced(cfg, params, tr.prompt,
+                                                 got, dev)
+                rec["teacher_forced"] = forced[key]
+                if near_tie_rel is None:
+                    check(got == want,
+                          f"{label}: rid {tr.rid} tokens == dense "
+                          f"reference")
+                else:
+                    worst = rec["teacher_forced"]["max_deficit_rel"]
+                    check(worst <= near_tie_rel,
+                          f"{label}: rid {tr.rid} tokens, teacher-forced, "
+                          f"within a near-tie of the dense reference's "
+                          f"best at every step (worst {worst:.4f} of the "
+                          f"largest logit, limit {near_tie_rel})")
+                    check(got == outs["static"],
+                          f"rid {tr.rid}: {label} tokens (window {w}) == "
+                          f"the first static replay's")
+                sampled.append({"rid": tr.rid, "run": label, "window": w,
+                                **rec})
         if witness is None:
             witness = {"rid": tr.rid, **prefix_witness(
                 cfg, params, dev, trace, tr, outs["static"])}
 
     # --- controller activity + chrome export ---------------------------
-    ev = closed["events"]
-    decisions = [e for e in ev if e.cat == "sched"
-                 and e.name in ("ctrl_shrink", "ctrl_grow")]
-    states = [e for e in ev if e.cat == "sched" and e.name == "ctrl_state"]
-    trace_json = to_chrome(ev)
-    errors = validate(trace_json)
-    counters = [r for r in trace_json["traceEvents"] if r.get("ph") == "C"]
-    check(len(decisions) >= 1,
-          f"controller acted on the burst "
-          f"(got {len(decisions)} decision events)")
-    check(len(counters) >= 1,
-          f"Perfetto counter track present ({len(counters)} C events)")
-    check(not errors,
-          f"closed-loop chrome trace validates (errors: {errors[:3]})")
+    for w, closed in enumerate(closeds):
+        ev = closed["events"]
+        decisions = [e for e in ev if e.cat == "sched"
+                     and e.name in ("ctrl_shrink", "ctrl_grow")]
+        trace_json = to_chrome(ev)
+        errors = validate(trace_json)
+        counters = [r for r in trace_json["traceEvents"]
+                    if r.get("ph") == "C"]
+        check(len(decisions) >= 1,
+              f"controller acted on the burst (window {w}: "
+              f"{len(decisions)} decision events)")
+        check(len(counters) >= 1,
+              f"Perfetto counter track present ({len(counters)} C events)")
+        check(not errors,
+              f"closed-loop chrome trace validates (errors: {errors[:3]})")
 
-    # --- the closed-loop claim -----------------------------------------
-    sp99 = static["report"].overall["ttft_p99_ms"]
-    cp99 = closed["report"].overall["ttft_p99_ms"]
-    sgp = static["tokens"] / max(static["wall_s"], 1e-9)
-    cgp = closed["tokens"] / max(closed["wall_s"], 1e-9)
-    win = (cp99 <= sp99 * 1.10) or (cp99 <= sp99 * 1.5 and cgp >= sgp)
-    band = (f"closed loop holds p99 TTFT (static {sp99:.1f} ms vs "
-            f"closed {cp99:.1f} ms) or wins on goodput "
+    # --- the closed-loop claim, on the medians of the replays -----------
+    spreads = {arm: {k: spread(r[k] for r in replays if r["arm"] == arm)
+                     for k in ("p50_ttft_ms", "p99_ttft_ms", "p99_tpot_ms",
+                               "attainment", "goodput_tok_per_s",
+                               "wall_s")}
+               for arm in ("static", "closed_loop")}
+    sp99 = spreads["static"]["p99_ttft_ms"]["median"]
+    cp99 = spreads["closed_loop"]["p99_ttft_ms"]["median"]
+    sgp = spreads["static"]["goodput_tok_per_s"]["median"]
+    cgp = spreads["closed_loop"]["goodput_tok_per_s"]["median"]
+    win = band_held(sp99, cp99, sgp, cgp)
+    band = (f"closed loop holds p99 TTFT (median of {windows}: static "
+            f"{sp99:.1f} ms vs closed {cp99:.1f} ms) or wins on goodput "
             f"({sgp:.1f} vs {cgp:.1f} tok/s)")
     if gate_band:
         check(win, band)
@@ -329,15 +385,19 @@ def bench_closed_loop(cfg, params, dev, smoke: bool, *,
         print(f"[{'held' if win else 'missed'}, recorded] {band}",
               flush=True)
 
+    def medians(arm, runs):
+        rec = _summary(runs[0], arm)
+        rec.update({k: v["median"] for k, v in spreads[arm].items()})
+        rec["dropped"] = sum(r["dropped"] for r in runs)
+        return rec
+
+    # the last closed replay's state, pool and export stand for the arm
+    closed = closeds[-1]
+    states = [e for e in closed["events"]
+              if e.cat == "sched" and e.name == "ctrl_state"]
     pool = closed["report"].pool
     sched_stats = closed["engine"].scheduler.stats()
-    kinds = [e.name for e in decisions]
-    # which sensor stood over its target at each shrink
-    over = {"step": 0, "ttft": 0}
-    for e in decisions:
-        if e.name == "ctrl_shrink":
-            over["step"] += e.args["p99_step_us"] > cc.step_p99_target_ms * 1e3
-            over["ttft"] += e.args["p99_ttft_us"] > cc.ttft_p99_target_ms * 1e3
+    closed_reps = [r for r in replays if r["arm"] == "closed_loop"]
     return {
         "trace": {"requests": len(trace.requests),
                   "vocab": tcfg.vocab,
@@ -345,20 +405,30 @@ def bench_closed_loop(cfg, params, dev, smoke: bool, *,
                   "base_rps": tcfg.base_rps,
                   "burst_factor": tcfg.burst_factor,
                   "seed": tcfg.seed},
+        "windows": windows,
         "calibrated_step_p50_ms": step_p50_ms,
         "calibrated_ttft_ms": ttft_ms,
         "calibrated_step_target_ms": cc.step_p99_target_ms,
         "calibrated_ttft_target_ms": cc.ttft_p99_target_ms,
-        "static": _summary(static, "static"),
-        "closed_loop": _summary(closed, "closed_loop"),
+        "static": medians("static", statics),
+        "closed_loop": medians("closed_loop", closeds),
+        "spread": spreads,
+        "replays": replays,
+        "band": {"static_p99_ttft_ms": sp99, "closed_p99_ttft_ms": cp99,
+                 "static_goodput_tok_per_s": sgp,
+                 "closed_goodput_tok_per_s": cgp},
         "band_held": win,
         "band_gated": gate_band,
         "sampled_tokens": sampled,
         "prefix_witness": witness,
-        "controller": {"decision_events": len(decisions),
-                       "shrinks": kinds.count("ctrl_shrink"),
-                       "grows": kinds.count("ctrl_grow"),
-                       "shrinks_over_target": over,
+        "controller": {"decision_events": sum(r["shrinks"] + r["grows"]
+                                              for r in closed_reps),
+                       "shrinks": sum(r["shrinks"] for r in closed_reps),
+                       "grows": sum(r["grows"] for r in closed_reps),
+                       "shrinks_over_target": {
+                           s: sum(r["shrinks_over_target"][s]
+                                  for r in closed_reps)
+                           for s in ("step", "ttft")},
                        "state_samples": len(states),
                        "final_slot_cap": sched_stats.get("slot_cap"),
                        "final_free_frac": sched_stats.get(
@@ -371,11 +441,12 @@ def bench_closed_loop(cfg, params, dev, smoke: bool, *,
     }
 
 
-def run(cfg=None, params=None, device=None, *, smoke: bool = False) -> dict:
+def run(cfg=None, params=None, device=None, *, smoke: bool = False,
+        windows: int = 1) -> dict:
     """The benchmark on ``device`` (default: the CUDA card) with the model
     ``cfg``/``params`` (default: the llama3.2-1b smoke config, parameters
-    from seed 0); -> the record, whose ``failures`` lists every check that
-    did not hold."""
+    from seed 0), ``windows`` replays of each arm; -> the record, whose
+    ``failures`` lists every check that did not hold."""
     from .. import configs
     from ..models import model as M
 
@@ -392,7 +463,8 @@ def run(cfg=None, params=None, device=None, *, smoke: bool = False) -> dict:
                         if dev.type == "cuda" else "cpu"),
         "torch": torch.__version__,
         "model": cfg.name,
-        "closed_loop_vs_static": bench_closed_loop(cfg, params, dev, smoke),
+        "closed_loop_vs_static": bench_closed_loop(cfg, params, dev, smoke,
+                                                   windows=windows),
     }
     rec["failures"] = list(FAILURES)
     return rec
@@ -402,17 +474,20 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--smoke", action="store_true",
                     help="fast mode: shorter trace")
+    ap.add_argument("--windows", type=int, default=1,
+                    help="replays of each arm, run in turns")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--out", default=None, help="output JSON path")
     args = ap.parse_args(argv)
-    rec = run(device=args.device, smoke=args.smoke)
+    rec = run(device=args.device, smoke=args.smoke, windows=args.windows)
     if args.out:
         Path(args.out).write_text(json.dumps(rec, indent=1))
         print(f"wrote {args.out}", flush=True)
     body = rec["closed_loop_vs_static"]
     print(json.dumps({k: body[k] for k in
-                      ("static", "closed_loop", "controller", "pool")},
+                      ("static", "closed_loop", "band", "controller",
+                       "pool")},
                      indent=1))
     if rec["failures"]:
         print(f"FAILED: {rec['failures']}", file=sys.stderr)

@@ -1,15 +1,17 @@
 """Shared pass/fail plumbing for the port's benchmark gates.
 
-``repro_torch.benchmarks.device_bravo``, ``.registry``, ``.hotswap`` and
-``.slo`` exit nonzero on any mismatch; the check/timeit helpers and the
-serving benchmarks' dense token oracle live here once so the gate
+``repro_torch.benchmarks.device_bravo``, ``.registry``, ``.hotswap``,
+``.slo``, ``.obs``, ``.scheduler``, ``.prefill`` and ``.quant`` exit nonzero
+on any mismatch; the check/timeit helpers, the spread of repeated readings
+and the serving benchmarks' dense token oracle live here once so the gate
 semantics cannot drift between them.
 """
 
 from __future__ import annotations
 
+import statistics
 import time
-from typing import Callable, List, Optional
+from typing import Callable, Iterable, List, Optional
 
 FAILURES: List[str] = []
 
@@ -29,6 +31,34 @@ def timeit(fn: Callable[[], object], iters: int) -> float:
     for _ in range(iters):
         fn()
     return (time.perf_counter() - t0) / iters
+
+
+def device_ms(dev, fn: Callable[[], object], iters: int) -> float:
+    """Mean milliseconds per call of ``fn`` over ``iters`` calls after one
+    warm-up: CUDA events around the calls on the card, the host clock on
+    the CPU."""
+    import torch
+
+    if dev.type != "cuda":
+        return timeit(fn, iters) * 1e3
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(dev)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def spread(readings: Iterable[float]) -> dict:
+    """Repeated readings of one metric (one a window): their median, the
+    number gates read, beside the least and the largest."""
+    xs = list(readings)
+    return {"median": statistics.median(xs), "min": min(xs),
+            "max": max(xs), "readings": xs}
 
 
 # ---------------------------------------------------------------------------
@@ -150,3 +180,25 @@ def teacher_forced(cfg, params, prompt, got, dev) -> dict:
             "max_deficit_rel": max((deficit_rel(lg, t)
                                     for lg, t in zip(logits, got)),
                                    default=0.0)}
+
+
+def hold_tokens(cfg, params, dev, prompts, got, max_new: int,
+                near_tie_rel: Optional[float] = None) -> dict:
+    """Hold request i's tokens ``got[i]`` (``max_new`` of them, for
+    ``prompts[i]``) to the dense reference through
+    :func:`teacher_forced`: with no flip at any step the free-running
+    dense loop gives exactly ``got[i]``.  ``near_tie_rel=None`` demands
+    that (``ok``); otherwise every step's token must stand within
+    ``near_tie_rel * max |logit|`` of the dense step's best (R12: bf16
+    rounds the paged engine and the dense loop apart at full width)."""
+    tf = [teacher_forced(cfg, params, p, g, dev)
+          for p, g in zip(prompts, got)]
+    whole = len(got) == len(prompts) and all(len(g) == max_new
+                                             for g in got)
+    exact = whole and not any(t["flips"] for t in tf)
+    worst = max((t["max_deficit_rel"] for t in tf), default=0.0)
+    ok = exact if near_tie_rel is None else whole and worst <= near_tie_rel
+    return {"ok": ok, "exact": exact,
+            "oracle": ("dense reference" if near_tie_rel is None else
+                       f"dense reference's best within {near_tie_rel}"),
+            "flips": [t["flips"] for t in tf], "max_deficit_rel": worst}

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the table kernels K1-K4, of the paged
 attention kernels K5/K6 and their quantized variants K7/K8, and of the
 legacy table kernels K9 (the revocation scan) and K10 (the sequential
-publish); and, for the tests, transcriptions of the paged kernels' two
+publish); the dense chunk-attention formulation the prefill benchmark
+compares K6 with; and, for the tests, transcriptions of the paged kernels' two
 passes over a KV split and of the chunk kernel's bf16 split of float32
 products.
 
@@ -284,6 +285,45 @@ def _chunk_attn(q, k_pages, v_pages, scales, page_idx, cache_len, new_lens):
     p = torch.where(valid, torch.exp(sc - m_safe), 0.0)
     den = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-20)
     o = torch.einsum("bskgt,btkd->bskgd", p, v) / den
+    return o.reshape(b, s, h, hd).to(q.dtype)
+
+
+def paged_chunk_dense_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, page_idx: torch.Tensor,
+                          cache_len: torch.Tensor,
+                          new_lens: torch.Tensor) -> torch.Tensor:
+    """``repro``'s dense chunk-attention path (``paged_chunk_dense_ref``):
+    every page gathered into one contiguous ``(B, P * ps, KVH, hd)``
+    buffer, one full softmax normalized before the value product.  The
+    contract of :func:`paged_chunk_attn_ref`, summed in another order: the
+    cross-check and the timing baseline of the prefill benchmark.  This
+    buffer is what the CUDA kernel never builds."""
+    b, s, h, hd = q.shape
+    n_pages, ps, kvh, _ = k_pages.shape
+    n_lanes = page_idx.shape[1]
+    g = h // kvh
+    lane_ok = (page_idx >= 0) & (page_idx < n_pages)
+    safe = torch.where(lane_ok, page_idx, 0).long()
+    kd = k_pages[safe].reshape(b, n_lanes * ps, kvh, hd).float()
+    vd = v_pages[safe].reshape(b, n_lanes * ps, kvh, hd).float()
+    col = torch.arange(s, device=q.device)
+    clen = cache_len.long()
+    q_pos = clen[:, None] - s + col[None, :]                       # (B, S)
+    valid_q = (col[None, :] >= s - new_lens.long()[:, None]) & (q_pos >= 0)
+    t = torch.arange(n_lanes * ps, device=q.device)
+    valid_t = (t[None, :] < clen[:, None]) \
+        & lane_ok.repeat_interleave(ps, dim=1)                     # (B, T)
+    qh = q.float().reshape(b, s, kvh, g, hd)
+    sc = torch.einsum("bskgd,btkd->bkgst", qh, kd) / math.sqrt(hd)
+    mask = valid_t[:, None, None, None, :] \
+        & (t[None, None, None, None, :] <= q_pos[:, None, None, :, None]) \
+        & valid_q[:, None, None, :, None]
+    sc = torch.where(mask, sc, -math.inf)
+    m = sc.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)     # fully masked rows
+    pexp = torch.where(mask, torch.exp(sc - m), 0.0)
+    den = torch.clamp(pexp.sum(dim=-1, keepdim=True), min=1e-20)
+    o = torch.einsum("bkgst,btkd->bskgd", pexp / den, vd)
     return o.reshape(b, s, h, hd).to(q.dtype)
 
 

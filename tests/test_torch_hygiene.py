@@ -86,7 +86,8 @@ def no_cuda(monkeypatch):
 
 def test_default_device_entry_points_raise_without_cuda(no_cuda):
     from repro_torch import configs
-    from repro_torch.benchmarks import device_bravo, registry
+    from repro_torch.benchmarks import (device_bravo, obs, prefill, quant,
+                                        registry, scheduler)
     from repro_torch.core import device_bravo as DB
     from repro_torch.core.registry import BravoRegistry
     from repro_torch.models import model as M
@@ -96,7 +97,8 @@ def test_default_device_entry_points_raise_without_cuda(no_cuda):
 
     cfg = configs.get_smoke("llama3.2-1b")
     for make in (BravoRegistry, DB.DeviceLeaseTable, DB.init_state,
-                 device_bravo.run, registry.run, lambda: KVPool(16),
+                 device_bravo.run, registry.run, obs.run, scheduler.run,
+                 prefill.run, quant.run, lambda: KVPool(16),
                  lambda: M.init_params(0, cfg),
                  lambda: M.init_caches(cfg, 1, 8),
                  lambda: M.init_paged_caches(cfg, 8, 4),
@@ -108,6 +110,15 @@ def test_default_device_entry_points_raise_without_cuda(no_cuda):
                                        quant_kv=True)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+
+
+@pytest.mark.parametrize("name", ["obs", "scheduler", "prefill", "quant"])
+def test_serving_benchmark_clis_raise_without_cuda(no_cuda, name):
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.benchmarks.{name}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(["--smoke"])
 
 
 def test_cuda_sources_are_listed_for_the_build():

@@ -5,7 +5,10 @@ lands and the corrupt copy is rejected with its leaf's index, the wedged
 reader's lane is scrubbed, the SLO report folds, the Chrome export
 validates with its counter tracks).  Their timing gates (the controller
 acting on a burst, the closed loop's p99 TTFT band) are the card's to
-judge and stay out of these tests."""
+judge and stay out of these tests; with repeated replays the band is
+judged on the medians, which these tests recompute from the replays."""
+
+import statistics
 
 import pytest
 import torch
@@ -77,6 +80,54 @@ def test_slo_twin_deterministic_gates_hold(model, near_tie_rel):
     assert rec["controller"]["state_samples"] >= 1
     assert set(rec["per_class"]) <= {"interactive", "batch"}
     assert rec["trace"]["vocab"] == cfg.vocab
+
+
+def test_slo_band_reads_the_medians_of_repeated_replays(model):
+    cfg, params = model
+    SM.FAILURES.clear()
+    rec = SLO.bench_closed_loop(cfg, params, "cpu", smoke=True,
+                                gate_band=False, windows=2)
+    failures = [f for f in SM.FAILURES if not f.startswith(TIMING_GATES)]
+    SM.FAILURES.clear()
+    assert failures == []
+    reps = rec["replays"]
+    # the arms in turns on one calibration, every replay recorded
+    assert rec["windows"] == 2
+    assert [(r["arm"], r["window"]) for r in reps] == [
+        ("static", 0), ("closed_loop", 0), ("static", 1),
+        ("closed_loop", 1)]
+    assert all(r["dropped"] == 0 for r in reps)
+    for arm in ("static", "closed_loop"):
+        for key in ("p99_ttft_ms", "goodput_tok_per_s", "wall_s"):
+            xs = [r[key] for r in reps if r["arm"] == arm]
+            sp = rec["spread"][arm][key]
+            assert sp["readings"] == xs
+            assert sp["median"] == statistics.median(xs) == rec[arm][key]
+            assert (sp["min"], sp["max"]) == (min(xs), max(xs))
+    for r in reps:
+        if r["arm"] == "closed_loop":
+            over = r["shrinks_over_target"]
+            assert over["step"] + over["ttft"] >= 0 and r["shrinks"] >= 0
+            assert r["final_slot_cap"] >= 1
+    band = rec["band"]
+    assert band["static_p99_ttft_ms"] == rec["static"]["p99_ttft_ms"]
+    assert band["closed_goodput_tok_per_s"] \
+        == rec["closed_loop"]["goodput_tok_per_s"]
+    assert rec["band_held"] == SLO.band_held(
+        band["static_p99_ttft_ms"], band["closed_p99_ttft_ms"],
+        band["static_goodput_tok_per_s"], band["closed_goodput_tok_per_s"])
+    assert len(rec["sampled_tokens"]) == 4
+    assert all(s["equal"] for s in rec["sampled_tokens"])
+
+
+@pytest.mark.parametrize("sp99, cp99, sgp, cgp, held", [
+    (100.0, 110.0, 10.0, 1.0, True),     # within 10%: goodput not asked
+    (100.0, 110.1, 10.0, 9.9, False),    # past 10% with less goodput
+    (100.0, 150.0, 10.0, 10.0, True),    # within 50% and goodput no worse
+    (100.0, 150.1, 10.0, 20.0, False),   # past 50%: goodput cannot save it
+])
+def test_slo_band_thresholds_are_the_references(sp99, cp99, sgp, cgp, held):
+    assert SLO.band_held(sp99, cp99, sgp, cgp) is held
 
 
 def test_benchmarks_refuse_to_run_without_a_device(monkeypatch):
