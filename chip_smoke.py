@@ -89,7 +89,9 @@ non-zero exit and no result line:
    width (both leases, the paged decode step through K5, the releases) and
    one on the quantized store (``requant_scatter`` into the int8 pages,
    then K7), each under ``torch.cuda.set_sync_debug_mode("error")`` (no
-   host-device sync); the ticks' tokens are read after the gate closes;
+   host-device sync); each gated tick is a replay of the step's CUDA
+   graph (the tick before it runs eagerly and captures); the ticks'
+   tokens are read after the gate closes;
 5. engine: llama3.2-1b at its published width and depth (random weights
    from a seed, float32 parameters, bf16 compute), the handler-mode
    ``ServingEngine`` with weight hot-swap and compaction serving 8 requests
@@ -111,7 +113,12 @@ non-zero exit and no result line:
    evicts running requests: it must evict at least once and finish every
    request with every page free and the table drained after ``stop()``;
    its K6 launches and the share of its tokens equal to the roomy run's
-   are recorded;
+   are recorded; the scheduler engine's paged steps run as CUDA graphs
+   (``steps.jit_step``) in every phase, and each scheduler run records
+   its captures and ``torch.cuda.memory_allocated`` before, at its peak
+   and after ``stop()``, which may not grow by more than
+   ``SWAP_TREES_PEAK`` and ``SWAP_TREES_AFTER`` parameter trees whatever
+   the number of swaps;
 6a. the serving benchmark twins at full width, each with the reference's
    gates and its repeated windows (``TWIN_WINDOWS``) reported as median,
    least and largest: ``obs_bench`` (``repro_torch.benchmarks.obs``: the
@@ -120,7 +127,8 @@ non-zero exit and no result line:
    registry pair under the sync gate), ``scheduler_bench`` (K5 at the
    reference's shape, the scheduler engine against the dense loop, the
    lease round trip and a paged decode step under the sync gate, the
-   handler engine and the admission sweep over ``max_slots`` 1-8),
+   handler engine and the admission sweep over ``max_slots`` 1-8, each
+   point graphed and eager in turns),
    ``prefill_bench`` (K6 against its plain version and the dense gather,
    no dense KV buffer among the shapes K6's wrapper makes, the prefix
    dedup sweep, K6 against the dense gather at three widths) and
@@ -145,7 +153,8 @@ non-zero exit and no result line:
    sizes: 8 identity swaps under 8 requests; the float32 parameters
    (~4.9 GB) saved as a checkpoint, staged onto the card and swapped in
    while a feeder keeps every slot decoding, timed apart, and a copy with
-   one corrupted CRC rejected at staging before any lock; a wedged
+   one corrupted CRC rejected at staging before any lock; device memory
+   over the identity swaps grows by less than one tree; a wedged
    reader degrading the swap until its lane is scrubbed and the retry
    lands; every request finishes with the tokens the same engine gives
    without a swap, which stand, teacher-forced, within a near-tie of the
@@ -157,10 +166,22 @@ non-zero exit and no result line:
    launches alone; ``obs_bench`` and 6b-6d must launch K1, K2, K3, K5 and
    K6, ``scheduler_bench`` and ``prefill_bench`` K1, K2, K5 and K6,
    ``quant_bench`` K5-K8;
-7. tokens: with one request per batch and no swap, the handler-mode
+7. graph_step: the graphed step against the bare one (``smoke.
+   eager_steps``) on the bf16 and the int8 store, one thread, no swap:
+   the scheduler phase's two waves give equal tokens and equal K5-K8
+   launches; at float32 compute every replayed decode tick's logits lie
+   within ``GRAPH_LOGITS_REL`` of the largest; across a ``store.swap`` to
+   a second seed's parameters between two decode ticks the tokens stay
+   equal with exactly one recapture; decode ticks at 2 and 8 active rows
+   and prefill ticks timed in turns (``GRAPH_WINDOWS`` windows; host
+   wall, CUDA events, the profiled device ms and busy share, the capture
+   ms, and the graphed tick's breakdown: lease pair, step call, replay,
+   token read); 8 swaps to new trees, each recaptured, grow
+   ``memory_allocated`` by less than two trees;
+8. tokens: with one request per batch and no swap, the handler-mode
    engine's tokens equal the dense greedy loop through the port's decode
    step (``benchmarks.smoke.dense_reference``);
-8. precision: full-width decode steps with a float32 cache against one
+9. precision: full-width decode steps with a float32 cache against one
    float32 forward pass over the same tokens (no cache); the engine's bf16
    compute against float32 compute on the same parameters; the paged path
    (prefill in chunks, then paged decode, float32 pages) against the same
@@ -395,6 +416,20 @@ TWIN_WINDOWS = {"obs": 5, "scheduler": 3, "prefill": 3, "quant": 3,
 # need about 27); at 12-20 pages the port's CPU run of the smoke config
 # evicted 1-2 times
 EVICT_PAGES = 16
+# the graph_step phase: eager and graphed ticks timed in turns, windows of
+# ticks an arm, at 2 and 8 active rows; a replayed tick's float32 logits
+# against the eager tick's, relative to the largest logit
+GRAPH_WINDOWS = 5
+GRAPH_TICKS = 8
+GRAPH_ROWS = (2, 8)
+GRAPH_LOGITS_REL = 1e-5
+# device memory over a scheduler run with swaps, in parameter trees: after
+# stop() (which drops the graphs) the engine holds its store's new tree;
+# at the peak also the older tree each of its two graphed steps may still
+# hold, the tree a swap is building, and the graphs' pools; never a tree a
+# swap
+SWAP_TREES_AFTER = 1.25
+SWAP_TREES_PEAK = 4.5
 
 
 def emit(obj) -> None:
@@ -2002,9 +2037,14 @@ def sync_gate(dev, cfg, params) -> dict:
         rows = sorted(eng.scheduler.running)
         if len(rows) != 2:
             raise AssertionError(f"gate: {len(rows)} slots reached decode")
-        eng._decode_tick()
-        nxt = gated(eng._decode_tick)
+        eng._decode_tick()                   # the step's eager warm-up
+        eng._decode_tick()                   # its capture and a replay
+        nxt = gated(eng._decode_tick)        # a replay
         toks = nxt[:, 0].cpu().numpy()       # read after the gate closes
+        dstats = eng._decode_paged.stats
+        if (dstats.warmups, dstats.captures, dstats.replays) != (1, 1, 2):
+            raise AssertionError(f"gate: the gated tick was no replay "
+                                 f"({dstats})")
         if not ((toks[rows] >= 0) & (toks[rows] < cfg.vocab)).all():
             raise AssertionError(f"gate: tokens out of range "
                                  f"{toks.tolist()}")
@@ -2016,7 +2056,7 @@ def sync_gate(dev, cfg, params) -> dict:
         # the same tick's device time and busy share, profiled (two active
         # rows of max_slots; the step computes every row)
         prof = _profile(eng._decode_tick, steps=4)
-        return {"tick_rows": len(rows),
+        return {"tick_rows": len(rows), "gated_tick": "replay",
                 "tick_tokens": np.asarray(toks)[rows].tolist(),
                 "tick_held_after": tick_held, "tick_profile": prof}
 
@@ -2308,7 +2348,12 @@ def run_scheduler(cfg, params, dev, *, seed, max_new=16,
     ``n_pages`` below ``SCHED_PAGES``: the eviction run, on a store so
     small that decode growth evicts running requests (their re-prefill
     then runs K6 on longer prefixes); it must evict at least once, and the
-    prefix cache need not save a page there."""
+    prefix cache need not save a page there.  Records the graphed steps'
+    warm-ups, captures and replays, and ``memory_allocated`` before the
+    run, at its peak and after ``stop()``, in parameter trees, gated by
+    ``SWAP_TREES_PEAK`` and ``SWAP_TREES_AFTER``."""
+    import torch
+
     from repro_torch.kernels import ops as K
     from repro_torch.serving.engine import Request, ServingEngine
     from repro_torch.serving.scheduler import SchedulerConfig
@@ -2327,6 +2372,9 @@ def run_scheduler(cfg, params, dev, *, seed, max_new=16,
     waves = [[Request(rid=base + i, prompt=p, max_new=max_new)
               for i, p in enumerate(w)]
              for base, w in ((0, wave1), (len(wave1), wave2))]
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     t0 = time.monotonic()
     eng.start(swap_period_s=0.25, compact_period_s=0.2)
@@ -2340,6 +2388,21 @@ def run_scheduler(cfg, params, dev, *, seed, max_new=16,
     wall = time.monotonic() - t0
     eng.stop()
     counts = K.launch_counts()               # read right after the path
+    torch.cuda.synchronize()
+    tree = sum(x.numel() * x.element_size() for x in _leaves(params))
+    memory = {"allocated_before": mem0,
+              "allocated_after": torch.cuda.memory_allocated(),
+              "peak": torch.cuda.max_memory_allocated(),
+              "param_tree_bytes": tree}
+    memory["growth_trees"] = (memory["allocated_after"] - mem0) / tree
+    memory["peak_growth_trees"] = (memory["peak"] - mem0) / tree
+    steps = _step_stats(eng)
+    # ticks past the histogram's warm-up that ran eagerly after a swap or
+    # captured anew
+    for kind in ("warmup", "capture"):
+        steps["decode"][f"{kind}_ticks_in_step_ns"] = sum(
+            c > eng.ecfg.obs_warmup_steps
+            for c in steps["decode"][f"{kind}_at"])
     reqs = waves[0] + waves[1]
     st = eng.lock_stats()
     pool = st["kv_pool"]
@@ -2359,6 +2422,8 @@ def run_scheduler(cfg, params, dev, *, seed, max_new=16,
     else:
         assert st["scheduler"]["evictions"] >= 1, st["scheduler"]
     assert es["weight_swaps"] >= 1, es
+    assert memory["growth_trees"] <= SWAP_TREES_AFTER, (memory, es)
+    assert memory["peak_growth_trees"] <= SWAP_TREES_PEAK, (memory, es)
     attn, other = ((QUANT_KERNELS, PAGED_KERNELS) if quant_kv
                    else (PAGED_KERNELS, QUANT_KERNELS))
     path = ["fused_publish_multi", "fused_publish", "revocation_poll", *attn]
@@ -2393,6 +2458,7 @@ def run_scheduler(cfg, params, dev, *, seed, max_new=16,
             "prefix_hits": pool["prefix_hits"],
             "scheduler": st["scheduler"], "pages_free": free,
             "held_after": held.tolist(), "launches": counts,
+            "steps": steps, "memory": memory,
             "prompts": [r.prompt.tolist() for r in reqs],
             "outputs": [r.out.tolist() for r in reqs]}
 
@@ -2552,6 +2618,386 @@ def scheduler_vs_greedy(cfg, params, dev, sched) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: the serving step as one program (graph_step)
+# ---------------------------------------------------------------------------
+
+
+def _graph_engine(cfg, params, dev, *, eager=False, quant_kv=False,
+                  n_pages=SCHED_PAGES):
+    """A scheduler-mode engine at ``SCHED``: its steps graphed (the
+    engine's path) or, with ``eager``, the bare steps in their place."""
+    from repro_torch.benchmarks import smoke as SM
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    eng = ServingEngine(cfg, params, n_pages=n_pages, device=dev,
+                        quant_kv=quant_kv, scheduler=SchedulerConfig(**SCHED))
+    return SM.eager_steps(eng) if eager else eng
+
+
+def _drive(eng, reqs, until=None, max_ticks=5000) -> int:
+    """Submit ``reqs`` and run ``_schedule_tick`` on this thread until each
+    is done (or, with ``until``, until ``until(eng)`` holds after a tick).
+    -> the ticks run."""
+    for r in reqs:
+        eng.submit(r)
+    for n in range(1, max_ticks + 1):
+        if not eng._schedule_tick():
+            raise AssertionError("the scheduler idled with work left")
+        if until(eng) if until else all(r.done.is_set() for r in reqs):
+            return n
+    raise AssertionError(f"not done after {max_ticks} ticks")
+
+
+def _all_decoding(eng) -> bool:
+    sched = eng.scheduler
+    return not sched.waiting and all(s.phase.name == "DECODE"
+                                     for s in sched.running.values())
+
+
+def _requests(prompts, max_new, base=0):
+    from repro_torch.serving.engine import Request
+
+    return [Request(rid=base + i, prompt=p, max_new=max_new)
+            for i, p in enumerate(prompts)]
+
+
+def _step_stats(eng) -> dict:
+    import dataclasses
+
+    return {name: dataclasses.asdict(getattr(eng, f"_{name}_paged").stats)
+            for name in ("decode", "prefill")}
+
+
+def _graph_tokens(cfg, params, dev, *, quant_kv, seed) -> dict:
+    """The scheduler phase's two waves through an eager and a graphed
+    engine on this thread, no swap, no compaction, one arm after the other
+    with the launch counts read alone: every token equal and K5-K8's
+    launches equal."""
+    from repro_torch.kernels import ops as K
+
+    wave1, wave2 = _sched_prompts(seed, cfg.vocab)
+    arms = {}
+    for arm in ("eager", "graph"):
+        eng = _graph_engine(cfg, params, dev, eager=arm == "eager",
+                            quant_kv=quant_kv)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs, ticks = [], 0
+        for base, wave in ((0, wave1), (len(wave1), wave2)):
+            reqs = _requests(wave, 16, base)
+            ticks += _drive(eng, reqs)
+            outs += [r.out.tolist() for r in reqs]
+        arms[arm] = {"wall_s": time.perf_counter() - t0, "ticks": ticks,
+                     "launches": K.launch_counts(), "outputs": outs}
+        if arm == "graph":
+            arms[arm]["steps"] = _step_stats(eng)
+        del eng
+    e, g = arms["eager"], arms["graph"]
+    attn = PAGED_KERNELS + QUANT_KERNELS
+    out = {"tokens_equal": e["outputs"] == g["outputs"],
+           "attn_launches_equal": all(e["launches"][k] == g["launches"][k]
+                                      for k in attn),
+           "eager": {k: v for k, v in e.items() if k != "outputs"},
+           "graph": {k: v for k, v in g.items() if k != "outputs"},
+           "outputs": g["outputs"]}
+    if not out["tokens_equal"] or not out["attn_launches_equal"]:
+        raise AssertionError(f"graph_step tokens: {out} eager outputs "
+                             f"{e['outputs']}")
+    if not g["steps"]["decode"]["replays"] \
+            or not g["steps"]["prefill"]["replays"]:
+        raise AssertionError(f"graph_step: no replay {g['steps']}")
+    return out
+
+
+def _graph_logits(cfg, params, dev, *, quant_kv, seed) -> dict:
+    """At float32 compute: the first wave's first four requests through an
+    eager and a graphed engine in lockstep, every decode tick's logits
+    recorded; each replayed tick's logits within ``GRAPH_LOGITS_REL`` of
+    its largest logit, the tokens equal."""
+    import dataclasses
+
+    import torch
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    prompts = _sched_prompts(seed, cfg.vocab)[0][:4]
+    logs, reqs, engines = {}, {}, {}
+    for arm in ("eager", "graph"):
+        eng = _graph_engine(cfg32, params, dev, eager=arm == "eager",
+                            quant_kv=quant_kv)
+        log = logs[arm] = []
+
+        def rec(*a, inner=eng._decode_paged, log=log):
+            out = inner(*a)
+            log.append(out[1].float())
+            return out
+        eng._decode_paged = rec
+        engines[arm], reqs[arm] = eng, _requests(prompts, 6)
+        for r in reqs[arm]:
+            eng.submit(r)
+    for _ in range(5000):
+        if all(r.done.is_set() for r in reqs["graph"]):
+            break
+        for arm in ("eager", "graph"):
+            engines[arm]._schedule_tick()
+    if len(logs["eager"]) != len(logs["graph"]):
+        raise AssertionError("graph_step logits: the arms ticked apart")
+    rels = [float((g - e).abs().max() / e.abs().max())
+            for e, g in zip(logs["eager"], logs["graph"])]
+    # the graphed engine's first decode tick runs eagerly (its warm-up);
+    # the second captures and replays
+    out = {"decode_ticks": len(rels), "rel_replayed": max(rels[1:]),
+           "rel_first": rels[0], "tolerance": GRAPH_LOGITS_REL,
+           "tokens_equal": [r.out.tolist() for r in reqs["eager"]]
+           == [r.out.tolist() for r in reqs["graph"]]}
+    if len(rels) < 3 or out["rel_replayed"] > GRAPH_LOGITS_REL \
+            or not out["tokens_equal"]:
+        raise AssertionError(f"graph_step float32 logits: {out}")
+    return out
+
+
+def _graph_swap(cfg, params, params2, dev, *, quant_kv, seed) -> dict:
+    """The first wave through an eager and a graphed engine; once every
+    request decodes, ``store.swap`` to the second seed's parameters
+    between two decode ticks: the tokens equal, and the graphed decode
+    step captured exactly once more (the prefill step not again)."""
+    prompts = _sched_prompts(seed, cfg.vocab)[0]
+    outs, stats = {}, None
+    for arm in ("eager", "graph"):
+        eng = _graph_engine(cfg, params, dev, eager=arm == "eager",
+                            quant_kv=quant_kv)
+        reqs = _requests(prompts, 12)
+        _drive(eng, reqs, until=lambda e: _all_decoding(e)
+               and e.stats.decode_steps >= 3)
+        if arm == "graph":
+            before = _step_stats(eng)
+        eng.store.swap(params2)
+        while not all(r.done.is_set() for r in reqs):
+            eng._schedule_tick()
+        outs[arm] = [r.out.tolist() for r in reqs]
+        if arm == "graph":
+            stats = _step_stats(eng)
+        del eng
+    recaptures = stats["decode"]["captures"] - before["decode"]["captures"]
+    out = {"tokens_equal": outs["eager"] == outs["graph"],
+           "decode_recaptures": recaptures,
+           "prefill_recaptures": stats["prefill"]["captures"]
+           - before["prefill"]["captures"], "steps": stats}
+    if not out["tokens_equal"] or recaptures != 1 \
+            or out["prefill_recaptures"]:
+        raise AssertionError(f"graph_step swap: {out} {outs}")
+    return out
+
+
+def _graph_swap_memory(cfg, params, dev, swaps=8) -> dict:
+    """``swaps`` hot swaps to new parameter trees (``engine._perturb``),
+    each followed by two decode ticks (the warm-up, then a capture):
+    ``torch.cuda.memory_allocated`` may grow by the one tree the store
+    then holds, not by a tree a swap."""
+    import torch
+
+    from repro_torch.serving.engine import _perturb
+
+    eng = _graph_engine(cfg, params, dev)
+    reqs = _requests(_sched_prompts(1, cfg.vocab)[0][:4], 40)
+    _drive(eng, reqs, until=lambda e: _all_decoding(e)
+           and e.stats.decode_steps >= 3)
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    c0 = eng._decode_paged.stats.captures
+    for _ in range(swaps):
+        eng.store.swap(_perturb(eng.store.params))
+        steps = eng.stats.decode_steps      # a warm-up tick, then a capture
+        while eng.stats.decode_steps < steps + 2:
+            eng._schedule_tick()
+    torch.cuda.synchronize()
+    m1 = torch.cuda.memory_allocated()
+    tree = sum(x.numel() * x.element_size() for x in _leaves(params))
+    out = {"swaps": swaps,
+           "captures": eng._decode_paged.stats.captures - c0,
+           "allocated_before": m0, "allocated_after": m1,
+           "growth_bytes": m1 - m0, "param_tree_bytes": tree,
+           "growth_trees": (m1 - m0) / tree}
+    if out["captures"] != swaps or m1 - m0 >= 2 * tree:
+        raise AssertionError(f"graph_step swap memory: {out}")
+    return out
+
+
+def _tick_ms(eng) -> tuple:
+    """One scheduler tick that must run decode: -> (host wall ms, CUDA
+    event ms)."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    steps = eng.stats.decode_steps
+    t0 = time.perf_counter()
+    a.record()
+    eng._schedule_tick()
+    b.record()
+    b.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    if eng.stats.decode_steps != steps + 1:
+        raise AssertionError("graph_step timing: a tick ran no decode")
+    return wall, a.elapsed_time(b)
+
+
+def _tick_breakdown(eng, n=20) -> dict:
+    """What a graphed decode tick's host wall holds: the lease pair (both
+    locks, acquire and release) and the step call (key, input copies,
+    replay, output copies) enqueued ``n`` times then waited for, the
+    replay alone in CUDA events (the graph's device time), and the token
+    read.  Repeats the current tick's writes; the engine is discarded
+    after."""
+    import torch
+
+    rids = eng._rids
+    step = eng._decode_paged
+    args = (eng.store.params, eng._pages_kv, eng._cur, eng._clen,
+            eng._page_tbl)
+
+    def pair():
+        ptok, _ = eng.pages.read_batch(rids)
+        rtok, _, _ = eng.store.read_batch(rids)
+        eng.store.done_read_batch(rtok, rids)
+        eng.pages.done_read_batch(ptok)
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) * 1e3 / n, (time.perf_counter() - t0) * 1e3 / n
+
+    pair_enq, pair_done = host_ms(pair)
+    step_enq, step_done = host_ms(lambda: step(*args))
+    graph = step._captured.graph
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(n):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    nxt = step(*args)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nxt[:, 0].cpu().numpy()
+    read = (time.perf_counter() - t0) * 1e3
+    return {"lease_pair_enqueue_ms": pair_enq,
+            "lease_pair_done_ms": pair_done,
+            "step_call_enqueue_ms": step_enq, "step_call_done_ms": step_done,
+            "replay_device_ms": a.elapsed_time(b) / n,
+            "token_read_ms": read}
+
+
+def _graph_tick_turns(cfg, params, dev, *, quant_kv, rows) -> dict:
+    """Decode ticks with ``rows`` active rows (prompts of 24 tokens,
+    up to 96 new), eager and graphed engines in turns: ``GRAPH_WINDOWS``
+    windows of ``GRAPH_TICKS`` ticks an arm, the order flipped every
+    window; host wall and CUDA-event ms a tick (median [least-largest] of
+    the windows' medians), then each arm's profile (device ms and busy
+    share) and the graphed tick's breakdown."""
+    from repro_torch.benchmarks import smoke as SM
+
+    prompts = _prompts(11 + rows, rows, 24, cfg.vocab)
+    engines = {}
+    for arm in ("eager", "graph"):
+        eng = engines[arm] = _graph_engine(cfg, params, dev,
+                                           eager=arm == "eager",
+                                           quant_kv=quant_kv)
+        _drive(eng, _requests(prompts, 96), until=lambda e: _all_decoding(e)
+               and e.stats.decode_steps >= 3)
+    walls = {a: [] for a in engines}
+    events = {a: [] for a in engines}
+    for w in range(GRAPH_WINDOWS):
+        for arm in (("eager", "graph") if w % 2 == 0
+                    else ("graph", "eager")):
+            ts = [_tick_ms(engines[arm]) for _ in range(GRAPH_TICKS)]
+            walls[arm].append(statistics.median(t[0] for t in ts))
+            events[arm].append(statistics.median(t[1] for t in ts))
+    out = {"rows": rows, "windows": GRAPH_WINDOWS, "ticks": GRAPH_TICKS}
+    for arm, eng in engines.items():
+        out[arm] = {"wall_ms": SM.spread(walls[arm]),
+                    "event_ms": SM.spread(events[arm]),
+                    "profile": _profile(eng._schedule_tick, steps=4)}
+    g = engines["graph"]
+    out["graph"]["steps"] = _step_stats(g)
+    out["graph"]["breakdown"] = _tick_breakdown(g)
+    out["wall_ratio_eager_over_graph"] = (out["eager"]["wall_ms"]["median"]
+                                          / out["graph"]["wall_ms"]["median"])
+    return out
+
+
+def _graph_prefill_turns(cfg, params, dev, *, quant_kv) -> dict:
+    """Prefill ticks, eager and graphed in turns: each window submits four
+    fresh prompts of 64 tokens with one new token each (every tick a
+    prefill tick, two rows of 32) to both arms; one window first, untimed,
+    holds the capture.  Host ms a tick, median [least-largest] of the
+    windows' medians."""
+    from repro_torch.benchmarks import smoke as SM
+
+    engines = {a: _graph_engine(cfg, params, dev, eager=a == "eager",
+                                quant_kv=quant_kv)
+               for a in ("eager", "graph")}
+    walls = {a: [] for a in engines}
+    for w in range(GRAPH_WINDOWS + 1):
+        prompts = _prompts(100 + w, 4, 64, cfg.vocab)
+        for arm in (("eager", "graph") if w % 2 == 0
+                    else ("graph", "eager")):
+            eng = engines[arm]
+            reqs = _requests(prompts, 1, base=10 * w)
+            for r in reqs:
+                eng.submit(r)
+            ts = []
+            while not all(r.done.is_set() for r in reqs):
+                pre = eng.stats.prefills
+                t0 = time.perf_counter()
+                eng._schedule_tick()
+                ts.append((time.perf_counter() - t0) * 1e3)
+                if eng.stats.prefills != pre + 1:
+                    raise AssertionError("graph_step: a tick ran no prefill")
+            if w:
+                walls[arm].append(statistics.median(ts))
+    return {"windows": GRAPH_WINDOWS,
+            **{a: {"wall_ms": SM.spread(walls[a])} for a in engines},
+            "graph_steps": _step_stats(engines["graph"])}
+
+
+def graph_step_phase(cfg, params, dev, seed) -> dict:
+    """The serving step as one CUDA graph (``steps.jit_step``) against the
+    bare step, on the bf16 and the int8 store: tokens, launches, float32
+    logits, a swap's recapture, memory over swaps, and ticks timed in
+    turns."""
+    from repro_torch.models import model as M
+
+    params2 = M.init_params(seed + 1, cfg, device=dev)
+    params2["embed"].mul_(EMBED_SCALE)
+    out = {"windows": GRAPH_WINDOWS, "ticks_a_window": GRAPH_TICKS}
+    t0 = time.monotonic()
+    for store, quant in (("bf16", False), ("int8", True)):
+        rec = out[store] = {}
+        rec["tokens"] = _graph_tokens(cfg, params, dev, quant_kv=quant,
+                                      seed=seed + 3)
+        rec["logits_f32"] = _graph_logits(cfg, params, dev, quant_kv=quant,
+                                          seed=seed + 3)
+        rec["swap"] = _graph_swap(cfg, params, params2, dev, quant_kv=quant,
+                                  seed=seed + 3)
+        for rows in GRAPH_ROWS:
+            rec[f"decode_rows_{rows}"] = _graph_tick_turns(
+                cfg, params, dev, quant_kv=quant, rows=rows)
+        rec["prefill"] = _graph_prefill_turns(cfg, params, dev,
+                                              quant_kv=quant)
+    del params2
+    out["swap_memory"] = _graph_swap_memory(cfg, params, dev)
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phases 6a-6d: the serving benchmark twins, and the writer path under load
 # and faults, at full width
 # ---------------------------------------------------------------------------
@@ -2683,8 +3129,17 @@ def hotswap_phase(cfg, params, dev) -> dict:
     within ``BF16_VS_F32_REL`` of the dense loop's best at every step."""
     from repro_torch.benchmarks import hotswap as HS
 
-    return _twin_phase("hotswap", lambda: HS.run(
+    rec = _twin_phase("hotswap", lambda: HS.run(
         cfg, params, dev, directory=CKPT_DIR, near_tie_rel=BF16_VS_F32_REL))
+    tree = sum(x.numel() * x.element_size() for x in _leaves(params))
+    sw = rec["swaps_under_traffic"]
+    growth = sw["allocated_after_swaps"] - sw["allocated_before_swaps"]
+    rec["swap_memory"] = {"growth_bytes": growth, "param_tree_bytes": tree,
+                          "growth_trees": growth / tree}
+    if growth >= tree:
+        raise AssertionError(f"hotswap: device memory grew by a parameter "
+                             f"tree over the swaps: {rec['swap_memory']}")
+    return rec
 
 
 def faults_phase(cfg, params, dev) -> dict:
@@ -2879,6 +3334,8 @@ def main(argv=None) -> int:
               **faults_phase(cfg, params, dev)})
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    emit({"phase": "graph_step", "card": card,
+          **graph_step_phase(cfg, params, dev, args.seed)})
 
     emit({"phase": "tokens", **token_check(cfg, params, dev, n_req=2,
                                            prompt_len=16, max_new=8,

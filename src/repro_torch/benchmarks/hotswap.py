@@ -8,7 +8,8 @@ a lost guarantee):
 * ``swaps_under_traffic``: repeated identity hot-swaps while the scheduler
   engine decodes a sustained batch: ZERO dropped requests, tokens equal to
   the dense reference, swap latency p50/p99 and decode-tick p50/p99 over
-  the swap windows.
+  the swap windows; on the card ``memory_allocated`` before and after the
+  swaps and the graphed decode step's captures.
 * ``staged_swap``: a checkpoint saved, then, while a feeder keeps the
   engine's slots busy with decode traffic, streamed into a shadow params
   tree on the engine's device (``stage_checkpoint``, per-tensor CRC
@@ -61,7 +62,8 @@ from ..ft.checkpoint import (CheckpointCorrupt, read_manifest,
 from ..ft.faults import corrupt_copy
 from ..serving.engine import EngineConfig, Request, ServingEngine
 from ..serving.scheduler import SchedulerConfig
-from .smoke import FAILURES, check, dense_reference, hold_tokens, sync
+from .smoke import (FAILURES, allocated, check, dense_reference,
+                    hold_tokens, sync)
 
 N_PAGES = 128
 
@@ -138,14 +140,19 @@ def bench_swaps_under_traffic(cfg, params, dev, max_new: int, n_req: int,
     prompts = _prompts(n_req)
     eng = _engine(cfg, params, dev)
 
+    mem = {}
+
     def swapper():
         lats = []
         landed = 0
+        mem["allocated_before_swaps"] = allocated(dev)
         for _ in range(n_swaps):
             time.sleep(0.03)
             t0 = time.perf_counter()
             landed += bool(eng.hot_swap(params))     # identity weights
             lats.append(time.perf_counter() - t0)
+        sync(dev)
+        mem["allocated_after_swaps"] = allocated(dev)
         return landed, np.asarray(lats)
 
     got, dropped, (landed, lats) = _serve_with(eng, prompts, max_new,
@@ -162,7 +169,8 @@ def bench_swaps_under_traffic(cfg, params, dev, max_new: int, n_req: int,
            "swap_p50_ms": float(np.percentile(lats, 50)) * 1e3,
            "swap_p99_ms": float(np.percentile(lats, 99)) * 1e3,
            "weight_swaps": st["engine"]["weight_swaps"],
-           "drain_timeouts": st["device_leases"]["drain_timeouts"]}
+           "drain_timeouts": st["device_leases"]["drain_timeouts"],
+           "decode_captures": eng._decode_paged.stats.captures, **mem}
     if h_step.count:
         rec["decode_p50_us"] = h_step.quantile(0.50) / 1e3
         rec["decode_p99_us"] = h_step.quantile(0.99) / 1e3
@@ -273,6 +281,7 @@ def bench_staged_swap(cfg, params, dev, max_new: int,
     toks = _hold_tokens(cfg, params, dev, prompts, max_new, got,
                         near_tie_rel)
     out["requests"] = len(reqs)
+    out["decode_captures"] = eng._decode_paged.stats.captures
     check(out.get("decoded_since_stage", False)
           and out.get("unfinished_at_swap", 0) >= 1,
           f"the swap met decode traffic ({out.get('unfinished_at_swap')} "

@@ -20,9 +20,9 @@ exit nonzero on a mismatch or a lost guarantee):
 * ``mesh2d``: not ported; it waits for the multi-device work (ROADMAP
   M12) and is recorded as such.
 * ``throughput`` (full mode): the handler engine and the scheduler engine
-  at ``max_slots`` 1, 2, 4 and 8 (the admission sweep), each run
-  ``windows`` times in turns; tokens/s and the decode p50/p99 as median,
-  least and largest.
+  at ``max_slots`` 1, 2, 4 and 8 (the admission sweep), on its graphed
+  steps and on the bare ones, each run ``windows`` times in turns;
+  tokens/s and the decode p50/p99 as median, least and largest.
 
 Tokens: with ``near_tie_rel`` (a full-width model in bf16, ROADMAP R12)
 the engine's tokens stand, teacher-forced, within ``near_tie_rel * max
@@ -55,8 +55,8 @@ from ..kernels import ref as R
 from ..models.common import decode_attention
 from ..serving.engine import Request, ServingEngine
 from ..serving.scheduler import SchedulerConfig
-from .smoke import (FAILURES, check, hold_tokens, spread, sync, sync_gate,
-                    timeit)
+from .smoke import (FAILURES, check, eager_steps, hold_tokens, spread, sync,
+                    sync_gate, timeit)
 
 N_PAGES = 128
 SWEEP_SLOTS = (1, 2, 4, 8)
@@ -198,7 +198,8 @@ def bench_transfers(cfg, params, dev) -> dict:
         eng._decode_paged(eng.store.params, eng._pages_kv, cur, clen, ptbl)
 
     decode_step()                          # warm-up
-    step_gate = sync_gate(dev, decode_step)
+    decode_step()                          # on the card: the capture
+    step_gate = sync_gate(dev, decode_step)  # on the card: a replay
     for gate, what in ((lease_gate, "step lease batch"),
                        (step_gate, "lease-held paged decode step")):
         if gate != "inactive":
@@ -233,11 +234,15 @@ def _latency_us(eng) -> dict:
 def bench_throughput(cfg, params, dev, max_new: int,
                      windows: int = 1) -> dict:
     """Tokens/s and per-token latency: the handler engine and the
-    admission sweep, one of each a window, in turns."""
+    admission sweep, one of each a window, in turns.  Each sweep point
+    runs the engine's path (``max_slots=N``: on the card the steps are
+    CUDA graphs) and its eager arm (``eager max_slots=N``: the bare steps,
+    ``smoke.eager_steps``) in turns, the order flipped every window."""
     prompts = [np.arange(1, 9, dtype=np.int32) + i for i in range(8)]
     runs = {"legacy_engine": [],
-            **{f"max_slots={s}": [] for s in SWEEP_SLOTS}}
-    for _ in range(windows):
+            **{f"{arm}max_slots={s}": [] for s in SWEEP_SLOTS
+               for arm in ("", "eager ")}}
+    for w in range(windows):
         eng = ServingEngine(cfg, params, handlers=2, max_seq=64,
                             slots_per_handler=4, n_pages=N_PAGES,
                             device=dev)
@@ -246,16 +251,20 @@ def bench_throughput(cfg, params, dev, max_new: int,
             {"tokens_per_s": sum(map(len, outs)) / wall, "wall_s": wall,
              "dropped": dropped})
         for slots in SWEEP_SLOTS:
-            eng = ServingEngine(cfg, params, n_pages=N_PAGES,
-                                scheduler=_sched(slots), device=dev)
-            outs, wall, dropped = _run_engine(eng, prompts, max_new)
-            runs[f"max_slots={slots}"].append(
-                {"tokens_per_s": sum(map(len, outs)) / wall,
-                 "wall_s": wall, "dropped": dropped,
-                 "evictions": eng.scheduler.evictions,
-                 "pages_charged": eng.stats.pages_charged,
-                 "pages_saved": eng.stats.pages_saved,
-                 **_latency_us(eng)})
+            arms = ("", "eager ") if w % 2 == 0 else ("eager ", "")
+            for arm in arms:
+                eng = ServingEngine(cfg, params, n_pages=N_PAGES,
+                                    scheduler=_sched(slots), device=dev)
+                if arm:
+                    eager_steps(eng)
+                outs, wall, dropped = _run_engine(eng, prompts, max_new)
+                runs[f"{arm}max_slots={slots}"].append(
+                    {"tokens_per_s": sum(map(len, outs)) / wall,
+                     "wall_s": wall, "dropped": dropped,
+                     "evictions": eng.scheduler.evictions,
+                     "pages_charged": eng.stats.pages_charged,
+                     "pages_saved": eng.stats.pages_saved,
+                     **_latency_us(eng)})
     out = {"windows": windows}
     for name, rs in runs.items():
         dropped = sum(r["dropped"] for r in rs)

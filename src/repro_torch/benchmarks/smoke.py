@@ -66,12 +66,30 @@ def spread(readings: Iterable[float]) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def eager_steps(eng):
+    """Put the bare paged steps on a scheduler-mode engine in place of its
+    graphed ones (``steps.jit_step``): the eager arm of a comparison run in
+    turns.  -> ``eng``."""
+    from ..serving.steps import make_decode_step, make_paged_prefill_step
+
+    eng._decode_paged = make_decode_step(eng.cfg, paged=True)
+    eng._prefill_paged = make_paged_prefill_step(eng.cfg)
+    return eng
+
+
 def sync(dev) -> None:
     """Wait for the card (a no-op on the CPU)."""
     import torch
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def allocated(dev) -> Optional[int]:
+    """``torch.cuda.memory_allocated`` on the card, None on the CPU."""
+    import torch
+
+    return torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
 
 
 def sync_gate(dev, fn: Callable[[], object]) -> str:

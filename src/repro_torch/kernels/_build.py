@@ -10,6 +10,7 @@ import time: the CPU tests import every module, and this host has no nvcc.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,7 +20,7 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,19 +34,29 @@ _mu = threading.Lock()
 _libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
+_recording = threading.local()
+
+
 class LaunchCounter:
     """Launches of one kernel: the wrapper adds one where it launches the
     kernel and nowhere else, so a run can show that its path went through
-    the kernel and not through the plain version."""
+    the kernel and not through the plain version.  Inside
+    :func:`recording_launches` this thread's additions go to the recording
+    instead (a CUDA graph capture launches nothing: the graph adds what it
+    recorded at each replay)."""
 
     def __init__(self, name: str):
         self.name = name
         self._n = 0
         self._mu = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
+        rec = getattr(_recording, "counts", None)
+        if rec is not None:
+            rec[self.name] = rec.get(self.name, 0) + n
+            return
         with self._mu:
-            self._n += 1
+            self._n += n
 
     @property
     def value(self) -> int:
@@ -54,6 +65,19 @@ class LaunchCounter:
     def reset(self) -> None:
         with self._mu:
             self._n = 0
+
+
+@contextlib.contextmanager
+def recording_launches() -> Iterator[Dict[str, int]]:
+    """Divert this thread's :class:`LaunchCounter` additions into the
+    yielded dict (counter name -> launches) instead of the counters; other
+    threads keep counting as before."""
+    prev = getattr(_recording, "counts", None)
+    _recording.counts = {}
+    try:
+        yield _recording.counts
+    finally:
+        _recording.counts = prev
 
 
 def nvcc() -> str:

@@ -29,7 +29,12 @@ Two modes:
   the copy-on-write page copy moves data and scale together.
   The device batch state (page-index matrix, cache lengths, current tokens)
   changes only on control-plane events, so a decode tick moves no bytes
-  between host and device except the generated tokens.
+  between host and device except the generated tokens.  On the card the
+  paged decode and chunk-prefill steps each run as one CUDA graph
+  (``steps.jit_step``, where ``repro`` jits them): eager on the first
+  tick with a new parameter tree, captured on the second and replayed
+  after; the leases bracket the replay outside the graph, and ``stop()``
+  drops the graphs.
 * **Handler mode** (``scheduler=None``): each handler thread gathers up to
   ``slots_per_handler`` requests, runs one prefill and then decode steps
   against a dense per-batch cache, beside the pool's page map.
@@ -74,8 +79,8 @@ from ..obs.metrics import MetricsRegistry
 from .kv_pool import KVPool, page_keys
 from .scheduler import (LatencyFeedbackController, Phase, Scheduler,
                         SchedulerConfig, SlotState)
-from .steps import (make_decode_step, make_paged_prefill_step,
-                    make_prefill_step)
+from .steps import (GraphedStep, jit_step, make_decode_step,
+                    make_paged_prefill_step, make_prefill_step)
 
 
 @dataclasses.dataclass
@@ -447,8 +452,12 @@ class ServingEngine:
         self._cur = torch.zeros((ms, 1), dtype=torch.int32, device=dev)
         self._rids = torch.full((ms,), -1, dtype=torch.int32, device=dev)
         self._active = torch.zeros((ms,), dtype=torch.int32, device=dev)
-        self._decode_paged = make_decode_step(cfg, paged=True)
-        self._prefill_paged = make_paged_prefill_step(cfg)
+        # one CUDA graph each on the card (``jit_step``), as ``repro`` jits
+        # them; the page store is used in place, as it donates it
+        self._decode_paged = jit_step(make_decode_step(cfg, paged=True),
+                                      donate_argnums=(1,))
+        self._prefill_paged = jit_step(make_paged_prefill_step(cfg),
+                                       donate_argnums=(1,))
         self._free_est = n_pages        # host mirror of pool pressure
         self._compact_req = False
         # decode steps seen so far: the first obs_warmup_steps stay out of
@@ -785,6 +794,8 @@ class ServingEngine:
             clens[i] = st.prefill_pos + chunk
             ptbl[i, :len(st.pages)] = st.pages
             rids[i] = st.rid
+        # new device tensors each tick; the graphed step copies them into
+        # its input buffers
         rid_dev, toks_d, clens_d, newls_d, ptbl_d = (
             torch.from_numpy(a).to(self.device)
             for a in (rids, toks, clens, newls, ptbl))
@@ -1097,6 +1108,12 @@ class ServingEngine:
             self.inq.put(None)
         for t in self._threads:
             t.join(timeout=self.ecfg.join_timeout_s)
+        # the graphed steps hold their pools and the parameter trees they
+        # were captured on
+        for step in (getattr(self, "_decode_paged", None),
+                     getattr(self, "_prefill_paged", None)):
+            if isinstance(step, GraphedStep):
+                step.reset()
         self.check_health()
 
     def lock_stats(self) -> Dict[str, Any]:

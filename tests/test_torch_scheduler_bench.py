@@ -102,14 +102,17 @@ def test_throughput_sweep_records_every_window(models):
     SM.FAILURES.clear()
     rec = SB.bench_throughput(ct, tp, CPU, 4, windows=2)
     assert SM.FAILURES == []
-    assert set(rec) == {"windows", "legacy_engine",
-                        *(f"max_slots={s}" for s in SB.SWEEP_SLOTS)}
-    for name in ("legacy_engine", "max_slots=1", "max_slots=8"):
+    # each sweep point on the engine's (graphed) steps and on the bare ones
+    arms = [f"{arm}max_slots={s}" for s in SB.SWEEP_SLOTS
+            for arm in ("", "eager ")]
+    assert set(rec) == {"windows", "legacy_engine", *arms}
+    for name in ("legacy_engine", "max_slots=1", "max_slots=8",
+                 "eager max_slots=1", "eager max_slots=8"):
         tps = rec[name]["tokens_per_s"]
         assert len(tps["readings"]) == 2 and rec[name]["dropped"] == 0
         assert tps["min"] <= tps["median"] <= tps["max"]
-    for s in SB.SWEEP_SLOTS:
-        sweep = rec[f"max_slots={s}"]
+    for name in arms:
+        sweep = rec[name]
         assert sweep["decode_p50_us"]["median"] > 0
         # 8 prompts of 8 tokens in pages of 8: two pages each, no sharing
         assert sweep["pages_charged"]["readings"] == [16, 16]
