@@ -104,11 +104,13 @@ non-zero exit and no result line:
    sharing the first wave's prompts; every request finishes, every page is
    free with no refcount left, the table drains, the prefix cache saved
    pages and copied a boundary page, and K1, K2, K3, K5 and K6 each
-   launched during the run; then the same run on the quantized store
-   (``quant_kv=True``, int8 pages with float32 scales, 1.07 GB of K/V),
-   which must launch K7 and K8 and neither K5 nor K6, count its quantized
-   tokens and prefix hits, hold exactly half the bf16 run's K/V bytes and
-   agree with the bf16 run's tokens on at least the stated share; then the
+   launched during the run; then the same run without swaps on the bf16
+   store and on the quantized store (``quant_kv=True``, int8 pages with
+   float32 scales, 1.07 GB of K/V), which must launch K7 and K8 and
+   neither K5 nor K6, count its quantized tokens and prefix hits, hold
+   exactly half the bf16 run's K/V bytes and agree with the bf16 run's
+   tokens on at least the stated share (without swaps, which ticks see
+   which weights cannot move the share); then the
    bf16 run again on a store of ``EVICT_PAGES`` pages, where decode growth
    evicts running requests: it must evict at least once and finish every
    request with every page free and the table drained after ``stop()``;
@@ -147,7 +149,10 @@ non-zero exit and no result line:
    teacher-forced, within a near-tie of the dense greedy loop's best at
    every step; the same request at float32 compute through the prefix
    cache equal to the dense loop at float32; the closed loop's p99 TTFT /
-   goodput band on the medians of the replays recorded;
+   goodput band on the medians of the replays recorded; then the same with
+   the trace's arrivals compressed (2x, 4x, ... until a static replay's
+   wall is ``OVERLOAD_RATIO`` times the arrivals' span), where the
+   graphed engine queues, its band on the medians recorded too;
 6c. hotswap: the port's hot-swap benchmark
    (``repro_torch.benchmarks.hotswap``) at full width and the twin's full
    sizes: 8 identity swaps under 8 requests; the float32 parameters
@@ -188,7 +193,21 @@ non-zero exit and no result line:
    forward pass; the same over the quantized store (int8 pages, float32
    compute, through K8 and K7); and the scheduler engine's bf16 tokens
    against the dense greedy loop on the same prompts, each within its
-   stated tolerance.
+   stated tolerance;
+10. families: every other registered config at full width, one model at
+   a time, each released before the next with ``memory_allocated`` back
+   within one store (its page store or decode caches) of the phase's
+   start: ``rwkv6-7b`` (ssm), ``zamba2-2.7b`` (hybrid), ``phi3.5-moe``
+   at 16 of 32 layers and ``llama4-maverick`` at 2 of 48 (moe, bf16
+   parameters; ``FAMILY_HANDLER``) in handler mode as in phase 5 (hot
+   swaps of a new final norm scale, K1-K4 launched, the B = 4 decode step
+   timed and profiled, two requests alone equal to the greedy loop); and
+   ``gemma-2b``, ``minicpm-2b`` (bf16), ``phi-3-vision-4.2b`` and
+   ``granite-20b`` at 26 of 52 layers (``FAMILY_SCHEDULER``) in graphed
+   scheduler mode as in phase 6 (K1-K3, K5, K6 launched), their tokens
+   teacher-forced within ``BF16_VS_F32_REL`` of the dense loop's best,
+   K5/K6 held to their plain versions at each config's head shape and
+   timed at its tick shape beside SDPA and the byte bound.
 
 The random weights are the reference's distributions with the (tied)
 embedding scaled by ``EMBED_SCALE``.  Unscaled, the current token's own
@@ -430,6 +449,26 @@ GRAPH_LOGITS_REL = 1e-5
 # swap
 SWAP_TREES_AFTER = 1.25
 SWAP_TREES_PEAK = 4.5
+# the families phase: (arch, depth or None for the published depth).
+# Handler mode serves the families the page store cannot hold; the depth
+# cut is where the parameters exceed the card's 80 GB (phi3.5-moe: 84 GB
+# of bf16 at 32 layers, so 16; llama4: one period of a dense and a
+# 128-expert MoE layer, ~37 GB).  Scheduler mode serves the other dense
+# and vlm configs at their own head shapes; granite-20b's float32
+# parameters are ~81 GB at 52 layers, so 26.
+FAMILY_HANDLER = (("rwkv6-7b", None), ("zamba2-2.7b", None),
+                  ("phi3.5-moe-42b-a6.6b", 16),
+                  ("llama4-maverick-400b-a17b", 2))
+FAMILY_SCHEDULER = (("gemma-2b", None), ("minicpm-2b", None),
+                    ("phi-3-vision-4.2b", None), ("granite-20b", 26))
+# the families' variety check: a greedy output that repeats one token
+# depends on neither cache nor attention, and a random deep model can have
+# such a fixed point for some prompts (on an H100 80GB HBM3, 700 W, at
+# seed 0: minicpm-2b and granite-20b, 2 of 12 scheduler requests each,
+# every other check held); so at least this share of each run's outputs
+# must vary, every output is held by the run's other checks, and the
+# repeated ones are counted in the record
+FAMILY_VARIED = 0.5
 
 
 def emit(obj) -> None:
@@ -1827,9 +1866,11 @@ def time_paged_kernels(dev, seed=0, quant=False) -> dict:
     return out
 
 
-def _time_paged_case(dev, case, quant, plain_n=100) -> dict:
+def _time_paged_case(dev, case, quant, plain_n=100, designs=True) -> dict:
     """One K5-K8 timing record (see :func:`time_paged_kernels`); the plain
-    version and the library call run ``plain_n`` calls a window."""
+    version and the library call run ``plain_n`` calls a window.  Without
+    ``designs``: the kernel alone, without the parent design and the
+    one-split ablation beside it."""
     import torch
     import torch.nn.functional as F
 
@@ -1864,7 +1905,6 @@ def _time_paged_case(dev, case, quant, plain_n=100) -> dict:
                 + torch.arange(kvh, device=dev)[None, :])
         sectors += 2 * _sectors(sidx)
     flops = 4 * hd * h * int(seen.sum())
-    parent_lib = PA.parent_lib()
     if s == 1:
         args = (q[:, 0].contiguous(), kp, vp, *scales, pi, cl)
         fn = PA.paged_attention_quant if quant else PA.paged_attention
@@ -1885,19 +1925,22 @@ def _time_paged_case(dev, case, quant, plain_n=100) -> dict:
         one = functools.partial(PCA._chunk, q, kp, vp, scales, pi, cl, nl,
                                 n_split=1)
         pairs, splits, pps = PCA.chunk_plan(q, kp, pi.shape[1])
-    parent = functools.partial(PCA._chunk, q, kp, vp, scales, pi, cl, nl,
-                               n_split=1, lib=parent_lib)
-    # parent and kernel in turns: parent, kernel, kernel, parent
-    p0, k0 = _median_ms(parent), _median_ms(kern)
-    k1, p1 = _median_ms(kern), _median_ms(parent)
-    o = _median_ms(one)
-    k = {"graph_ms": (k0["graph_ms"] + k1["graph_ms"]) / 2,
-         "call_ms": (k0["call_ms"] + k1["call_ms"]) / 2}
-    extra = {"parent_ms": (p0["graph_ms"] + p1["graph_ms"]) / 2,
-             "parent_readings_ms": [p0["graph_ms"], p1["graph_ms"]],
-             "readings_ms": [k0["graph_ms"], k1["graph_ms"]],
-             "one_split_ms": o["graph_ms"], "splits": splits,
-             "split_pages": pps}
+    extra = {"splits": splits, "split_pages": pps}
+    if designs:
+        parent = functools.partial(PCA._chunk, q, kp, vp, scales, pi, cl,
+                                   nl, n_split=1, lib=PA.parent_lib())
+        # parent and kernel in turns: parent, kernel, kernel, parent
+        p0, k0 = _median_ms(parent), _median_ms(kern)
+        k1, p1 = _median_ms(kern), _median_ms(parent)
+        reads = [k0, k1]
+        extra.update(parent_ms=(p0["graph_ms"] + p1["graph_ms"]) / 2,
+                     parent_readings_ms=[p0["graph_ms"], p1["graph_ms"]],
+                     one_split_ms=_median_ms(one)["graph_ms"])
+    else:
+        reads = [_median_ms(kern)]
+    k = {key: statistics.mean(r[key] for r in reads)
+         for key in ("graph_ms", "call_ms")}
+    extra["readings_ms"] = [r["graph_ms"] for r in reads]
     if s > 1:
         resident, smem = PCA.chunk_residency(q, kp, pairs)
         extra.update(pairs_per_cta=pairs, resident_ctas=resident,
@@ -2080,7 +2123,13 @@ def _prompts(seed, n, length, vocab):
 
 
 def run_engine(cfg, params, dev, *, n_req, prompt_len, max_new, handlers,
-               slots, max_seq, swap_s, compact_s, seed) -> dict:
+               slots, max_seq, swap_s, compact_s, seed, perturb=None,
+               varied=1.0) -> dict:
+    """The handler-mode engine serving ``n_req`` seeded requests under
+    hot-swap (``perturb``: the updater's new tree, the engine's default
+    when None) and compaction: the table drains, every page is free, K1-K4
+    each launched, and at least the share ``varied`` of the greedy outputs
+    (all, by default) is not one token repeated."""
     import numpy as np
 
     from repro_torch.kernels import ops as K
@@ -2095,7 +2144,8 @@ def run_engine(cfg, params, dev, *, n_req, prompt_len, max_new, handlers,
     t0 = time.monotonic()
     for r in reqs:
         eng.submit(r)
-    eng.start(swap_period_s=swap_s, compact_period_s=compact_s)
+    eng.start(swap_period_s=swap_s, compact_period_s=compact_s,
+              perturb=perturb)
     for r in reqs:
         if not r.done.wait(timeout=600):
             eng.stop()
@@ -2114,7 +2164,7 @@ def run_engine(cfg, params, dev, *, n_req, prompt_len, max_new, handlers,
     for r in reqs:
         assert r.out is not None and len(r.out) == max_new, r.rid
         assert ((r.out >= 0) & (r.out < cfg.vocab)).all(), r.out
-    _check_varied([r.out.tolist() for r in reqs])
+    repeated = _check_varied([r.out.tolist() for r in reqs], varied)
     assert st["engine"]["weight_swaps"] >= 1, st["engine"]
     assert st["device_leases"]["revocations"] >= 1, st["device_leases"]
     assert free == eng.kv_pool.n_pages, free
@@ -2139,16 +2189,18 @@ def run_engine(cfg, params, dev, *, n_req, prompt_len, max_new, handlers,
             "fast_path_share": {"model": share(st["model"]),
                                 "pages": share(st["pages"])},
             "pages_free": free, "held_after": held.tolist(),
-            "launches": counts,
+            "launches": counts, "repeated_outputs": repeated,
             "outputs": [r.out.tolist() for r in reqs]}
 
 
-def _check_varied(outputs) -> None:
+def _check_varied(outputs, least: float = 1.0) -> int:
     """Greedy outputs that repeat one token do not depend on the cache or
-    on attention, so a check on them could not fail: refuse them."""
+    on attention, so a check on them could not fail: refuse them unless at
+    least the share ``least`` of the outputs vary.  -> how many repeat."""
     same = [o for o in outputs if len(set(o)) < 2]
-    if same:
+    if len(outputs) - len(same) < least * len(outputs):
         raise AssertionError(f"greedy outputs repeat one token: {same}")
+    return len(same)
 
 
 def decode_step_ms(cfg, params, dev, batch, steps, max_seq) -> dict:
@@ -2228,7 +2280,7 @@ def _profile(fn, steps=4) -> dict:
 
 
 def token_check(cfg, params, dev, *, n_req, prompt_len, max_new, max_seq,
-                seed) -> dict:
+                seed, varied=1.0) -> dict:
     from repro_torch.benchmarks import smoke as SM
     from repro_torch.serving.engine import Request, ServingEngine
 
@@ -2251,8 +2303,8 @@ def token_check(cfg, params, dev, *, n_req, prompt_len, max_new, max_seq,
         if r.out.tolist() != want:
             raise AssertionError(f"request {r.rid}: engine {r.out.tolist()} "
                                  f"!= dense greedy loop {want}")
-    _check_varied([r.out.tolist() for r in reqs])
-    return {"requests": n_req, "equal": True,
+    repeated = _check_varied([r.out.tolist() for r in reqs], varied)
+    return {"requests": n_req, "equal": True, "repeated_outputs": repeated,
             "tokens": [r.out.tolist() for r in reqs]}
 
 
@@ -2339,9 +2391,12 @@ def _sched_prompts(seed, vocab, ps=16):
 
 
 def run_scheduler(cfg, params, dev, *, seed, max_new=16,
-                  quant_kv=False, n_pages=SCHED_PAGES) -> dict:
+                  quant_kv=False, n_pages=SCHED_PAGES, swap_s=0.25,
+                  perturb=None, varied=1.0) -> dict:
     """Two waves of six requests through ``ServingEngine(scheduler=...)``
-    under hot-swap (every 0.25 s) and compaction (every 0.2 s).  Wave 2 is
+    under hot-swap (every ``swap_s`` s, none at 0; ``perturb``: the
+    updater's new tree, the engine's default when None) and compaction
+    (every 0.2 s).  Wave 2 is
     submitted once wave 1 has finished, since a prefix enters the index
     only when its request has finished prefill.  ``quant_kv``: the same on
     the quantized store, whose attention must run in K7/K8 alone.
@@ -2351,7 +2406,11 @@ def run_scheduler(cfg, params, dev, *, seed, max_new=16,
     prefix cache need not save a page there.  Records the graphed steps'
     warm-ups, captures and replays, and ``memory_allocated`` before the
     run, at its peak and after ``stop()``, in parameter trees, gated by
-    ``SWAP_TREES_PEAK`` and ``SWAP_TREES_AFTER``."""
+    ``SWAP_TREES_PEAK`` and ``SWAP_TREES_AFTER``.  The tick timers are
+    taken off the engine after ``stop()``: stored on it they close over
+    its bound methods, a reference cycle that kept each run's engine, its
+    store and its last parameter tree allocated until the garbage
+    collector ran."""
     import torch
 
     from repro_torch.kernels import ops as K
@@ -2362,11 +2421,16 @@ def run_scheduler(cfg, params, dev, *, seed, max_new=16,
                         quant_kv=quant_kv,
                         scheduler=SchedulerConfig(**SCHED))
     ticks = {"prefill": [], "decode": []}
+    replayed = {"prefill": [], "decode": []}
     for kind, acc in ticks.items():         # host wall time of each tick
-        def timed(plan, fn=getattr(eng, f"_run_{kind}"), acc=acc):
+        def timed(plan, fn=getattr(eng, f"_run_{kind}"), acc=acc,
+                  step=getattr(eng, f"_{kind}_paged"), rep=replayed[kind]):
+            before = (step.stats.warmups, step.stats.captures)
             t0 = time.perf_counter()
             fn(plan)
             acc.append((time.perf_counter() - t0) * 1e3)
+            if (step.stats.warmups, step.stats.captures) == before:
+                rep.append(acc[-1])         # the step replayed its graph
         setattr(eng, f"_run_{kind}", timed)
     wave1, wave2 = _sched_prompts(seed, cfg.vocab)
     waves = [[Request(rid=base + i, prompt=p, max_new=max_new)
@@ -2377,16 +2441,19 @@ def run_scheduler(cfg, params, dev, *, seed, max_new=16,
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     t0 = time.monotonic()
-    eng.start(swap_period_s=0.25, compact_period_s=0.2)
-    for wave in waves:
-        for r in wave:
-            eng.submit(r)
-        for r in wave:
-            if not r.done.wait(timeout=600):
-                eng.stop()
-                raise AssertionError(f"request {r.rid} timed out")
-    wall = time.monotonic() - t0
-    eng.stop()
+    eng.start(swap_period_s=swap_s, compact_period_s=0.2, perturb=perturb)
+    try:
+        for wave in waves:
+            for r in wave:
+                eng.submit(r)
+            for r in wave:
+                if not r.done.wait(timeout=600):
+                    raise AssertionError(f"request {r.rid} timed out")
+        wall = time.monotonic() - t0
+    finally:
+        eng.stop()
+        for kind in ticks:
+            del eng.__dict__[f"_run_{kind}"]
     counts = K.launch_counts()               # read right after the path
     torch.cuda.synchronize()
     tree = sum(x.numel() * x.element_size() for x in _leaves(params))
@@ -2412,7 +2479,7 @@ def run_scheduler(cfg, params, dev, *, seed, max_new=16,
     for r in reqs:
         assert r.out is not None and len(r.out) == max_new, r.rid
         assert ((r.out >= 0) & (r.out < cfg.vocab)).all(), r.out
-    _check_varied([r.out.tolist() for r in reqs])
+    repeated = _check_varied([r.out.tolist() for r in reqs], varied)
     es = st["engine"]
     assert free == n_pages, free
     assert pool["refcount_total"] == 0 and pool["shared_pages"] == 0, pool
@@ -2421,7 +2488,7 @@ def run_scheduler(cfg, params, dev, *, seed, max_new=16,
         assert es["pages_saved"] >= 1 and es["cow_copies"] >= 1, es
     else:
         assert st["scheduler"]["evictions"] >= 1, st["scheduler"]
-    assert es["weight_swaps"] >= 1, es
+    assert es["weight_swaps"] >= 1 or not swap_s, es
     assert memory["growth_trees"] <= SWAP_TREES_AFTER, (memory, es)
     assert memory["peak_growth_trees"] <= SWAP_TREES_PEAK, (memory, es)
     attn, other = ((QUANT_KERNELS, PAGED_KERNELS) if quant_kv
@@ -2439,6 +2506,7 @@ def run_scheduler(cfg, params, dev, *, seed, max_new=16,
     leaf_bytes = {name: x.numel() * x.element_size()
                   for name, x in eng._pages_kv.items()}
     return {"config": SCHED, "n_pages": n_pages, "quant_kv": quant_kv,
+            "swap_s": swap_s,
             "page_store_bytes": sum(leaf_bytes.values()),
             "leaf_bytes": leaf_bytes,
             "hbm_bytes_gauge": eng.metrics.gauge("pool.hbm_bytes").value,
@@ -2450,6 +2518,11 @@ def run_scheduler(cfg, params, dev, *, seed, max_new=16,
             "decode_tick_median_ms": statistics.median(ticks["decode"]),
             "prefill_ticks": len(ticks["prefill"]),
             "prefill_tick_median_ms": statistics.median(ticks["prefill"]),
+            # the ticks whose step replayed its graph (no warm-up, no
+            # capture): after each swap a step runs eagerly and captures
+            **{f"{k}_replay_ticks": len(v) for k, v in replayed.items()},
+            **{f"{k}_replay_tick_median_ms": statistics.median(v) if v
+               else None for k, v in replayed.items()},
             "ttft_median_ms": ttft.quantile(0.5) / 1e6,
             "weight_swaps": es["weight_swaps"],
             "compactions": es["compactions"],
@@ -2458,7 +2531,7 @@ def run_scheduler(cfg, params, dev, *, seed, max_new=16,
             "prefix_hits": pool["prefix_hits"],
             "scheduler": st["scheduler"], "pages_free": free,
             "held_after": held.tolist(), "launches": counts,
-            "steps": steps, "memory": memory,
+            "repeated_outputs": repeated, "steps": steps, "memory": memory,
             "prompts": [r.prompt.tolist() for r in reqs],
             "outputs": [r.out.tolist() for r in reqs]}
 
@@ -2537,9 +2610,13 @@ def paged_precision(cfg, params, dev, *, seed, quant=False) -> dict:
 
 def quant_vs_bf16(sched, qsched) -> dict:
     """The quantized scheduler run against the bf16 one on the same
-    prompts: the int8 K/V leaves hold exactly half the bf16 leaves' bytes
-    (read from each run's ``pool.hbm_bytes`` gauge, less the scales), and
-    at least ``QUANT_VS_BF16_SHARE`` of the generated tokens are equal."""
+    prompts, both without swaps (with swaps, which ticks see which
+    weights depends on timing, and the share with it): the int8 K/V
+    leaves hold exactly half the bf16 leaves' bytes (read from each run's
+    ``pool.hbm_bytes`` gauge, less the scales), and at least
+    ``QUANT_VS_BF16_SHARE`` of the generated tokens are equal."""
+    if sched["weight_swaps"] or qsched["weight_swaps"]:
+        raise AssertionError("quant_vs_bf16 compares runs without swaps")
     scales = sum(qsched["leaf_bytes"][k] for k in ("k_scale", "v_scale"))
     kv_int8 = qsched["hbm_bytes_gauge"] - scales
     if 2 * kv_int8 != sched["hbm_bytes_gauge"]:
@@ -2998,6 +3075,237 @@ def graph_step_phase(cfg, params, dev, seed) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: the other model families, one full-width model at a time
+# ---------------------------------------------------------------------------
+
+
+def _swap_final_norm(params):
+    """A hot swap's new parameter tree at full width: the final norm scale
+    times (1 + 1e-6), every other leaf the old tree's.  The engine's
+    default copies every leaf, and two trees of phi3.5-moe or granite-20b
+    exceed the card."""
+    return {**params, "final_ln": params["final_ln"] * (1.0 + 1e-6)}
+
+
+def _family_params(arch, depth, dev, seed):
+    """-> (config cut to ``depth`` layers, its parameters from ``seed``
+    with the embedding scaled by ``EMBED_SCALE``, as ``main`` makes
+    llama3.2-1b's, the seconds it took)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import model as M
+
+    cfg = configs.get(arch)[0]
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    t0 = time.monotonic()
+    params = M.init_params(seed, cfg, device=dev)
+    params["embed"].mul_(EMBED_SCALE)
+    torch.cuda.synchronize()
+    return cfg, params, time.monotonic() - t0
+
+
+def _family_model_record(cfg, params, depth, init_s) -> dict:
+    from repro_torch import configs
+
+    full = configs.get(cfg.name)[0]
+    return {"config": cfg.name, "family": cfg.family,
+            "layers": cfg.n_layers, "published_layers": full.n_layers,
+            "depth_cut": depth is not None, "d_model": cfg.d_model,
+            "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.hd],
+            "param_dtype": str(cfg.param_dtype),
+            "params": sum(int(x.numel()) for x in _leaves(params)),
+            "param_bytes": sum(x.numel() * x.element_size()
+                               for x in _leaves(params)),
+            "init_s": init_s}
+
+
+def _released(start, store_bytes, what) -> dict:
+    """Collect and release after a model's runs; its ``memory_allocated``
+    must come back within ``store_bytes`` (its page store or decode
+    caches) of the phase's start (G3).  cuBLAS's workspaces are released
+    first: the library keeps one for each thread that ran a product (32
+    MB on the card at every new handler thread), whatever model ran."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    rec = {"allocated_after_release": after,
+           "growth_bytes": after - start, "store_bytes": store_bytes}
+    if after - start > store_bytes:
+        raise AssertionError(f"families: {what} left {after - start} B "
+                             f"allocated, more than one store "
+                             f"({store_bytes} B): {rec}")
+    return rec
+
+
+def family_handler_run(arch, depth, dev, seed, start) -> dict:
+    """One family in handler mode at full width: 2 x 4 slots serving 8
+    requests of 16 + 16 tokens under hot swaps (``_swap_final_norm``,
+    every 0.25 s) and compaction (``run_engine``: K1-K4 launched, table
+    drained, pages free); the B = 4 decode step timed and profiled; two
+    requests alone, without swaps, equal to the direct greedy loop of the
+    port's decode step (``token_check``); peak ``memory_allocated``."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    cfg, params, init_s = _family_params(arch, depth, dev, seed)
+    rec = _family_model_record(cfg, params, depth, init_s)
+    torch.cuda.reset_peak_memory_stats()
+    slots, max_seq = 4, 64
+    rec["engine"] = run_engine(cfg, params, dev, n_req=8, prompt_len=16,
+                               max_new=16, handlers=2, slots=slots,
+                               max_seq=max_seq, swap_s=0.25, compact_s=0.2,
+                               seed=seed, perturb=_swap_final_norm,
+                               varied=FAMILY_VARIED)
+    rec["decode_step"] = decode_step_ms(cfg, params, dev, batch=slots,
+                                        steps=32, max_seq=max_seq)
+    rec["tokens"] = token_check(cfg, params, dev, n_req=2, prompt_len=16,
+                                max_new=8, max_seq=max_seq, seed=seed + 1,
+                                varied=FAMILY_VARIED)
+    rec["peak_allocated"] = torch.cuda.max_memory_allocated()
+    caches = sum(x.numel() * x.element_size() for x in _leaves(
+        M.init_caches(cfg, slots, max_seq, device="meta")))
+    del params
+    rec["memory"] = _released(start, caches, cfg.name)
+    return rec
+
+
+def _family_kernel_checks(dev, cfg, seeds=range(2)) -> dict:
+    """K5 and K6 against their plain versions at ``cfg``'s head shape: the
+    tick shapes (8 decode rows, 2 prefill rows of 32 columns; 16-position
+    pages, 8 lanes) and seeded trap cases, for each (q, page) type pair
+    the engine or the precision checks use."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import ref as R
+
+    out = {name: {"cases": 0, "max_abs_err": 0.0, "matched": True,
+                  "tolerance": {"float32": PAGED_F32_ATOL,
+                                "bfloat16": "2**-7 * max |out|"}}
+           for name in PAGED_KERNELS}
+    head = dict(h=cfg.n_heads, kvh=cfg.n_kv_heads, hd=cfg.hd, ps=16,
+                lanes=8, n_pages=64)
+    types = [(torch.bfloat16, torch.bfloat16), (torch.float32,
+                                                torch.bfloat16),
+             (torch.float32, torch.float32)]
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        cases = [(dict(head, b=8, s=1), False), (dict(head, b=2, s=32), False),
+                 (dict(head, b=5, s=5), True)]
+        for (sh, traps), (qd, kd) in itertools.product(cases, types):
+            q, kp, vp, pi, cl, nl = _paged_case(
+                rng, dev, q_dtype=qd, kv_dtype=kd, traps=traps, **sh)
+            _paged_agree(out, "paged_chunk_attention",
+                         K.paged_chunk_attention(q, kp, vp, pi, cl, nl),
+                         R.paged_chunk_attn_ref(q, kp, vp, pi, cl, nl),
+                         _padding(q, cl, nl))
+            q1 = q[:, -1].contiguous()
+            _paged_agree(out, "paged_attention",
+                         K.paged_attention(q1, kp, vp, pi, cl),
+                         R.paged_attn_ref(q1, kp, vp, pi, cl), cl <= 0)
+    torch.cuda.synchronize()
+    return out
+
+
+def _family_kernel_times(dev, cfg, seed=0) -> dict:
+    """K5 and K6 timed at ``cfg``'s tick shapes, the scheduler phase's
+    (a decode tick of 8 rows at 24-88 positions, a prefill tick of 2 rows
+    x 32 columns on prefixes of 0 and 40) with the engine's bf16 q and
+    pages in a ``SCHED_PAGES`` store, each beside its plain version, SDPA
+    and its byte bound (``_time_paged_case`` without the designs)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    base = dict(h=cfg.n_heads, kvh=cfg.n_kv_heads, hd=cfg.hd, ps=16,
+                lanes=8, n_pages=SCHED_PAGES, q_dtype=cfg.compute_dtype,
+                kv_dtype=torch.bfloat16, traps=False)
+    dec = _paged_case(rng, dev, b=8, s=1, clen=rng.integers(24, 89, 8),
+                      nl=np.ones(8), **base)
+    pre = _paged_case(rng, dev, b=2, s=32, clen=[32, 72], nl=[32, 32],
+                      **base)
+    return {name: _time_paged_case(dev, case, False, designs=False)
+            for name, case in zip(PAGED_KERNELS, (dec, pre))}
+
+
+def family_scheduler_run(arch, depth, dev, seed, start) -> dict:
+    """One dense or vlm config in graphed scheduler mode at full width:
+    ``run_scheduler``'s two waves under swaps (``_swap_final_norm``) and
+    compaction (K1-K3, K5 and K6 launched, prefix cache used, pages free,
+    table drained, memory gates), the tokens teacher-forced within
+    ``BF16_VS_F32_REL`` of the dense greedy loop's best at every step
+    (R12), K5/K6 checked against their plain versions at the config's
+    head shape and timed at its tick shape."""
+    import torch
+
+    from repro_torch.benchmarks import smoke as SM
+
+    cfg, params, init_s = _family_params(arch, depth, dev, seed)
+    rec = _family_model_record(cfg, params, depth, init_s)
+    torch.cuda.reset_peak_memory_stats()
+    sched = run_scheduler(cfg, params, dev, seed=seed + 3,
+                          perturb=_swap_final_norm, varied=FAMILY_VARIED)
+    rec["scheduler"] = {k: v for k, v in sched.items()
+                        if k not in ("prompts", "outputs")}
+    hold = SM.hold_tokens(cfg, params, dev, sched["prompts"],
+                          sched["outputs"], 16, near_tie_rel=BF16_VS_F32_REL,
+                          max_seq=SCHED["max_seq"])
+    rec["teacher_forced"] = hold
+    if not hold["ok"]:
+        raise AssertionError(f"{cfg.name}: scheduler tokens outside the "
+                             f"near-tie of the dense loop: {hold}")
+    rec["kernel_checks"] = _family_kernel_checks(dev, cfg)
+    rec["kernel_times"] = _family_kernel_times(dev, cfg)
+    rec["peak_allocated"] = torch.cuda.max_memory_allocated()
+    del params
+    rec["memory"] = _released(start, sched["page_store_bytes"], cfg.name)
+    return rec
+
+
+def families_phase(dev, seed, emit_model) -> dict:
+    """Every registered config but llama3.2-1b at full width, one model at
+    a time, each released before the next (``_released``): the ``moe``,
+    ``ssm`` and ``hybrid`` families in handler mode
+    (``FAMILY_HANDLER``), the other dense and vlm configs in graphed
+    scheduler mode (``FAMILY_SCHEDULER``).  ``emit_model`` prints each
+    model's record as it finishes."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    out = {"allocated_at_start": start, "handler": [], "scheduler": []}
+    for mode, run, entries in (("handler", family_handler_run,
+                                FAMILY_HANDLER),
+                               ("scheduler", family_scheduler_run,
+                                FAMILY_SCHEDULER)):
+        for arch, depth in entries:
+            t1 = time.monotonic()
+            rec = run(arch, depth, dev, seed, start)
+            rec["seconds"] = time.monotonic() - t1
+            emit_model({"mode": mode, **rec})
+            out[mode].append({"config": arch, "layers": rec["layers"],
+                              "seconds": rec["seconds"]})
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phases 6a-6d: the serving benchmark twins, and the writer path under load
 # and faults, at full width
 # ---------------------------------------------------------------------------
@@ -3107,12 +3415,32 @@ def slo_phase(cfg, params, dev) -> dict:
     turns; the closed loop's band on the medians (p99 TTFT within 10% of
     static, or within 50% with goodput no worse) is recorded, not gated:
     it flips between cards even on the medians of three replays (ROADMAP
-    G1)."""
+    G1).
+
+    ``overload``: the same trace with its arrivals compressed
+    (``SLO.overload_speed``: 2x, 4x, ... until a static replay's wall is
+    at least ``SLO.OVERLOAD_RATIO`` times its arrivals' span, so the
+    graphed engine queues as ``repro``'s CPU engine does at 1x), both
+    arms replayed ``TWIN_WINDOWS["slo"]`` times in turns at that speed
+    with the same checks, and the band judged on their medians: where
+    the band makes its claim.  Recorded, not gated (ROADMAP G1)."""
     from repro_torch.benchmarks import slo as SLO
 
-    return _twin_phase("slo", lambda: SLO.bench_closed_loop(
-        cfg, params, dev, smoke=True, gate_band=False,
-        near_tie_rel=BF16_VS_F32_REL, windows=TWIN_WINDOWS["slo"]))
+    def run():
+        rec = SLO.bench_closed_loop(
+            cfg, params, dev, smoke=True, gate_band=False,
+            near_tie_rel=BF16_VS_F32_REL, windows=TWIN_WINDOWS["slo"])
+        speed, probes = SLO.overload_speed(cfg, params, dev, smoke=True)
+        if speed is None:
+            raise AssertionError(f"slo: no speed overloads the engine: "
+                                 f"{probes}")
+        rec["overload"] = {"ratio": SLO.OVERLOAD_RATIO, "probes": probes,
+                           **SLO.bench_closed_loop(
+                               cfg, params, dev, smoke=True, gate_band=False,
+                               near_tie_rel=BF16_VS_F32_REL,
+                               windows=TWIN_WINDOWS["slo"], speed=speed)}
+        return rec
+    return _twin_phase("slo", run)
 
 
 def hotswap_phase(cfg, params, dev) -> dict:
@@ -3303,10 +3631,15 @@ def main(argv=None) -> int:
 
     sched = run_scheduler(cfg, params, dev, seed=args.seed + 3)
     emit({"phase": "scheduler", "card": card, **sched})
+    # the two stores compared on runs without swaps (G2)
+    still = run_scheduler(cfg, params, dev, seed=args.seed + 3, swap_s=0)
     qsched = run_scheduler(cfg, params, dev, seed=args.seed + 3,
-                           quant_kv=True)
+                           quant_kv=True, swap_s=0)
     emit({"phase": "scheduler_quant", "card": card, **qsched,
-          "vs_bf16": quant_vs_bf16(sched, qsched)})
+          "bf16_without_swaps": {k: still[k] for k in (
+              "tokens_per_s", "decode_tick_median_ms", "weight_swaps",
+              "launches")},
+          "vs_bf16": quant_vs_bf16(still, qsched)})
     esched = run_scheduler(cfg, params, dev, seed=args.seed + 3,
                            n_pages=EVICT_PAGES)
     emit({"phase": "scheduler_evict", "card": card,
@@ -3347,6 +3680,11 @@ def main(argv=None) -> int:
                                        quant=True),
         "scheduler_vs_greedy": scheduler_vs_greedy(cfg, params, dev,
                                                    sched)})
+
+    del params
+    emit({"phase": "families", "card": card, **families_phase(
+        dev, args.seed,
+        lambda rec: emit({"phase": "family", "card": card, **rec}))})
 
     # launches: the scheduler run (the serving path) for every kernel it
     # runs, the quantized scheduler run for K7/K8, the device_bravo

@@ -73,6 +73,11 @@ from .smoke import (FAILURES, check, deficit_rel, dense_reference, spread,
 
 MAX_SLOTS = 8
 KNEE_FACTOR = 4.0       # controller TTFT target = uncontended TTFT x this
+# the overload arm: the trace's arrivals compressed by the least of these
+# speeds at which a static replay's wall is OVERLOAD_RATIO times the span
+# of its arrivals (the engine queues)
+OVERLOAD_SPEEDS = (2.0, 4.0, 8.0, 16.0, 32.0, 64.0)
+OVERLOAD_RATIO = 1.5
 
 
 def _engine(cfg, params, dev, controller=None, n_pages=128,
@@ -121,15 +126,17 @@ def trace_config(smoke: bool) -> LoadgenConfig:
     )
 
 
-def _run(cfg, params, dev, trace, controller, *, label: str):
-    """Replay the trace against a fresh engine; fold the SLO report."""
+def _run(cfg, params, dev, trace, controller, *, label: str,
+         speed: float = 1.0):
+    """Replay the trace against a fresh engine (``speed`` > 1 compresses
+    its arrivals); fold the SLO report."""
     TRACER.clear()
     TRACER.enable()
     try:
         eng = _engine(cfg, params, dev, controller=controller)
         eng.start()
         t0 = time.monotonic()
-        reqs = replay(eng, trace, timeout_s=600.0)
+        reqs = replay(eng, trace, speed=speed, timeout_s=600.0)
         wall_s = time.monotonic() - t0
         eng.stop()
         events = TRACER.snapshot()
@@ -252,12 +259,45 @@ def band_held(sp99: float, cp99: float, sgp: float, cgp: float) -> bool:
     return (cp99 <= sp99 * 1.10) or (cp99 <= sp99 * 1.5 and cgp >= sgp)
 
 
+def _trace(cfg, smoke: bool):
+    """The seeded trace of :func:`trace_config`, its prompt tokens drawn
+    from the model's vocabulary (the trace's default of 1000 exceeds the
+    smoke config's 512; the reference's JAX gather clamps such tokens, the
+    port's embedding refuses them)."""
+    tcfg = trace_config(smoke)
+    tcfg = dataclasses.replace(tcfg, vocab=min(tcfg.vocab, cfg.vocab))
+    return tcfg, generate_trace(tcfg)
+
+
+def overload_speed(cfg, params, dev, smoke: bool) -> tuple:
+    """The least of ``OVERLOAD_SPEEDS`` at which the static engine cannot
+    keep up with the trace's compressed arrivals: one static replay at
+    each, in order, until the replay's wall is at least ``OVERLOAD_RATIO``
+    times the span of its arrivals (the last arrival's time over the
+    speed).  -> (speed, or None if none overloads; the probe replays'
+    readings ``{speed, span_s, wall_s, ratio}``)."""
+    _, trace = _trace(cfg, smoke)
+    last = max(t.at_s for t in trace.requests)
+    probes = []
+    for speed in OVERLOAD_SPEEDS:
+        run = _run(cfg, params, dev, trace, None, label="overload probe",
+                   speed=speed)
+        span = last / speed
+        probes.append({"speed": speed, "span_s": span,
+                       "wall_s": run["wall_s"],
+                       "ratio": run["wall_s"] / span})
+        if run["wall_s"] >= OVERLOAD_RATIO * span:
+            return speed, probes
+    return None, probes
+
+
 def bench_closed_loop(cfg, params, dev, smoke: bool, *,
                       gate_band: bool = True,
                       near_tie_rel: float = None,
-                      windows: int = 1) -> dict:
+                      windows: int = 1, speed: float = 1.0) -> dict:
     """The calibrated static vs closed-loop replay of the seeded trace of
-    :func:`trace_config`, ``windows`` replays of each arm in turns
+    :func:`trace_config` (its arrivals compressed by ``speed``; see
+    :func:`overload_speed`), ``windows`` replays of each arm in turns
     (static, closed, static, closed, ...) on one calibration.  The band is
     judged on the medians of the replays' p99 TTFT and goodput; each
     replay's readings are recorded (``replays``), with the least and the
@@ -286,20 +326,16 @@ def bench_closed_loop(cfg, params, dev, smoke: bool, *,
         recover_after=2, cooldown=2, probe_after=6,
         watermark_step=0.05, watermark_max=0.5)
 
-    # prompt tokens come from the model's vocabulary (the trace's default
-    # of 1000 exceeds the smoke config's 512; the reference's JAX gather
-    # clamps such tokens, the port's embedding refuses them)
-    tcfg = trace_config(smoke)
-    tcfg = dataclasses.replace(tcfg, vocab=min(tcfg.vocab, cfg.vocab))
-    trace = generate_trace(tcfg)
+    tcfg, trace = _trace(cfg, smoke)
     check(len(trace.requests) >= 8,
           f"trace has enough load ({len(trace.requests)} requests)")
 
     statics, closeds = [], []
     for _ in range(windows):
-        statics.append(_run(cfg, params, dev, trace, None, label="static"))
+        statics.append(_run(cfg, params, dev, trace, None, label="static",
+                            speed=speed))
         closeds.append(_run(cfg, params, dev, trace, cc,
-                            label="closed_loop"))
+                            label="closed_loop", speed=speed))
     replays = []
     for w, (st, cl) in enumerate(zip(statics, closeds)):
         replays += [_replay_record(st, "static", w),
@@ -404,7 +440,9 @@ def bench_closed_loop(cfg, params, dev, smoke: bool, *,
                   "duration_s": tcfg.duration_s,
                   "base_rps": tcfg.base_rps,
                   "burst_factor": tcfg.burst_factor,
-                  "seed": tcfg.seed},
+                  "seed": tcfg.seed, "speed": speed,
+                  "arrival_span_s": max(t.at_s for t in trace.requests)
+                  / speed},
         "windows": windows,
         "calibrated_step_p50_ms": step_p50_ms,
         "calibrated_ttft_ms": ttft_ms,

@@ -187,13 +187,14 @@ def deficit_rel(lg, tok) -> float:
     return float((lg.max() - lg[tok]) / lg.abs().max())
 
 
-def teacher_forced(cfg, params, prompt, got, dev) -> dict:
-    """The dense loop fed the engine's tokens ``got``: at how many steps
-    the engine's token is not the loop's best given the same prefix, and
-    its largest :func:`deficit_rel` over all steps."""
+def teacher_forced(cfg, params, prompt, got, dev, max_seq: int = 64) -> dict:
+    """The dense loop (caches of ``max_seq`` positions) fed the engine's
+    tokens ``got``: at how many steps the engine's token is not the loop's
+    best given the same prefix, and its largest :func:`deficit_rel` over
+    all steps."""
     logits: list = []
     best = dense_reference(cfg, params, prompt, len(got), dev,
-                           logits=logits, forced=got)
+                           max_seq=max_seq, logits=logits, forced=got)
     return {"flips": sum(a != b for a, b in zip(got, best)),
             "max_deficit_rel": max((deficit_rel(lg, t)
                                     for lg, t in zip(logits, got)),
@@ -201,16 +202,26 @@ def teacher_forced(cfg, params, prompt, got, dev) -> dict:
 
 
 def hold_tokens(cfg, params, dev, prompts, got, max_new: int,
-                near_tie_rel: Optional[float] = None) -> dict:
+                near_tie_rel: Optional[float] = None,
+                max_seq: int = 64) -> dict:
     """Hold request i's tokens ``got[i]`` (``max_new`` of them, for
     ``prompts[i]``) to the dense reference through
     :func:`teacher_forced`: with no flip at any step the free-running
     dense loop gives exactly ``got[i]``.  ``near_tie_rel=None`` demands
     that (``ok``); otherwise every step's token must stand within
     ``near_tie_rel * max |logit|`` of the dense step's best (R12: bf16
-    rounds the paged engine and the dense loop apart at full width)."""
-    tf = [teacher_forced(cfg, params, p, g, dev)
-          for p, g in zip(prompts, got)]
+    rounds the paged engine and the dense loop apart at full width).
+    ``max_seq``: the dense loop's cache positions, at least the longest
+    prompt plus ``max_new``.  A (prompt, tokens) pair that repeats is
+    forced once."""
+    seen: dict = {}
+    tf = []
+    for p, g in zip(prompts, got):
+        key = (tuple(int(t) for t in p), tuple(int(t) for t in g))
+        if key not in seen:
+            seen[key] = teacher_forced(cfg, params, p, g, dev,
+                                       max_seq=max_seq)
+        tf.append(seen[key])
     whole = len(got) == len(prompts) and all(len(g) == max_new
                                              for g in got)
     exact = whole and not any(t["flips"] for t in tf)

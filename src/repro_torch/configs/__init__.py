@@ -7,8 +7,9 @@ Every module defines:
 
 ``repro``'s modules also carry per-arch sharding rules (``RULES``); on one
 card there is nothing to shard, so the port's have none and :func:`get`
-returns ``(CONFIG, shapes)``.  The other architectures come with the slices
-that port their model families (ROADMAP.md).
+returns ``(CONFIG, shapes)``.  Every architecture of ``repro`` is here, in
+its order, but ``hubert-xlarge``, whose audio family comes with a later
+slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -20,7 +21,15 @@ from typing import Dict, Tuple
 from ..models.common import ModelConfig
 
 ARCH_IDS = (
+    "llama4-maverick-400b-a17b",
+    "phi3.5-moe-42b-a6.6b",
+    "phi-3-vision-4.2b",
+    "minicpm-2b",
+    "granite-20b",
+    "gemma-2b",
     "llama3.2-1b",
+    "rwkv6-7b",
+    "zamba2-2.7b",
 )
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}

@@ -23,7 +23,8 @@ Params = dict
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | vlm (others: later slices)
+    family: str                   # dense | moe | ssm | hybrid | vlm (audio:
+    #                               not ported yet)
     n_layers: int
     d_model: int
     n_heads: int
@@ -38,6 +39,18 @@ class ModelConfig:
     use_rope: bool = True
     causal: bool = True
     tie_embeddings: bool = False
+    # --- MoE ---
+    moe_experts: int = 0
+    moe_top_k: int = 0
+    moe_every: int = 1            # every k-th layer is MoE (llama4: 2)
+    moe_shared_expert: bool = False
+    moe_d_ff: int = 0             # 0 -> d_ff
+    capacity_factor: float = 1.25
+    # --- SSM / hybrid ---
+    ssm_kind: str = ""            # "rwkv6" | "mamba2"
+    ssm_state: int = 0            # mamba2 d_state / rwkv head size
+    ssm_expand: int = 2           # mamba2 expansion
+    hybrid_attn_every: int = 0    # zamba2: shared attn block every k layers
     # --- frontend stubs ---
     frontend: str = ""            # "" | "vision_stub"
     frontend_tokens: int = 0      # prompt prefix length fed as embeddings
@@ -59,6 +72,28 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.hd
+
+    def num_params(self) -> int:
+        """Parameter count, from the shapes ``init_params`` makes on the
+        meta device (nothing is allocated or drawn)."""
+        from . import model as _model
+        return int(sum(x.numel() for x in _model.leaves(
+            _model.init_params(0, self, device="meta"))))
+
+    def num_active_params(self) -> int:
+        """Active parameters per token (MoE: only routed-to experts)."""
+        total = self.num_params()
+        if not self.moe_experts:
+            return total
+        # subtract inactive expert params
+        d_ff = self.moe_d_ff or self.d_ff
+        n_mats = 3 if self.glu else 2
+        per_expert = n_mats * self.d_model * d_ff
+        n_moe_layers = len([i for i in range(self.n_layers)
+                            if (i % self.moe_every) == self.moe_every - 1])
+        inactive = n_moe_layers * (self.moe_experts - self.moe_top_k) \
+            * per_expert
+        return int(total - inactive)
 
 
 # ---------------------------------------------------------------------------
@@ -194,13 +229,30 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+class ShapeOnly:
+    """The generator of a parameter tree on the meta device: the init
+    functions read its ``device`` and :func:`dense_init` draws nothing."""
+    device = torch.device("meta")
+
+
 def dense_init(gen: torch.Generator, shape: Tuple[int, ...], dtype,
                fan_in: Optional[int] = None) -> torch.Tensor:
     """Normal(0, 1/fan_in) in float32, cast to ``dtype``, drawn from
-    ``gen`` on the generator's device."""
+    ``gen`` on the generator's device.  A ``dtype`` other than float32 is
+    drawn one trailing matrix at a time, so the float32 draw of a large
+    expert stack never exists whole."""
     fan_in = fan_in if fan_in is not None else shape[-2] if len(shape) >= 2 \
         else shape[-1]
     std = 1.0 / math.sqrt(fan_in)
-    x = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return (x * std).to(dtype)
+    dev = gen.device
+    if dev.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=dev)
+    if dtype == torch.float32 or len(shape) <= 2:
+        x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=dev)
+        return (x * std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    for m in out.view(-1, *shape[-2:]):
+        m.copy_(torch.randn(shape[-2:], generator=gen, dtype=torch.float32,
+                            device=dev) * std)
+    return out

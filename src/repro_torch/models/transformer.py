@@ -1,18 +1,20 @@
-"""Decoder transformer blocks in plain PyTorch: GQA attention and the
-(gated) MLP, for dense layers.
+"""Decoder transformer blocks in plain PyTorch: GQA attention, the
+(gated) MLP and the mixture-of-experts layer.
 
-The port of ``repro.models.transformer``'s dense branches: attention with
-no cache (prefill, through :func:`~.common.flash_attention`), with a
+The port of ``repro.models.transformer`` on one device: attention with no
+cache (prefill, through :func:`~.common.flash_attention`), with a
 per-request cache (decode, through :func:`~.common.decode_attention`) and
 over the KV pool's page store (the scheduler's data plane, through the
-kernels K5 and K6, or K7 and K8 over the quantized page store).  The MoE
-layer comes with a later slice.  Where JAX returned a new cache, the cached
-branches write the new K/V into the caller's cache tensors in place and
-return them.
+kernels K5 and K6, or K7 and K8 over the quantized page store); the MoE
+layer's two bodies at one model shard, where ``repro``'s all-to-alls and
+reductions over the mesh are the identity.  Where JAX returned a new
+cache, the cached branches write the new K/V into the caller's cache
+tensors in place and return them.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -47,6 +49,23 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, n: int,
     }
     if cfg.glu:
         p["wg"] = dense_init(gen, (n, d, ff), dt, fan_in=d)
+    return p
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, n: int) -> Params:
+    d, e = cfg.d_model, cfg.moe_experts
+    ff = cfg.moe_d_ff or cfg.d_ff
+    dt = cfg.param_dtype
+    p = {
+        "router": dense_init(gen, (n, d, e), dt, fan_in=d),
+        "wi": dense_init(gen, (n, e, d, ff), dt, fan_in=d),
+        "wo": dense_init(gen, (n, e, ff, d), dt, fan_in=ff),
+        "ln": torch.zeros((n, d), dtype=dt, device=gen.device),
+    }
+    if cfg.glu:
+        p["wg"] = dense_init(gen, (n, e, d, ff), dt, fan_in=d)
+    if cfg.moe_shared_expert:
+        p["shared"] = init_mlp(gen, cfg, n, d_ff=ff)
     return p
 
 
@@ -188,13 +207,135 @@ def mlp_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return matmul(a, p["wo"]).to(x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts at one model shard
+# ---------------------------------------------------------------------------
+
+
+def _route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+    """-> (probs (T, E) float32, top-k probs, top-k experts (T, k)).
+    ``lax.top_k`` breaks ties toward the lower expert index; a stable
+    descending sort does the same, where ``torch.topk`` promises no
+    order."""
+    probs = torch.softmax(matmul(x, router).float(), dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.moe_top_k
+    top_p, top_e = top_p[:, :k], top_e[:, :k]
+    if k > 1:
+        top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    return probs, top_p, top_e
+
+
+def _aux_loss(probs: torch.Tensor, top_e: torch.Tensor, E: int):
+    """The switch-style load-balance loss."""
+    me = probs.mean(dim=0)
+    ce = torch.nn.functional.one_hot(top_e[:, 0], E).float().mean(dim=0)
+    return E * (me * ce).sum()
+
+
+def _expert_mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("ecd,edf->ecf", a, w, preferred_element_type=float32)``:
+    the products summed and returned in float32.  Operands narrower than
+    float32 are widened, which is exact, one expert at a time, so no
+    float32 copy of a bf16 expert stack exists whole."""
+    if a.dtype == w.dtype == torch.float32:
+        return torch.bmm(a, w)
+    return torch.stack([a[e].float() @ w[e].float()
+                        for e in range(a.shape[0])])
+
+
+def _moe_local(x: torch.Tensor, router, wi, wg, wo, cfg: ModelConfig):
+    """``repro``'s dispatch body at one model shard.
+
+    x: (T, d).  Each (token, choice) pair takes the next place of its
+    expert's capacity bucket, ``cap = ceil(T * k * capacity_factor / E)``,
+    counted by a cumulative sum over the flat ``(T * k,)`` order; a pair
+    past ``cap`` is dropped (it adds zeros at place 0, which leaves the
+    place's token exact).  The experts run on their buckets; the outputs
+    come back weighted by the routing probabilities."""
+    T, d = x.shape
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    cap = max(1, math.ceil(T * k * cfg.capacity_factor / E))
+    probs, top_p, top_e = _route(x, router, cfg)
+    flat_e = top_e.reshape(-1)                             # (T*k,)
+    flat_p = top_p.reshape(-1)
+    flat_t = torch.arange(T, device=x.device).repeat_interleave(k)
+    onehot = torch.nn.functional.one_hot(flat_e, E)        # (T*k, E)
+    pos = torch.cumsum(onehot, dim=0) - 1
+    pos = torch.gather(pos, 1, flat_e[:, None])[:, 0]
+    keep = pos < cap
+    safe_pos = torch.where(keep, pos, 0)
+    send = torch.zeros((E, cap, d), dtype=torch.float32, device=x.device)
+    send.index_put_((flat_e, safe_pos),
+                    torch.where(keep[:, None], x[flat_t], 0).float(),
+                    accumulate=True)
+    recv = send.to(x.dtype)
+    a = act_fn(cfg.act)(_expert_mm_f32(recv, wi))
+    if cfg.glu:
+        a = a * _expert_mm_f32(recv, wg)
+    out = matmul(a.to(x.dtype), wo)                        # (E, cap, d)
+    gathered = torch.where(keep[:, None], out[flat_e, safe_pos], 0)
+    y = (gathered.float() * flat_p[:, None].float()).reshape(T, k, d)
+    y = y.sum(dim=1).to(x.dtype)
+    return y, _aux_loss(probs, top_e, E)
+
+
+def _moe_local_tp(x: torch.Tensor, router, wi, wg, wo, cfg: ModelConfig):
+    """``repro``'s dropless decode body at one model shard: every expert
+    runs on every token, each output weighted by the token's renormalised
+    top-k probability for that expert (0 where not chosen)."""
+    E = cfg.moe_experts
+    probs, top_p, top_e = _route(x, router, cfg)
+    eix = torch.arange(E, device=x.device)
+    sel = top_e[:, None, :] == eix[None, :, None]          # (T, E, k)
+    w = torch.where(sel, top_p[:, None, :], 0.0).sum(dim=-1)   # (T, E)
+    a = act_fn(cfg.act)(matmul(x[None], wi))               # (E, T, ff)
+    if cfg.glu:
+        a = a * matmul(x[None], wg)
+    out = matmul(a.to(x.dtype), wo)                        # (E, T, d)
+    y = torch.einsum("etd,te->td", out.float(), w.float())
+    return y.to(x.dtype), _aux_loss(probs, top_e, E)
+
+
+def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                decode_tp: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (B, S, d), aux-loss scalar.  ``decode_tp``: the
+    dropless decode body, else the capacity dispatch body; the always-on
+    shared expert (llama4) is added to either."""
+    B, S, d = x.shape
+    h = rms_norm(x, p["ln"], cfg.norm_eps).reshape(B * S, d)
+    body = _moe_local_tp if decode_tp else _moe_local
+    y, aux = body(h, p["router"], p["wi"], p.get("wg"), p["wo"], cfg)
+    y = y.reshape(B, S, d).to(x.dtype)
+    if "shared" in p:
+        sh = p["shared"]
+        hs = rms_norm(x, sh["ln"], cfg.norm_eps)
+        a = act_fn(cfg.act)(matmul(hs, sh["wi"]))
+        if cfg.glu:
+            a = a * matmul(hs, sh["wg"])
+        y = y + matmul(a, sh["wo"]).to(x.dtype)
+    return y, aux
+
+
+# ---------------------------------------------------------------------------
+# Transformer block
+# ---------------------------------------------------------------------------
+
+
 def block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                  positions, cache=None, cache_len=None, pages=None,
-                  new_lens=None):
-    """One dense block -> (x', aux loss, cache'); a dense block has no
-    auxiliary loss, so it is the float 0.0."""
+                  positions, is_moe: bool = False, cache=None,
+                  cache_len=None, pages=None, new_lens=None):
+    """One block -> (x', aux loss, cache').  A dense block has no
+    auxiliary loss, so it is the float 0.0; an MoE block (``is_moe``)
+    decodes through the dropless body whenever ``cache_len`` is given, as
+    ``repro``'s MoE stack chooses."""
     a, new_cache = attn_forward(p["attn"], x, cfg, positions=positions,
                                 cache=cache, cache_len=cache_len,
                                 pages=pages, new_lens=new_lens)
     x = x + a
-    return x + mlp_forward(p["mlp"], x, cfg), 0.0, new_cache
+    if is_moe:
+        m, aux = moe_forward(p["moe"], x, cfg,
+                             decode_tp=cache_len is not None)
+    else:
+        m, aux = mlp_forward(p["mlp"], x, cfg), 0.0
+    return x + m, aux, new_cache

@@ -79,6 +79,44 @@ def test_verbatim_copies_match_their_originals(rel):
     assert (PORT / rel).read_text() == want
 
 
+CONFIG_COPIES = sorted(p.name for p in (PORT / "configs").glob("*.py")
+                       if p.name != "__init__.py")
+
+
+def _config_copy(text: str) -> str:
+    """``repro``'s config module as the port copies it: no ``RULES`` (with
+    the comments above it) and no import of ``dist``, the dtypes torch's."""
+    lines = text.splitlines(keepends=True)
+    drop = set()
+    for node in ast.parse(text).body:
+        if isinstance(node, ast.ImportFrom) and node.module == \
+                "dist.sharding":
+            drop.add(node.lineno - 1)
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", "") == "RULES" for t in node.targets):
+            start, end = node.lineno - 1, node.end_lineno - 1
+            while start and lines[start - 1].lstrip().startswith("#"):
+                start -= 1
+            if end + 1 < len(lines) and not lines[end + 1].strip():
+                end += 1
+            drop.update(range(start, end + 1))
+    out = "".join(x for i, x in enumerate(lines) if i not in drop)
+    return out.replace("import jax.numpy as jnp",
+                       "import torch").replace("jnp.", "torch.")
+
+
+def test_every_config_but_audio_is_copied():
+    want = sorted(p.name for p in (REF / "configs").glob("*.py")
+                  if p.name not in ("__init__.py", "hubert_xlarge.py"))
+    assert CONFIG_COPIES == want
+
+
+@pytest.mark.parametrize("name", CONFIG_COPIES)
+def test_config_copies_match_their_originals(name):
+    want = _config_copy((REF / "configs" / name).read_text())
+    assert (PORT / "configs" / name).read_text() == want
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -130,6 +130,39 @@ def test_slo_band_thresholds_are_the_references(sp99, cp99, sgp, cgp, held):
     assert SLO.band_held(sp99, cp99, sgp, cgp) is held
 
 
+def test_overload_speed_takes_the_least_speed_that_queues(model,
+                                                          monkeypatch):
+    """``overload_speed`` replays the static arm at 2x, 4x, ... and stops
+    at the first speed whose wall is at least ``OVERLOAD_RATIO`` times the
+    span of the compressed arrivals; each replay sees that speed."""
+    cfg, params = model
+    _, trace = SLO._trace(cfg, smoke=True)
+    last = max(t.at_s for t in trace.requests)
+    seen = []
+    walls = {}
+
+    def fake_run(cfg_, params_, dev, trace_, controller, *, label, speed):
+        assert controller is None
+        seen.append(speed)
+        return {"wall_s": walls[speed]}
+
+    monkeypatch.setattr(SLO, "_run", fake_run)
+    speeds = SLO.OVERLOAD_SPEEDS
+    # each speed's wall just short of the ratio, the third's just over it
+    for i, s in enumerate(speeds):
+        walls[s] = SLO.OVERLOAD_RATIO * last / s * (1.01 if i == 2
+                                                    else 0.99)
+    speed, probes = SLO.overload_speed(cfg, params, "cpu", smoke=True)
+    assert speed == speeds[2] and seen == list(speeds[:3])
+    assert [p["speed"] for p in probes] == seen
+    assert all(abs(p["ratio"] - walls[p["speed"]] / (last / p["speed"]))
+               < 1e-12 for p in probes)
+    seen.clear()
+    walls.update({s: 0.0 for s in speeds})
+    assert SLO.overload_speed(cfg, params, "cpu", smoke=True)[0] is None
+    assert seen == list(speeds)
+
+
 def test_benchmarks_refuse_to_run_without_a_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for run in (HS.run, SLO.run):
