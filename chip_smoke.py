@@ -2662,32 +2662,49 @@ def eviction_summary(esched, sched) -> dict:
                                  for s in same]}
 
 
-def scheduler_vs_greedy(cfg, params, dev, sched) -> dict:
+def scheduler_vs_greedy(cfg, params, dev, still, sched) -> dict:
     """The scheduler engine's bf16 tokens against the dense greedy loop
-    (``benchmarks.smoke.dense_reference``) on the same prompts: the share
-    of positions whose token is equal, at least
-    ``SCHED_VS_GREEDY_SHARE``."""
+    (``benchmarks.smoke.dense_reference``) on the same prompts.  The run
+    without swaps (``still``), whose weights are the loop's: the share of
+    positions whose token is equal, at least ``SCHED_VS_GREEDY_SHARE``.
+    The run under swaps (``sched``), whose ticks see the updater's trees at
+    times the clock decides: every token, teacher-forced, within
+    ``BF16_VS_F32_REL`` of the largest logit of the loop's best (R12); its
+    share is recorded."""
     from repro_torch.benchmarks import smoke as SM
 
+    if still["weight_swaps"]:
+        raise AssertionError("scheduler_vs_greedy's share reads a run "
+                             "without swaps")
+    if still["prompts"] != sched["prompts"]:
+        raise AssertionError("the two scheduler runs served other prompts")
     want = {}
-    equal = total = 0
-    first_diff = []
-    for prompt, got in zip(sched["prompts"], sched["outputs"]):
-        key = tuple(prompt)
-        if key not in want:
-            want[key] = SM.dense_reference(cfg, params, prompt, len(got),
-                                           dev, max_seq=SCHED["max_seq"])
-        ref = want[key]
-        same = [a == b for a, b in zip(got, ref)]
-        equal += sum(same)
-        total += len(same)
-        first_diff.append(same.index(False) if not all(same) else None)
-    share = equal / total
-    out = {"requests": len(first_diff), "equal_share": share,
-           "first_difference": first_diff,
-           "tolerance": SCHED_VS_GREEDY_SHARE}
-    if share < SCHED_VS_GREEDY_SHARE:
+
+    def reading(run):
+        same = []
+        for prompt, got in zip(run["prompts"], run["outputs"]):
+            key = tuple(prompt)
+            if key not in want:
+                want[key] = SM.dense_reference(cfg, params, prompt, len(got),
+                                               dev, max_seq=SCHED["max_seq"])
+            same.append([a == b for a, b in zip(got, want[key])])
+        return {"equal_share": sum(map(sum, same)) / sum(map(len, same)),
+                "first_difference": [s.index(False) if not all(s) else None
+                                     for s in same]}
+
+    out = {"requests": len(still["outputs"]), **reading(still),
+           "tolerance": SCHED_VS_GREEDY_SHARE,
+           "under_swaps": {"weight_swaps": sched["weight_swaps"],
+                           **reading(sched),
+                           "teacher_forced": SM.hold_tokens(
+                               cfg, params, dev, sched["prompts"],
+                               sched["outputs"], len(sched["outputs"][0]),
+                               near_tie_rel=BF16_VS_F32_REL,
+                               max_seq=SCHED["max_seq"])}}
+    if out["equal_share"] < SCHED_VS_GREEDY_SHARE:
         raise AssertionError(f"scheduler vs greedy loop: {out}")
+    if not out["under_swaps"]["teacher_forced"]["ok"]:
+        raise AssertionError(f"scheduler under swaps vs greedy loop: {out}")
     return out
 
 
@@ -3679,7 +3696,7 @@ def main(argv=None) -> int:
         "paged_quant": paged_precision(cfg, params, dev, seed=args.seed + 4,
                                        quant=True),
         "scheduler_vs_greedy": scheduler_vs_greedy(cfg, params, dev,
-                                                   sched)})
+                                                   still, sched)})
 
     del params
     emit({"phase": "families", "card": card, **families_phase(

@@ -239,3 +239,44 @@ def test_scheduler_mode_refuses_what_is_not_ported(models):
     with pytest.raises(ValueError, match="vocab|tokens"):
         eng.submit(TE.Request(rid=1, prompt=np.asarray([1, ct.vocab]),
                               max_new=2))
+
+
+def test_chip_smoke_scheduler_vs_greedy_gates(models):
+    """``chip_smoke.scheduler_vs_greedy`` takes its share from the run
+    without swaps, whose weights are the greedy loop's, and holds the run
+    under swaps teacher-forced: it refuses a share read from a swapped
+    run, and a swapped run's token that is far from the loop's best."""
+    import importlib.util
+    import pathlib
+
+    from repro_torch.benchmarks import smoke as SM
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    _, ct, _, tp = models
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, ct.vocab, n).astype(np.int32).tolist()
+               for n in (9, 17)]
+    outs = [SM.dense_reference(ct, tp, p, 4, cpu, max_seq=32)
+            for p in prompts]
+    still = {"weight_swaps": 0, "prompts": prompts, "outputs": outs}
+    swapped = {**still, "weight_swaps": 3}
+    got = cs.scheduler_vs_greedy(ct, tp, cpu, still, swapped)
+    assert got["equal_share"] == 1.0
+    assert got["under_swaps"]["teacher_forced"]["exact"]
+    with pytest.raises(AssertionError, match="without swaps"):
+        cs.scheduler_vs_greedy(ct, tp, cpu, swapped, swapped)
+    # a token the loop ranks far below its best, at the swapped run's
+    # second step: its share drops, and the teacher-forced gate refuses it
+    logits = []
+    SM.dense_reference(ct, tp, prompts[0], 4, cpu, max_seq=32,
+                       logits=logits)
+    worst = int(np.argmin(logits[1]))
+    bad = {**swapped, "outputs": [outs[0][:1] + [worst] + outs[0][2:],
+                                  outs[1]]}
+    with pytest.raises(AssertionError, match="under swaps"):
+        cs.scheduler_vs_greedy(ct, tp, cpu, still, bad)
