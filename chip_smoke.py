@@ -194,20 +194,36 @@ non-zero exit and no result line:
    compute, through K8 and K7); and the scheduler engine's bf16 tokens
    against the dense greedy loop on the same prompts, each within its
    stated tolerance;
-10. families: every other registered config at full width, one model at
-   a time, each released before the next with ``memory_allocated`` back
-   within one store (its page store or decode caches) of the phase's
-   start: ``rwkv6-7b`` (ssm), ``zamba2-2.7b`` (hybrid), ``phi3.5-moe``
-   at 16 of 32 layers and ``llama4-maverick`` at 2 of 48 (moe, bf16
-   parameters; ``FAMILY_HANDLER``) in handler mode as in phase 5 (hot
-   swaps of a new final norm scale, K1-K4 launched, the B = 4 decode step
-   timed and profiled, two requests alone equal to the greedy loop); and
-   ``gemma-2b``, ``minicpm-2b`` (bf16), ``phi-3-vision-4.2b`` and
-   ``granite-20b`` at 26 of 52 layers (``FAMILY_SCHEDULER``) in graphed
+10. families: every other registered decoder config at full width, one
+   model at a time, each released before the next with
+   ``memory_allocated`` back within one store (its page store or decode
+   caches) of the phase's start: ``rwkv6-7b`` (ssm) at 16 of 32 layers,
+   ``zamba2-2.7b`` (hybrid), ``phi3.5-moe`` at 16 of 32 layers and
+   ``llama4-maverick`` at 2 of 48 (moe, bf16 parameters;
+   ``FAMILY_HANDLER``) in handler mode as in phase 5 (hot swaps of a new
+   final norm scale, K1-K4 launched, the B = 4 decode step timed and
+   profiled, two requests alone equal to the greedy loop); and
+   ``gemma-2b``, ``minicpm-2b`` (bf16) at 20 of 40 layers,
+   ``phi-3-vision-4.2b`` at 16 of 32 and ``granite-20b`` at 26 of 52
+   (``FAMILY_SCHEDULER``) in graphed
    scheduler mode as in phase 6 (K1-K3, K5, K6 launched), their tokens
    teacher-forced within ``BF16_VS_F32_REL`` of the dense loop's best,
    K5/K6 held to their plain versions at each config's head shape and
-   timed at its tick shape beside SDPA and the byte bound.
+   timed at its tick shape beside SDPA and the byte bound;
+11. train: the training path (``repro_torch.training``: ``loss_fn``,
+   autograd, AdamW, the data pipeline, checkpoints), which runs none of
+   the port's kernels (no launch counted in the phase): llama3.2-1b and
+   hubert-xlarge at full width and depth on train_4k's sequences of
+   4096, the global batch cut to ``TRAIN_BATCH`` in microbatches of 2
+   with every block recomputed, one warm-up step, ``TRAIN_TIMED_STEPS``
+   timed and one profiled (step ms, tokens/s, device ms and busy share,
+   peak ``memory_allocated``, every step's loss finite and the first near
+   ln V); one step of llama3.2-1b at full width, 2 layers, on the card
+   against the same step on the CPU (``CARD_VS_CPU``); ``repro``'s
+   quickstart contract (the smoke llama's loss down by 0.5 in 60 steps);
+   6 steps equal to 3 + checkpoint + restore + 3, bit for bit, under
+   deterministic algorithms; ``memory_allocated`` back within one train
+   batch of the phase's start.
 
 The random weights are the reference's distributions with the (tied)
 embedding scaled by ``EMBED_SCALE``.  Unscaled, the current token's own
@@ -455,12 +471,16 @@ SWAP_TREES_PEAK = 4.5
 # of bf16 at 32 layers, so 16; llama4: one period of a dense and a
 # 128-expert MoE layer, ~37 GB).  Scheduler mode serves the other dense
 # and vlm configs at their own head shapes; granite-20b's float32
-# parameters are ~81 GB at 52 layers, so 26.
-FAMILY_HANDLER = (("rwkv6-7b", None), ("zamba2-2.7b", None),
+# parameters are ~81 GB at 52 layers, so 26.  Since the train phase
+# (~160-230 s) joined the script, the three slowest runs at full depth
+# (rwkv6-7b 35.9 s, minicpm-2b 74.6, phi-3-vision 70.1 on an H100 80GB
+# HBM3, 700 W) run half their layers, so the script stays near 950 s of
+# its 1200.
+FAMILY_HANDLER = (("rwkv6-7b", 16), ("zamba2-2.7b", None),
                   ("phi3.5-moe-42b-a6.6b", 16),
                   ("llama4-maverick-400b-a17b", 2))
-FAMILY_SCHEDULER = (("gemma-2b", None), ("minicpm-2b", None),
-                    ("phi-3-vision-4.2b", None), ("granite-20b", 26))
+FAMILY_SCHEDULER = (("gemma-2b", None), ("minicpm-2b", 20),
+                    ("phi-3-vision-4.2b", 16), ("granite-20b", 26))
 # the families' variety check: a greedy output that repeats one token
 # depends on neither cache nor attention, and a random deep model can have
 # such a fixed point for some prompts (on an H100 80GB HBM3, 700 W, at
@@ -469,6 +489,37 @@ FAMILY_SCHEDULER = (("gemma-2b", None), ("minicpm-2b", None),
 # must vary, every output is held by the run's other checks, and the
 # repeated ones are counted in the record
 FAMILY_VARIED = 0.5
+# phase 11, training (``train_phase``): train_4k's sequences of 4096 at
+# full width and depth, its global batch of 256 cut to 8 (the card holds
+# the float32 parameters, gradients, moments and one step's new trees of
+# llama3.2-1b, ~40 GB, beside the activations; 8 sequences keep the phase
+# near two minutes), in microbatches of 2 with every block recomputed
+TRAIN_CONFIGS = ("llama3.2-1b", "hubert-xlarge")
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 8
+TRAIN_PUBLISHED_BATCH = 256
+TRAIN_MICROBATCHES = 4
+TRAIN_TIMED_STEPS = 3           # after one warm-up step
+TRAIN_LOSS_NEAR = 2.0           # nats: the first loss within this of ln V
+# HuBERT's span masking (mask_prob 0.08, spans of 10 frames): the loss is
+# taken over the masked frames, as its masked prediction is
+HUBERT_MASK_PROB = 0.08
+HUBERT_MASK_SPAN = 10
+# one train step on the card against the same step on the CPU:
+# llama3.2-1b at full width, 2 layers, 2 sequences of 256, float32
+# compute, no TF32; the loss within 1e-5 and the gradient norm within
+# 1e-4 relative, each sampled leaf's update within lr * (1e-3 + 1e-4 *
+# max|g| / (|g| + eps)) (AdamW's first step moves an element by g / (|g|
+# + eps), so an element near eps carries the gradient's absolute error
+# into its update magnified; tests/test_torch_train_b.py), its moments
+# within 1e-4 of their largest
+CARD_VS_CPU = dict(layers=2, seq=256, batch=2)
+CARD_VS_CPU_LOSS_REL = 1e-5
+CARD_VS_CPU_GRAD_REL = 1e-4
+CARD_VS_CPU_LEAVES = ("final_ln", "embed", "layers.attn.wq", "layers.attn.wk",
+                      "layers.mlp.wo")
+QUICKSTART_STEPS = 60
+QUICKSTART_DROP = 0.5
 
 
 def emit(obj) -> None:
@@ -2244,18 +2295,20 @@ def _profile_steps(step, params, caches, cur, batch, dev, steps=4) -> dict:
     return _profile(one, steps)
 
 
-def _profile(fn, steps=4) -> dict:
+def _profile(fn, steps=4, cpu=True) -> dict:
     """torch.profiler over ``steps`` calls of ``fn``: device time per call
     (the sum of kernel times), wall time per call (profiler on), the
     device's busy share and the kernels that take the most device time.
-    Device numbers are None where the profiler recorded no device time."""
+    Device numbers are None where the profiler recorded no device time.
+    ``cpu=False`` traces the device alone (a train step launches ~10**5
+    kernels, whose host-side events take minutes to fold)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             fn()
@@ -3157,7 +3210,7 @@ def _released(start, store_bytes, what) -> dict:
     rec = {"allocated_after_release": after,
            "growth_bytes": after - start, "store_bytes": store_bytes}
     if after - start > store_bytes:
-        raise AssertionError(f"families: {what} left {after - start} B "
+        raise AssertionError(f"{what} left {after - start} B "
                              f"allocated, more than one store "
                              f"({store_bytes} B): {rec}")
     return rec
@@ -3320,6 +3373,357 @@ def families_phase(dev, seed, emit_model) -> dict:
                               "seconds": rec["seconds"]})
     out["seconds"] = time.monotonic() - t0
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: training
+# ---------------------------------------------------------------------------
+
+
+def _train_batches(cfg, dev, seed):
+    """train_4k batches of ``TRAIN_BATCH`` sequences on the card, one a
+    step: ``SyntheticLM`` tokens (``data.make_batches``, its seed
+    ``seed``) for a token model; for the audio family, seeded frame
+    embeddings (the stub frontend's output) with labels over its clusters
+    and HuBERT's span mask, the loss taken over the masked frames."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import DataConfig, make_batches
+
+    if cfg.family != "audio":
+        data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ + 1,
+                          global_batch=TRAIN_BATCH, seed=seed)
+        for b in make_batches(data):
+            yield {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    shape = (TRAIN_BATCH, TRAIN_SEQ)
+    while True:
+        starts = rng.random(shape) < HUBERT_MASK_PROB
+        mask = np.zeros(shape, bool)
+        for k in range(HUBERT_MASK_SPAN):
+            mask[:, k:] |= starts[:, :TRAIN_SEQ - k]
+        yield {"embeds": torch.randn(shape + (cfg.d_model,), generator=g,
+                                     device=dev),
+               "labels": torch.randint(0, cfg.vocab, shape, generator=g,
+                                       device=dev, dtype=torch.int32),
+               "mask": torch.from_numpy(mask.astype(np.float32)).to(dev)}
+
+
+def train_run(arch, dev, seed) -> dict:
+    """One published config at full width and depth, trained on
+    ``_train_batches``: ``TrainConfig(remat="full", microbatches=4)``, the
+    default AdamW; one warm-up step of a single microbatch (2 sequences),
+    ``TRAIN_TIMED_STEPS`` timed (CUDA synchronized, host clock), then one
+    more single-microbatch step profiled on the device alone; every loss
+    (the warm-up's first) finite and the first within ``TRAIN_LOSS_NEAR``
+    of ln V; peak ``memory_allocated``.  A tied embedding is scaled by ``EMBED_SCALE``
+    as in every other phase: unscaled, each token's own embedding
+    dominates the tied head's logits and the first loss of llama3.2-1b
+    is ~16.2 against ln V = 11.76."""
+    import math
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import OptimizerConfig, adamw_init
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+
+    cfg = configs.get(arch)[0]
+    t0 = time.monotonic()
+    params = M.init_params(seed, cfg, device=dev)
+    if "embed" in params:
+        params["embed"].mul_(EMBED_SCALE)
+    torch.cuda.synchronize()
+    rec = _family_model_record(cfg, params, None, time.monotonic() - t0)
+    rec["embed_scale"] = EMBED_SCALE if "embed" in params else None
+    opt = OptimizerConfig()
+    tcfg = TrainConfig(remat="full", microbatches=TRAIN_MICROBATCHES)
+    rec.update({"shape": "train_4k", "seq": TRAIN_SEQ,
+                "global_batch": TRAIN_BATCH,
+                "published_global_batch": TRAIN_PUBLISHED_BATCH,
+                "microbatches": tcfg.microbatches, "remat": tcfg.remat,
+                "optimizer": "AdamW, repro's defaults (lr 3e-4, warmup 100)",
+                "reduced": [f"global batch {TRAIN_PUBLISHED_BATCH} -> "
+                            f"{TRAIN_BATCH}"]})
+    state = adamw_init(params, opt)
+    step = make_train_step(cfg, opt, tcfg)
+    # the warm-up and the profiled step take one microbatch: the same
+    # shapes and kernels as the timed steps' four, in a quarter of the time
+    one_step = make_train_step(cfg, opt, TrainConfig(remat=tcfg.remat))
+    per = TRAIN_BATCH // TRAIN_MICROBATCHES
+    batches = _train_batches(cfg, dev, seed)
+    mb = {k: v[:per] for k, v in next(batches).items()}
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    params, state, m = one_step(params, state, mb)
+    warmup = {"sequences": per, "loss": float(m["loss"]),
+              "ms": (time.perf_counter() - t1) * 1e3}
+    times, losses, norms = [], [], []
+    for _ in range(TRAIN_TIMED_STEPS):
+        b = next(batches)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    held = {"params": params, "state": state}
+
+    def one():
+        held["params"], held["state"], _ = one_step(held["params"],
+                                                    held["state"], mb)
+
+    t1 = time.monotonic()
+    rec["profile"] = {"sequences": per, **_profile(one, steps=1, cpu=False),
+                      "seconds": time.monotonic() - t1}
+    losses.insert(0, warmup["loss"])
+    rec.update({"warmup_step": warmup,
+                "step_ms": {"median": statistics.median(times),
+                            "min": min(times), "max": max(times)},
+                "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
+                / (statistics.median(times) / 1e3),
+                "losses": losses, "timed_grad_norms": norms,
+                "ln_vocab": math.log(cfg.vocab),
+                "peak_allocated": torch.cuda.max_memory_allocated()})
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"train: {arch} non-finite loss: {rec}")
+    if abs(losses[0] - math.log(cfg.vocab)) > TRAIN_LOSS_NEAR:
+        raise AssertionError(f"train: {arch} first loss {losses[0]} not "
+                             f"near ln V {math.log(cfg.vocab)}: {rec}")
+    return rec
+
+
+def _leaf(tree, dotted):
+    for k in dotted.split("."):
+        tree = tree[k]
+    return tree
+
+
+def train_card_vs_cpu(dev, seed) -> dict:
+    """One train step of llama3.2-1b at full width cut to
+    ``CARD_VS_CPU["layers"]`` layers, float32 compute, on the card and on
+    the CPU from the same parameters (made on the CPU, copied over) and
+    the same ``SyntheticLM`` batch: loss, gradient norm, and the new
+    parameters and moments of ``CARD_VS_CPU_LEAVES`` within the stated
+    tolerances."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import llama3_2_1b
+    from repro_torch.data import DataConfig, make_batches
+    from repro_torch.ft.elastic import reshard_tree
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import (OptimizerConfig, adamw_init,
+                                                lr_schedule)
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+
+    cfg = dataclasses.replace(llama3_2_1b.CONFIG,
+                              n_layers=CARD_VS_CPU["layers"],
+                              compute_dtype=torch.float32)
+    cpu_params = M.init_params(seed, cfg, device="cpu")
+    cpu_params["embed"].mul_(EMBED_SCALE)
+    card_params = reshard_tree(cpu_params, cpu_params, device=dev)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=0)
+    step = make_train_step(cfg, opt, TrainConfig(remat="none"))
+    data = DataConfig(vocab=cfg.vocab, seq_len=CARD_VS_CPU["seq"] + 1,
+                      global_batch=CARD_VS_CPU["batch"], seed=seed)
+    b = next(make_batches(data))
+    t0 = time.monotonic()
+    cp, cs, cm = step(cpu_params, adamw_init(cpu_params, opt), b)
+    cpu_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    gp, gs, gm = step(card_params, adamw_init(card_params, opt), b)
+    torch.cuda.synchronize()
+    card_s = time.monotonic() - t0
+    lr = float(lr_schedule(opt, torch.tensor(1)))
+    rec = {"config": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "seq": CARD_VS_CPU["seq"],
+           "batch": CARD_VS_CPU["batch"], "compute": "float32, no TF32",
+           "cpu_s": cpu_s, "card_s": card_s,
+           "loss": [float(cm["loss"]), float(gm["loss"])],
+           "grad_norm": [float(cm["grad_norm"]), float(gm["grad_norm"])],
+           "tolerance": {"loss_rel": CARD_VS_CPU_LOSS_REL,
+                         "grad_rel": CARD_VS_CPU_GRAD_REL,
+                         "update": "lr * (1e-3 + grad_rel * max|g| / "
+                                   "(|g| + eps))"},
+           "leaves": {}}
+    ok = abs(rec["loss"][1] - rec["loss"][0]) <= \
+        CARD_VS_CPU_LOSS_REL * abs(rec["loss"][0])
+    ok &= abs(rec["grad_norm"][1] - rec["grad_norm"][0]) <= \
+        CARD_VS_CPU_GRAD_REL * rec["grad_norm"][0]
+    for name in CARD_VS_CPU_LEAVES:
+        p0 = _leaf(cpu_params, name).numpy()
+        c1, g1 = _leaf(cp, name).numpy(), _leaf(gp, name).cpu().numpy()
+        m = _leaf(cs["m"], name).numpy()
+        g = np.abs(m) / (1 - opt.b1)       # the CPU's clipped gradient
+        bound = lr * (1e-3 + CARD_VS_CPU_GRAD_REL * g.max() / (g + opt.eps))
+        d = np.abs((g1 - p0) - (c1 - p0))
+        moments = max(
+            float(np.abs(_leaf(gs[k], name).cpu().numpy()
+                         - _leaf(cs[k], name).numpy()).max()
+                  / max(np.abs(_leaf(cs[k], name).numpy()).max(), 1e-30))
+            for k in ("m", "v"))
+        leaf_ok = bool((d <= bound).all()) and moments <= \
+            CARD_VS_CPU_GRAD_REL
+        rec["leaves"][name] = {"elements": int(p0.size),
+                               "max_update_err_over_bound":
+                                   float((d / bound).max()),
+                               "max_abs_update_err": float(d.max()),
+                               "moments_rel_err": moments, "ok": leaf_ok}
+        ok &= leaf_ok
+    rec["ok"] = bool(ok)
+    if not ok:
+        raise AssertionError(f"train: card and CPU steps differ: {rec}")
+    return rec
+
+
+def train_quickstart(dev, seed) -> dict:
+    """``repro``'s quickstart contract (tests/test_system.py) on the card:
+    the smoke llama, ``QUICKSTART_STEPS`` steps on the synthetic corpus,
+    the last loss at least ``QUICKSTART_DROP`` below the first."""
+    import math
+
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, make_batches
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import OptimizerConfig, adamw_init
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+
+    cfg = configs.get_smoke("llama3.2-1b")
+    params = M.init_params(seed, cfg, device=dev)
+    opt = OptimizerConfig(lr=3e-3, warmup_steps=10,
+                          total_steps=QUICKSTART_STEPS, schedule="cosine")
+    state = adamw_init(params, opt)
+    step = make_train_step(cfg, opt, TrainConfig(remat="none"))
+    it = make_batches(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                 global_batch=16))
+    t0 = time.monotonic()
+    losses = []
+    for _ in range(QUICKSTART_STEPS):
+        params, state, m = step(params, state, next(it))
+        losses.append(float(m["loss"]))
+    rec = {"config": cfg.name, "steps": QUICKSTART_STEPS,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "drop": losses[0] - losses[-1], "required_drop": QUICKSTART_DROP,
+           "seconds": time.monotonic() - t0}
+    if not all(math.isfinite(x) for x in losses) \
+            or rec["drop"] < QUICKSTART_DROP:
+        raise AssertionError(f"train: quickstart contract failed: {rec}")
+    return rec
+
+
+def train_restart(dev, seed) -> dict:
+    """``repro``'s ``test_checkpoint_restart_bit_exact`` on the card: 6
+    steps straight equal 3 steps, a checkpoint, a restore and 3 steps, bit
+    for bit, under ``torch.use_deterministic_algorithms`` (the embedding's
+    gradient is an indexed accumulation, whose default CUDA kernel adds in
+    any order; cuBLAS on one stream is deterministic, so its warning is
+    let through)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, make_batches
+    from repro_torch.ft.checkpoint import (latest_step, load_checkpoint,
+                                           save_checkpoint, tree_flatten)
+    from repro_torch.ft.elastic import reshard_tree
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import OptimizerConfig, adamw_init
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+
+    cfg = configs.get_smoke("llama3.2-1b")
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=0)
+    step = make_train_step(cfg, opt, TrainConfig(remat="none"))
+    data = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=8)
+
+    def run(params, state, start, n):
+        it = make_batches(data, start_step=start)
+        for _ in range(n):
+            params, state, _ = step(params, state, next(it))
+        return params, state
+
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    try:
+        params = M.init_params(seed, cfg, device=dev)
+        state = adamw_init(params, opt)
+        pA, _ = run(params, state, 0, 6)
+        pB, sB = run(params, state, 0, 3)
+        save_checkpoint(CKPT_DIR, 3, {"params": pB, "state": sB})
+        like = {"params": pB, "state": sB}
+        restored = reshard_tree(load_checkpoint(CKPT_DIR, 3, like), like,
+                                device=dev)
+        assert latest_step(CKPT_DIR) == 3
+        pC, _ = run(restored["params"], restored["state"], 3, 3)
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    a, c = tree_flatten(pA)[0], tree_flatten(pC)[0]
+    rec = {"config": cfg.name, "steps": "6 == 3 + checkpoint + 3",
+           "deterministic_algorithms": True,
+           "leaves": len(a),
+           "leaves_equal": sum(bool(torch.equal(x, y)) for x, y in zip(a, c)),
+           "max_abs_diff": max(float((x - y).abs().max())
+                               for x, y in zip(a, c))}
+    if rec["leaves_equal"] != rec["leaves"]:
+        raise AssertionError(f"train: restart is not bit-exact: {rec}")
+    return rec
+
+
+def train_phase(dev, seed, emit_model) -> dict:
+    """Phase 11: the training path (``repro_torch.training``, the data
+    pipeline, checkpoints), which runs none of the port's kernels:
+    ``train_run`` for each of ``TRAIN_CONFIGS`` (``emit_model`` prints
+    each record), ``train_card_vs_cpu``, ``train_quickstart`` and
+    ``train_restart``; no kernel launched, and ``memory_allocated`` back
+    within one train batch's bytes of the phase's start."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import ops as K
+
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    K.reset_launch_counts()
+    out = {"allocated_at_start": start, "models": []}
+    for arch in TRAIN_CONFIGS:
+        t1 = time.monotonic()
+        rec = train_run(arch, dev, seed)
+        rec["seconds"] = time.monotonic() - t1
+        emit_model(rec)
+        out["models"].append({k: rec[k] for k in (
+            "config", "step_ms", "tokens_per_s", "seconds")})
+    out["card_vs_cpu"] = train_card_vs_cpu(dev, seed)
+    out["quickstart"] = train_quickstart(dev, seed)
+    out["restart"] = train_restart(dev, seed)
+    out["launches"] = K.launch_counts()
+    if any(out["launches"].values()):
+        raise AssertionError(f"train: the training path launched a "
+                             f"kernel: {out['launches']}")
+    out["memory"] = _released(start, _train_batch_bytes(), "train")
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def _train_batch_bytes() -> int:
+    """The largest train batch's bytes: hubert's float32 frame embeddings,
+    int32 labels and float32 mask."""
+    from repro_torch import configs
+
+    d = configs.get("hubert-xlarge")[0].d_model
+    return TRAIN_BATCH * TRAIN_SEQ * 4 * (d + 2)
 
 
 # ---------------------------------------------------------------------------
@@ -3702,6 +4106,10 @@ def main(argv=None) -> int:
     emit({"phase": "families", "card": card, **families_phase(
         dev, args.seed,
         lambda rec: emit({"phase": "family", "card": card, **rec}))})
+
+    emit({"phase": "train", "card": card, **train_phase(
+        dev, args.seed,
+        lambda rec: emit({"phase": "train_model", "card": card, **rec}))})
 
     # launches: the scheduler run (the serving path) for every kernel it
     # runs, the quantized scheduler run for K7/K8, the device_bravo

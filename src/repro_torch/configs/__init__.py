@@ -8,8 +8,7 @@ Every module defines:
 ``repro``'s modules also carry per-arch sharding rules (``RULES``); on one
 card there is nothing to shard, so the port's have none and :func:`get`
 returns ``(CONFIG, shapes)``.  Every architecture of ``repro`` is here, in
-its order, but ``hubert-xlarge``, whose audio family comes with a later
-slice (ROADMAP.md).
+its order.
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ ARCH_IDS = (
     "llama4-maverick-400b-a17b",
     "phi3.5-moe-42b-a6.6b",
     "phi-3-vision-4.2b",
+    "hubert-xlarge",
     "minicpm-2b",
     "granite-20b",
     "gemma-2b",

@@ -23,8 +23,7 @@ Params = dict
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | moe | ssm | hybrid | vlm (audio:
-    #                               not ported yet)
+    family: str                   # dense | moe | ssm | hybrid | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -52,7 +51,7 @@ class ModelConfig:
     ssm_expand: int = 2           # mamba2 expansion
     hybrid_attn_every: int = 0    # zamba2: shared attn block every k layers
     # --- frontend stubs ---
-    frontend: str = ""            # "" | "vision_stub"
+    frontend: str = ""            # "" | "vision_stub" | "audio_stub"
     frontend_tokens: int = 0      # prompt prefix length fed as embeddings
     # --- numerics ---
     param_dtype: Any = torch.float32
@@ -157,7 +156,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Online-softmax blockwise attention, as ``repro``'s.
 
     q: (B, Sq, H, hd); k/v: (B, Skv, KVH, hd) with H % KVH == 0.
-    ``q_offset`` is the absolute position of q[0].  -> (B, Sq, H, hd)."""
+    ``q_offset`` (>= 0) is the absolute position of q[0].  -> (B, Sq, H,
+    hd).
+
+    The same values as ``repro``'s, with less work where it is exact to
+    leave it out.  Key 0 lies in each row's first block and every query
+    sees it, so every running max is finite from the first block on:
+    ``repro``'s guards against an all-masked row never fire, and its
+    first block's correction multiplies zeros.  A causal block whose keys
+    all follow its queries adds 0 to each sum and multiplies them by
+    exp(0) = 1, so it is skipped; a block that masks nothing takes no
+    ``where``; a masked score's exp is already 0; one query head a KV
+    head repeats nothing.  Autograd launches every operation left, so on
+    the card these decide a training step's host time."""
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     B, Sq, H, hd = q.shape
     _, Skv, KVH, _ = k.shape
     g = H // KVH
@@ -170,33 +183,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     k = _pad_to(k, 1, nkv * block_kv)
     v = _pad_to(v, 1, nkv * block_kv)
     dev = q.device
+    kps = [ki * block_kv + torch.arange(block_kv, device=dev)
+           for ki in range(nkv)]
     outs = []
     for qi in range(nq):
         qb = q[:, qi * block_q:(qi + 1) * block_q]               # (B,bq,H,hd)
-        qp = q_offset + qi * block_q + torch.arange(block_q, device=dev)
-        m = torch.full((B, H, block_q), -math.inf, device=dev)
-        den = torch.zeros((B, H, block_q), device=dev)
-        acc = torch.zeros((B, H, block_q, hd), device=dev)
+        q_lo = q_offset + qi * block_q
+        qp = q_lo + torch.arange(block_q, device=dev)
+        m = den = acc = None
         for ki in range(nkv):
-            sl = slice(ki * block_kv, (ki + 1) * block_kv)
-            kig = k[:, sl].repeat_interleave(g, dim=2)
-            vig = v[:, sl].repeat_interleave(g, dim=2)
-            kp = ki * block_kv + torch.arange(block_kv, device=dev)
+            k_lo, k_hi = ki * block_kv, (ki + 1) * block_kv - 1
+            if causal and ki and k_lo > q_lo + block_q - 1:
+                continue
+            sl = slice(k_lo, k_hi + 1)
+            kig, vig = k[:, sl], v[:, sl]
+            if g > 1:
+                kig = kig.repeat_interleave(g, dim=2)
+                vig = vig.repeat_interleave(g, dim=2)
+            kp = kps[ki]
             s = torch.einsum("bqhd,bkhd->bhqk", qb.float(),
                              kig.float()) * scale
-            mask = (kp < Skv)[None, None, None, :]
-            if causal:
-                mask = mask & (kp[None, None, None, :]
-                               <= qp[None, None, :, None])
-            s = torch.where(mask, s, -math.inf)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
-            p = torch.exp(s - m_safe[..., None])
-            p = torch.where(mask, p, 0.0)
-            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
-            den = den * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bhqk,bkhd->bhqd", p, vig.float())
+            mask = None
+            if k_hi >= Skv:
+                mask = (kp < Skv)[None, None, None, :]
+            if causal and k_hi > q_lo:
+                below = kp[None, None, None, :] <= qp[None, None, :, None]
+                mask = below if mask is None else mask & below
+            if mask is not None:
+                s = torch.where(mask, s, -math.inf)
+            m_new = s.amax(dim=-1) if m is None \
+                else torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            pv = torch.einsum("bhqk,bkhd->bhqd", p, vig.float())
+            if m is None:
+                den, acc = p.sum(dim=-1), pv
+            else:
+                corr = torch.exp(m - m_new)
+                den = den * corr + p.sum(dim=-1)
+                acc = acc * corr[..., None] + pv
             m = m_new
         out = acc / torch.clamp(den, min=1e-20)[..., None]
         outs.append(out.transpose(1, 2).to(q.dtype))             # (B,bq,H,hd)

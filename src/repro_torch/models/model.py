@@ -1,6 +1,7 @@
-"""Model assembly in plain PyTorch: parameter init, the forward pass and
-decode caches for the decoder families (``dense``, ``vlm``, ``moe``,
-``ssm`` = RWKV-6, ``hybrid`` = Zamba2).
+"""Model assembly in plain PyTorch: parameter init, the forward pass, the
+training loss and decode caches for every family (``dense``, ``vlm``,
+``moe``, ``ssm`` = RWKV-6, ``hybrid`` = Zamba2, and the encoder-only
+``audio``, which has no decode cache).
 
 The port of ``repro.models.model``.  Parameters keep ``repro``'s pytree
 layout (nested dicts; layer stacks with a leading ``L`` dim, interleaved
@@ -8,8 +9,14 @@ stacks with leading ``(periods, k)`` dims), so :func:`from_jax_params`
 carries a JAX parameter tree across leaf by leaf, and each layer stack is
 a Python loop where ``repro`` used ``lax.scan``.  The paged page store
 (:func:`init_paged_caches`) is the scheduler's data plane and holds dense
-attention only, as in ``repro``.  The audio family comes with a later
-slice.
+attention only, as in ``repro``.
+
+Training recomputes as ``repro`` does: a stack given a ``remat_policy``
+(``training.train_step.remat_policy_by_name``: a callable ``policy(fn,
+*args)`` that returns ``fn(*args)`` and chooses what autograd keeps)
+wraps each block that builds no cache in it; the MoE and hybrid stacks
+recompute their blocks fully whatever the policy names, as ``repro``'s
+``jax.checkpoint(blk)`` with no policy does.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve
 from .common import (ModelConfig, Params, ShapeOnly, dense_init, matmul,
@@ -31,17 +39,37 @@ ZAMBA_LORA_RANK = 64
 _PAGED_FAMILIES = ("dense", "vlm")
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            "family 'audio' is not ported yet (ROADMAP.md)")
-
-
 def _periods(tree: Params, k: int) -> Params:
     """Each leaf's leading dim ``n * k`` as ``(n, k)``."""
     return {name: _periods(x, k) if isinstance(x, dict)
             else x.reshape((x.shape[0] // k, k) + tuple(x.shape[1:]))
             for name, x in tree.items()}
+
+
+def _unbind(tree) -> list:
+    """The trees of every leaf's ``[i]`` for each ``i`` of the leading dim,
+    as views.  Autograd sends their gradients back through one stack per
+    leaf, where indexing layer by layer would add a zero tensor of the
+    whole leaf for every layer."""
+    first = next(iter(leaves(tree)))
+    per = [{} for _ in range(first.shape[0])]
+    for name, x in tree.items():
+        parts = _unbind(x) if isinstance(x, dict) else x.unbind(0)
+        for d, part in zip(per, parts):
+            d[name] = part
+    return per
+
+
+def full_remat(fn, *args):
+    """``fn(*args)``, every activation recomputed in the backward pass."""
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _block(blk, x, remat_policy, lc):
+    """One block, under ``remat_policy`` when it builds no cache."""
+    if remat_policy is not None and lc is None:
+        return remat_policy(blk, x)
+    return blk(x)
 
 
 def _index(tree, i):
@@ -80,8 +108,8 @@ def init_params(gen: Union[torch.Generator, int], cfg: ModelConfig,
     an int seed for a new generator on ``device`` (default: the CUDA card,
     raising if there is none).  ``device="meta"`` makes the tree's shapes
     and dtypes only.  The numbers differ from JAX's for the same seed; use
-    :func:`from_jax_params` to reproduce a JAX tree."""
-    _check_family(cfg)
+    :func:`from_jax_params` to reproduce a JAX tree.  ``audio`` has no
+    token embedding: its inputs are frame embeddings."""
     if not isinstance(gen, torch.Generator):
         dev = resolve(device)
         if dev.type == "meta":
@@ -92,11 +120,12 @@ def init_params(gen: Union[torch.Generator, int], cfg: ModelConfig,
             gen = g
     dt = cfg.param_dtype
     L, d = cfg.n_layers, cfg.d_model
-    p: Params = {"final_ln": torch.zeros((d,), dtype=dt, device=gen.device),
-                 "embed": dense_init(gen, (cfg.vocab, d), dt, fan_in=d)}
+    p: Params = {"final_ln": torch.zeros((d,), dtype=dt, device=gen.device)}
+    if cfg.family != "audio":
+        p["embed"] = dense_init(gen, (cfg.vocab, d), dt, fan_in=d)
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, (d, cfg.vocab), dt, fan_in=d)
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family in ("dense", "audio", "vlm"):
         p["layers"] = {"attn": init_attn(gen, cfg, L),
                        "mlp": init_mlp(gen, cfg, L)}
     elif cfg.family == "moe":
@@ -140,7 +169,6 @@ def from_jax_params(np_params: Dict[str, Any], cfg: ModelConfig,
                     device: DeviceLike = None) -> Params:
     """A ``repro`` parameter tree (leaves as numpy arrays, or anything
     ``np.asarray`` takes) -> the same tree of tensors on ``device``."""
-    _check_family(cfg)
     dev = resolve(device)
 
     def walk(node):
@@ -154,8 +182,12 @@ def from_jax_params(np_params: Dict[str, Any], cfg: ModelConfig,
 def embed_inputs(p: Params, cfg: ModelConfig,
                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """[frontend embeddings | token embeddings] in the compute dtype, scaled
-    by sqrt(d_model) rounded to that dtype."""
+    by sqrt(d_model) rounded to that dtype.  ``audio``: the whole input is
+    the frame embeddings ``batch["embeds"]`` (the stub frontend), not
+    scaled."""
     cd = cfg.compute_dtype
+    if cfg.family == "audio":
+        return batch["embeds"].to(cd)
     tok = p["embed"][batch["tokens"].long()].to(cd)
     if cfg.frontend_tokens and "embeds" in batch:
         x = torch.cat([batch["embeds"].to(cd), tok], dim=1)
@@ -173,16 +205,18 @@ def lm_logits(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def dense_stack(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 positions, caches=None, cache_len=None, make_caches=True,
-                pages=None, new_lens=None):
-    """Dense / vlm stack: one block a layer.  -> (x, aux, caches)."""
-    layers = p["layers"]
+                pages=None, new_lens=None, remat_policy=None):
+    """Dense / audio / vlm stack: one block a layer.  -> (x, aux,
+    caches)."""
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, _, nc = block_forward(_index(layers, i), x, cfg,
-                                 positions=positions,
-                                 cache=_index(caches, i),
+    for i, lp in enumerate(_unbind(p["layers"])):
+        lc = _index(caches, i)
+
+        def blk(x, lp=lp, lc=lc):
+            return block_forward(lp, x, cfg, positions=positions, cache=lc,
                                  cache_len=cache_len, pages=pages,
                                  new_lens=new_lens)
+        x, _, nc = _block(blk, x, remat_policy, lc)
         if caches is None and make_caches:
             ks.append(nc["k"])
             vs.append(nc["v"])
@@ -194,28 +228,34 @@ def dense_stack(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def moe_stack(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions,
-              caches=None, cache_len=None, make_caches=True, **_):
+              caches=None, cache_len=None, make_caches=True,
+              remat_policy=None, **_):
     """MoE stack: periods of ``moe_every`` layers; the last layer of each
     period is MoE, the first k-1 are dense.  Decode (``cache_len`` given)
-    runs the MoE layers' dropless body."""
+    runs the MoE layers' dropless body.  Any ``remat_policy`` recomputes
+    each block fully."""
     k = cfg.moe_every
-    layers = p["layers"]
+    remat = full_remat if remat_policy is not None else None
     aux = 0.0
     periods = []
-    for i in range(cfg.n_layers // k):
-        lp = _index(layers, i)
+    for i, lp in enumerate(_unbind(p["layers"])):
+        attn = _unbind(lp["attn"])
+        mlp = _unbind(lp["mlp"]) if k > 1 else None
         ncs = []
         for j in range(k):
             is_moe = j == k - 1
-            sub = {"attn": _index(lp["attn"], j)}
+            sub = {"attn": attn[j]}
             if is_moe:
                 sub["moe"] = lp["moe"]
             else:
-                sub["mlp"] = _index(lp["mlp"], j)
+                sub["mlp"] = mlp[j]
             cj = None if caches is None else _index(_index(caches, i), j)
-            x, a, nc = block_forward(sub, x, cfg, positions=positions,
+
+            def blk(x, sub=sub, is_moe=is_moe, cj=cj):
+                return block_forward(sub, x, cfg, positions=positions,
                                      is_moe=is_moe, cache=cj,
                                      cache_len=cache_len)
+            x, a, nc = _block(blk, x, remat, cj)
             aux = aux + a
             ncs.append(nc)
         if caches is None and make_caches:
@@ -226,14 +266,16 @@ def moe_stack(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions,
 
 
 def ssm_stack(p: Params, x: torch.Tensor, cfg: ModelConfig, *, caches=None,
-              chunk: int = CHUNK, make_caches=True, **_):
+              chunk: int = CHUNK, make_caches=True, remat_policy=None, **_):
     """RWKV-6 stack.  The blocks return new recurrent state, as
     ``repro``'s do, so the caches come back as new tensors."""
-    layers = p["layers"]["rwkv"]
     ncs = []
-    for i in range(cfg.n_layers):
-        x, nc = rwkv6_block(_index(layers, i), x, cfg,
-                            cache=_index(caches, i), chunk=chunk)
+    for i, lp in enumerate(_unbind(p["layers"]["rwkv"])):
+        lc = _index(caches, i)
+
+        def blk(x, lp=lp, lc=lc):
+            return rwkv6_block(lp, x, cfg, cache=lc, chunk=chunk)
+        x, nc = _block(blk, x, remat_policy, lc)
         ncs.append(nc)
     keep = make_caches or caches is not None
     return x, 0.0, _stack(ncs) if keep else None
@@ -241,35 +283,41 @@ def ssm_stack(p: Params, x: torch.Tensor, cfg: ModelConfig, *, caches=None,
 
 def hybrid_stack(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions,
                  caches=None, cache_len=None, chunk: int = CHUNK,
-                 make_caches=True, **_):
+                 make_caches=True, remat_policy=None, **_):
     """zamba2: periods of ``hybrid_attn_every`` mamba2 blocks followed by
     the shared attention + MLP block, whose q projection takes the site's
     LoRA delta, recomputed at every call from the parameters given.  The
     mamba state comes back as new tensors; a decode step writes the
-    attention K/V into ``caches["attn"]`` in place."""
+    attention K/V into ``caches["attn"]`` in place.  Any ``remat_policy``
+    recomputes each period fully."""
     k = cfg.hybrid_attn_every
     layers = p["layers"]
     shared_attn = _index(layers["shared_attn"], 0)
     shared_mlp = _index(layers["shared_mlp"], 0)
+    remat = full_remat if remat_policy is not None else None
     mambas, attns = [], []
-    for i in range(cfg.n_layers // k):
-        mp = _index(layers["mamba"], i)
+    periods = _unbind({"mamba": layers["mamba"], "lora_a": layers["lora_a"],
+                       "lora_b": layers["lora_b"]})
+    for i, lp in enumerate(periods):
         lc = _index(caches, i)
-        ncs = []
-        for j in range(k):
-            mc = None if lc is None else _index(lc["mamba"], j)
-            x, nc = mamba2_block(_index(mp, j), x, cfg, cache=mc,
-                                 chunk=chunk)
-            ncs.append(nc)
-        ap = {**shared_attn,
-              "wq": shared_attn["wq"] + matmul(layers["lora_a"][i],
-                                               layers["lora_b"][i])}
-        a, nc_a = attn_forward(ap, x, cfg, positions=positions,
-                               cache=None if lc is None else lc["attn"],
-                               cache_len=cache_len)
-        x = x + a
-        x = x + mlp_forward(shared_mlp, x, cfg)
-        mambas.append(_stack(ncs))
+
+        def blk(x, lp=lp, lc=lc):
+            ncs = []
+            for j, mp in enumerate(_unbind(lp["mamba"])):
+                mc = None if lc is None else _index(lc["mamba"], j)
+                x, nc = mamba2_block(mp, x, cfg, cache=mc, chunk=chunk)
+                ncs.append(nc)
+            ap = {**shared_attn,
+                  "wq": shared_attn["wq"] + matmul(lp["lora_a"],
+                                                   lp["lora_b"])}
+            a, nc_a = attn_forward(ap, x, cfg, positions=positions,
+                                   cache=None if lc is None else lc["attn"],
+                                   cache_len=cache_len)
+            x = x + a
+            x = x + mlp_forward(shared_mlp, x, cfg)
+            return x, _stack(ncs), nc_a
+        x, nc_m, nc_a = _block(blk, x, remat, lc)
+        mambas.append(nc_m)
         attns.append(nc_a)
     if caches is not None:
         return x, 0.0, {"mamba": _stack(mambas), "attn": caches["attn"]}
@@ -278,8 +326,8 @@ def hybrid_stack(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions,
     return x, 0.0, {"mamba": _stack(mambas), "attn": _stack(attns)}
 
 
-_STACKS = {"dense": dense_stack, "vlm": dense_stack, "moe": moe_stack,
-           "ssm": ssm_stack, "hybrid": hybrid_stack}
+_STACKS = {"dense": dense_stack, "audio": dense_stack, "vlm": dense_stack,
+           "moe": moe_stack, "ssm": ssm_stack, "hybrid": hybrid_stack}
 
 
 def forward(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
@@ -288,6 +336,7 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             make_caches: bool = True,
             pages: Optional[torch.Tensor] = None,
             new_lens: Optional[torch.Tensor] = None,
+            remat_policy=None,
             ) -> Tuple[torch.Tensor, Any, Any]:
     """Full forward pass -> (logits, aux loss, caches).
 
@@ -304,8 +353,8 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     from :func:`init_paged_caches` and ``pages`` the batch's (B, P) int32
     page-index matrix.  Column ``j`` sits at position ``cache_len - S + j``
     (right-aligned chunks; ``new_lens`` marks each row's valid tail;
-    padding columns take position 0)."""
-    _check_family(cfg)
+    padding columns take position 0).  ``remat_policy``: see the module
+    docstring."""
     if pages is not None and cfg.family not in _PAGED_FAMILIES:
         raise ValueError(f"paged decode supports dense attention caches "
                          f"only (family={cfg.family})")
@@ -321,8 +370,34 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             min=0)
     x, aux, new_caches = _STACKS[cfg.family](
         p, x, cfg, positions=positions, caches=caches, cache_len=cache_len,
-        make_caches=make_caches, pages=pages, new_lens=new_lens)
+        make_caches=make_caches, pages=pages, new_lens=new_lens,
+        remat_policy=remat_policy)
     return lm_logits(p, cfg, x), aux, new_caches
+
+
+def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            remat_policy=None, aux_weight: float = 0.01
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training loss -> (total, {"loss", "aux", "nll_mean"}): the
+    mean over labelled positions (``batch["mask"]``, default all) of the
+    float32 log-sum-exp minus the gold logit, plus ``aux_weight`` times
+    the MoE load-balance loss.  Positions of a frontend prefix that the
+    labels do not cover carry no loss."""
+    logits, aux, _ = forward(p, cfg, batch, remat_policy=remat_policy,
+                             make_caches=False)
+    labels = batch["labels"].long()
+    logits32 = logits.float()
+    if logits32.shape[1] != labels.shape[1]:
+        logits32 = logits32[:, -labels.shape[1]:]
+    lse = torch.logsumexp(logits32, dim=-1)
+    gold = torch.gather(logits32, -1, labels[..., None])[..., 0]
+    nll = lse - gold
+    mask = batch.get("mask")
+    mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
+    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+    total = loss + aux_weight * aux
+    return total, {"loss": loss, "aux": aux, "nll_mean": loss}
 
 
 def init_caches(cfg: ModelConfig, batch_size: int, max_seq: int,
@@ -332,8 +407,9 @@ def init_caches(cfg: ModelConfig, batch_size: int, max_seq: int,
     (``moe``: ``(L/k, k, ...)``); RWKV token shifts ``(L, B, d)`` and
     float32 states ``(L, B, d/64, 64, 64)``; Mamba conv windows ``(n, k,
     B, MAMBA_CONV - 1, di + 2 ds)`` and float32 states ``(n, k, B, nh, ds,
-    64)`` beside the shared attention's K/V ``(n, B, S, KVH, hd)``."""
-    _check_family(cfg)
+    64)`` beside the shared attention's K/V ``(n, B, S, KVH, hd)``.
+    ``audio`` has no decode cache and raises ``ValueError``, as in
+    ``repro``."""
     B, S = batch_size, max_seq
     kvh, hd = cfg.n_kv_heads, cfg.hd
     dev = resolve(device)

@@ -337,9 +337,13 @@ def make_decode_step(cfg: ModelConfig, sample: str = "greedy",
     positions.  ``paged=True`` takes the page store from
     ``models.model.init_paged_caches`` as ``caches`` and the batch's (B, P)
     page-index matrix as ``pages`` (-1 = unused lane; a row with
-    ``cache_len == 0`` is inactive, writes nothing and emits token 0)."""
+    ``cache_len == 0`` is inactive, writes nothing and emits token 0).
+    An encoder-only config (``audio``) has no decode step and raises
+    ``ValueError``, as in ``repro``."""
     if sample != "greedy":
         raise ValueError(sample)
+    if cfg.family == "audio":
+        raise ValueError("encoder-only arch has no decode step")
 
     def _sample(logits):
         logits = logits[:, -1]

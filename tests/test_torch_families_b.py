@@ -1,5 +1,6 @@
 """The port's whole models against ``repro`` on the CPU, for every
-registered config but llama3.2-1b (tests/test_torch_model.py): the forward
+registered decoder config but llama3.2-1b (tests/test_torch_model.py; the
+encoder-only hubert-xlarge is tests/test_torch_train_a.py's): the forward
 pass and the caches it returns, ``init_caches``' layouts and dtypes, decode
 steps on those caches, the prefill-vs-decode consistency that
 tests/test_models.py asserts, and the errors for what a family cannot do.
@@ -37,7 +38,8 @@ from repro_torch.serving import scheduler as TS
 from repro_torch.serving.steps import make_decode_step, make_prefill_step
 
 REL = 1e-5
-ARCHS = [a for a in TC.ARCH_IDS if a != "llama3.2-1b"]
+ARCHS = [a for a in TC.ARCH_IDS if a != "llama3.2-1b"
+         and TC.get_smoke(a).family != "audio"]
 UNPAGED = [a for a in ARCHS if TC.get_smoke(a).family
            in ("moe", "ssm", "hybrid")]
 MESH = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
@@ -260,9 +262,33 @@ def test_families_without_dense_attention_refuse_the_page_store(arch):
 
 
 def test_audio_family_is_not_ported_yet():
-    ct = dataclasses.replace(TC.get_smoke("llama3.2-1b"), family="audio")
-    for make in (lambda: TM.init_params(0, ct, device="cpu"),
-                 lambda: TM.init_caches(ct, 1, 8, device="cpu"),
-                 lambda: TM.from_jax_params({}, ct, device="cpu")):
-        with pytest.raises(NotImplementedError, match="audio"):
-            make()
+    """The audio family is ported for training and has no decode step:
+    serving hubert-xlarge's smoke config fails as it does in ``repro``,
+    with the same exception type and message, from ``init_caches``,
+    ``init_paged_caches``, the decode step and the engine in handler and
+    scheduler mode."""
+    cj = JC.get_smoke("hubert-xlarge")
+    ct = TC.get_smoke("hubert-xlarge")
+    jp = jax.jit(JM.init_params, static_argnums=1)(jax.random.PRNGKey(0),
+                                                   cj)
+    tp = TM.from_jax_params(jax.tree.map(np.asarray, jp), ct, device="cpu")
+    cases = [
+        (lambda: JM.init_caches(cj, 1, 8),
+         lambda: TM.init_caches(ct, 1, 8, device="cpu")),
+        (lambda: JM.init_paged_caches(cj, 8, 4),
+         lambda: TM.init_paged_caches(ct, 8, 4, device="cpu")),
+        (lambda: j_decode_step(cj, MESH, MeshRules()),
+         lambda: make_decode_step(ct)),
+        (lambda: JE.ServingEngine(cj, jp, mesh=MESH, rules=MeshRules()),
+         lambda: TE.ServingEngine(ct, tp, device="cpu")),
+        (lambda: JE.ServingEngine(
+            cj, jp, mesh=MESH, rules=MeshRules(), n_pages=8,
+            scheduler=JS.SchedulerConfig(max_slots=2, page_size=4)),
+         lambda: TE.ServingEngine(
+             ct, tp, n_pages=8, device="cpu",
+             scheduler=TS.SchedulerConfig(max_slots=2, page_size=4))),
+    ]
+    for jax_make, port_make in cases:
+        jerr = _error(jax_make)
+        assert jerr[0] is ValueError
+        assert _error(port_make) == jerr
