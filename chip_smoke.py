@@ -97,7 +97,11 @@ non-zero exit and no result line:
    ``ServingEngine`` with weight hot-swap and compaction serving 8 requests
    of 16 prompt tokens and 16 new tokens; the table drains, every page is
    free, K1-K4 each launched during the run, and no request's greedy output
-   is one token repeated;
+   is one token repeated; the handler steps run as CUDA graphs, one set a
+   thread and batch size, their warm-ups, captures and replays recorded
+   and every call one of a warm-up or a replay; the B = 4 decode step
+   graphed and eager in turns (``decode_step_ms``: tokens equal step for
+   step, one capture, each arm's times and profile);
 6. scheduler: the same model in scheduler mode (continuous batching over a
    2.1 GB bf16 page store, prefix cache on) serving 12 requests in two
    waves under hot-swap and compaction, the second wave repeating or
@@ -120,7 +124,9 @@ non-zero exit and no result line:
    its captures and ``torch.cuda.memory_allocated`` before, at its peak
    and after ``stop()``, which may not grow by more than
    ``SWAP_TREES_PEAK`` and ``SWAP_TREES_AFTER`` parameter trees whatever
-   the number of swaps;
+   the number of swaps; the copy-on-write page copy runs as one graph a
+   store: a warm-up at the first copy, a capture at the second, replays
+   after;
 6a. the serving benchmark twins at full width, each with the reference's
    gates and its repeated windows (``TWIN_WINDOWS``) reported as median,
    least and largest: ``obs_bench`` (``repro_torch.benchmarks.obs``: the
@@ -181,8 +187,13 @@ non-zero exit and no result line:
    and prefill ticks timed in turns (``GRAPH_WINDOWS`` windows; host
    wall, CUDA events, the profiled device ms and busy share, the capture
    ms, and the graphed tick's breakdown: lease pair, step call, replay,
-   token read); 8 swaps to new trees, each recaptured, grow
+   token read); the graphed page copy byte for byte against the eager one
+   on each store, one capture; 8 swaps to new trees, each recaptured, grow
    ``memory_allocated`` by less than two trees;
+7a. serve_bravo: ``repro_torch.examples.serve_bravo`` (handler mode on
+   the smoke llama, 8 requests, swaps every 0.25 s, compaction every 0.4
+   s) for ``bravo-ba``, ``ba`` and ``bravo-pthread``: every request done,
+   K1-K3 launched, every handler call a warm-up or a replay;
 8. tokens: with one request per batch and no swap, the handler-mode
    engine's tokens equal the dense greedy loop through the port's decode
    step (``benchmarks.smoke.dense_reference``);
@@ -201,8 +212,9 @@ non-zero exit and no result line:
    ``zamba2-2.7b`` (hybrid), ``phi3.5-moe`` at 16 of 32 layers and
    ``llama4-maverick`` at 2 of 48 (moe, bf16 parameters;
    ``FAMILY_HANDLER``) in handler mode as in phase 5 (hot swaps of a new
-   final norm scale, K1-K4 launched, the B = 4 decode step timed and
-   profiled, two requests alone equal to the greedy loop); and
+   final norm scale, K1-K4 launched, graphed handler steps, the B = 4
+   decode step graphed and eager in turns, the engine graphed and then
+   on the bare steps, two requests alone equal to the greedy loop); and
    ``gemma-2b``, ``minicpm-2b`` (bf16) at 20 of 40 layers,
    ``phi-3-vision-4.2b`` at 16 of 32 and ``granite-20b`` at 26 of 52
    (``FAMILY_SCHEDULER``) in graphed
@@ -215,15 +227,20 @@ non-zero exit and no result line:
    the port's kernels (no launch counted in the phase): llama3.2-1b and
    hubert-xlarge at full width and depth on train_4k's sequences of
    4096, the global batch cut to ``TRAIN_BATCH`` in microbatches of 2
-   with every block recomputed, one warm-up step, ``TRAIN_TIMED_STEPS``
-   timed and one profiled (step ms, tokens/s, device ms and busy share,
-   peak ``memory_allocated``, every step's loss finite and the first near
-   ln V); one step of llama3.2-1b at full width, 2 layers, on the card
-   against the same step on the CPU (``CARD_VS_CPU``); ``repro``'s
-   quickstart contract (the smoke llama's loss down by 0.5 in 60 steps);
-   6 steps equal to 3 + checkpoint + restore + 3, bit for bit, under
-   deterministic algorithms; ``memory_allocated`` back within one train
-   batch of the phase's start.
+   with every block recomputed: the step as one CUDA graph
+   (``jit_train_step``, in place) and eager, ``TRAIN_TIMED_STEPS`` timed
+   steps of each, the eager arm first (``train_run``: loss, gradient norm
+   and sampled updates of the graph within ``train_card_vs_cpu``'s bounds
+   of the eager step on the same batches; step ms, tokens/s, CUDA-event
+   ms, the replays' included, capture ms, peak ``memory_allocated``,
+   every step's loss finite and the first near ln V); one step of
+   llama3.2-1b
+   at full width, 2 layers, on the card against the same step on the CPU
+   (``CARD_VS_CPU``); ``repro``'s quickstart contract (the smoke llama's
+   loss down by 0.5 in 60 graphed steps); 6 graphed steps equal to 3 +
+   checkpoint + restore + 3, bit for bit, under deterministic algorithms;
+   ``memory_allocated`` back within one train batch of the phase's
+   start.
 
 The random weights are the reference's distributions with the (tied)
 embedding scaled by ``EMBED_SCALE``.  Unscaled, the current token's own
@@ -458,6 +475,13 @@ GRAPH_WINDOWS = 5
 GRAPH_TICKS = 8
 GRAPH_ROWS = (2, 8)
 GRAPH_LOGITS_REL = 1e-5
+# decode_step_ms: handler mode's B-row step graphed and eager in turns
+HANDLER_WINDOWS = 6
+HANDLER_WINDOW_STEPS = 5
+# graph_step's copy-on-write check: a store of COPY_PAGES pages, copies
+# (src, dst), one a page the copy before wrote
+COPY_PAGES = 64
+COPY_PAIRS = ((3, 10), (5, 11), (10, 12), (63, 0))
 # device memory over a scheduler run with swaps, in parameter trees: after
 # stop() (which drops the graphs) the engine holds its store's new tree;
 # at the peak also the older tree each of its two graphed steps may still
@@ -499,7 +523,8 @@ TRAIN_SEQ = 4096
 TRAIN_BATCH = 8
 TRAIN_PUBLISHED_BATCH = 256
 TRAIN_MICROBATCHES = 4
-TRAIN_TIMED_STEPS = 3           # after one warm-up step
+TRAIN_TIMED_STEPS = 2           # timed steps of each arm
+TRAIN_UPDATE_SAMPLES = 4096     # elements of each leaf held to the eager
 TRAIN_LOSS_NEAR = 2.0           # nats: the first loss within this of ln V
 # HuBERT's span masking (mask_prob 0.08, spans of 10 frames): the loss is
 # taken over the masked frames, as its masked prediction is
@@ -2175,20 +2200,26 @@ def _prompts(seed, n, length, vocab):
 
 def run_engine(cfg, params, dev, *, n_req, prompt_len, max_new, handlers,
                slots, max_seq, swap_s, compact_s, seed, perturb=None,
-               varied=1.0) -> dict:
+               varied=1.0, eager=False) -> dict:
     """The handler-mode engine serving ``n_req`` seeded requests under
     hot-swap (``perturb``: the updater's new tree, the engine's default
     when None) and compaction: the table drains, every page is free, K1-K4
     each launched, and at least the share ``varied`` of the greedy outputs
-    (all, by default) is not one token repeated."""
+    (all, by default) is not one token repeated.  ``eager=True`` serves
+    through the bare steps (``smoke.eager_steps``), the eager arm of a
+    comparison; else every handler call must be a warm-up or a replay of
+    its graph (``_handler_graphs``)."""
     import numpy as np
 
+    from repro_torch.benchmarks import smoke as SM
     from repro_torch.kernels import ops as K
     from repro_torch.serving.engine import Request, ServingEngine
 
     eng = ServingEngine(cfg, params, lock_name="bravo-ba",
                         handlers=handlers, slots_per_handler=slots,
                         max_seq=max_seq, device=dev)
+    if eager:
+        SM.eager_steps(eng)
     reqs = [Request(rid=i, prompt=p, max_new=max_new) for i, p in
             enumerate(_prompts(seed, n_req, prompt_len, cfg.vocab))]
     K.reset_launch_counts()
@@ -2224,6 +2255,7 @@ def run_engine(cfg, params, dev, *, n_req, prompt_len, max_new, handlers,
     # table kernels only (no paged attention in handler mode)
     assert dev.type != "cuda" or all(counts[k] for k in TABLE_KERNELS), \
         counts
+    graphs = None if eager else _handler_graphs(st, dev)
 
     def share(s):
         tot = s["fast_acquires"] + s["slow_acquires"]
@@ -2241,7 +2273,40 @@ def run_engine(cfg, params, dev, *, n_req, prompt_len, max_new, handlers,
                                 "pages": share(st["pages"])},
             "pages_free": free, "held_after": held.tolist(),
             "launches": counts, "repeated_outputs": repeated,
-            "outputs": [r.out.tolist() for r in reqs]}
+            "graphs": graphs, "outputs": [r.out.tolist() for r in reqs]}
+
+
+def _engine_arm(run) -> dict:
+    """The readings of ``run_engine``'s eager arm kept beside the graphed
+    run (the graphed run first, then the eager one, on the same requests
+    and swap period)."""
+    return {k: run[k] for k in ("wall_s", "tokens_per_s", "decode_steps",
+                                "weight_swaps", "revocations")}
+
+
+def _handler_graphs(st, dev) -> dict:
+    """A handler-mode run's step graphs (``lock_stats()``): each handler
+    thread's warm-ups, captures and replays at each batch size, and the
+    share of the decode steps that replayed.  On the card every prefill
+    and decode call must be a warm-up or a replay (gate): nothing ran
+    eagerly beside the graphs."""
+    steps = st["handler_steps"]
+    out = {"steps": steps}
+    for kind, total in (("decode", st["engine"]["decode_steps"]),
+                        ("prefill", st["engine"]["prefills"])):
+        recs = [s[kind] for s in steps.values() if kind in s]
+        n = {k: sum(r[k] for r in recs) for k in ("warmups", "captures",
+                                                  "replays")}
+        out[kind] = {**n, "calls": total,
+                     "share_replayed": n["replays"] / total if total
+                     else None,
+                     "capture_ms_max": max((m for r in recs
+                                            for m in r["capture_ms"]),
+                                           default=None)}
+        if dev.type == "cuda" and n["warmups"] + n["replays"] != total:
+            raise AssertionError(f"handler {kind} calls outside the graphs: "
+                                 f"{out}")
+    return out
 
 
 def _check_varied(outputs, least: float = 1.0) -> int:
@@ -2254,45 +2319,75 @@ def _check_varied(outputs, least: float = 1.0) -> int:
     return len(same)
 
 
-def decode_step_ms(cfg, params, dev, batch, steps, max_seq) -> dict:
-    """Synchronized times of the engine's decode step at ``batch`` rows."""
+def decode_step_ms(cfg, params, dev, batch, max_seq) -> dict:
+    """The handler engine's decode step at ``batch`` rows, as the engine
+    runs it (``ServingEngine._handler_steps``: the in-place step over a
+    handler's cache tree, a CUDA graph on the card) and as its eager arm
+    (``smoke.eager_steps``: the same step and tree, no graph), in turns:
+    after each arm's first two calls (the graph's warm-up and capture),
+    ``HANDLER_WINDOWS`` windows of ``HANDLER_WINDOW_STEPS`` synchronized
+    steps, the arms in the order eager, graph, graph, eager, ...; then
+    each arm's profile (``_profile``, 4 steps).  Each arm feeds its own
+    tokens back from the same seeded first tokens, and the two token
+    sequences must be equal step for step (gate); on the card the graph
+    must have been warmed once, captured once and replayed at every other
+    call (gate)."""
+    import dataclasses
+
+    import numpy as np
     import torch
 
-    from repro_torch.models import model as M
-    from repro_torch.serving.steps import make_decode_step
+    from repro_torch.benchmarks import smoke as SM
+    from repro_torch.serving.engine import ServingEngine
 
-    step = make_decode_step(cfg)
-    caches = M.init_caches(cfg, batch, max_seq, device=dev)
-    cur = torch.ones((batch, 1), dtype=torch.int32, device=dev)
-    times = []
-    for i in range(steps):
-        clen = torch.full((batch,), i + 1, dtype=torch.int32, device=dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        cur, _, caches = step(params, caches, cur, clen)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return {"batch": batch, "steps": steps,
-            "median_ms": statistics.median(times[2:]),
-            "min_ms": min(times[2:]),
-            "profile": _profile_steps(step, params, caches, cur, batch, dev)}
+    eng = ServingEngine(cfg, params, handlers=1, slots_per_handler=batch,
+                        max_seq=max_seq, device=dev)
+    arms = {"graph": eng._handler_steps(0, batch)}
+    arms["eager"] = SM.eager_steps(eng)._handler_steps(1, batch)
+    rng = np.random.default_rng(0)
+    first = torch.from_numpy(rng.integers(1, cfg.vocab, (batch, 1)).astype(
+        np.int32)).to(dev)
+    state = {a: {"cur": first, "pos": 0, "tokens": []} for a in arms}
 
-
-def _profile_steps(step, params, caches, cur, batch, dev, steps=4) -> dict:
-    """torch.profiler over a few handler-mode decode steps at positions
-    40 and on (see :func:`_profile`)."""
-    import torch
-
-    state = {"cur": cur, "caches": caches, "i": 0}
-
-    def one():
-        clen = torch.full((batch,), 40 + state["i"], dtype=torch.int32,
+    def one(arm):
+        st, hs = state[arm], arms[arm]
+        st["pos"] += 1
+        clen = torch.full((batch,), st["pos"], dtype=torch.int32,
                           device=dev)
-        state["cur"], _, state["caches"] = step(params, state["caches"],
-                                                state["cur"], clen)
-        state["i"] += 1
+        st["cur"], _, _ = hs.decode(params, hs.caches, st["cur"], clen)
+        st["tokens"].append(st["cur"])
 
-    return _profile(one, steps)
+    for arm in arms:
+        for _ in range(2):
+            one(arm)
+    order = [("eager", "graph")[(w + 1) // 2 % 2]
+             for w in range(HANDLER_WINDOWS)]
+    times = {a: [] for a in arms}
+    for arm in order:
+        for _ in range(HANDLER_WINDOW_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one(arm)
+            torch.cuda.synchronize()
+            times[arm].append((time.perf_counter() - t0) * 1e3)
+    out = {"batch": batch, "windows": HANDLER_WINDOWS,
+           "steps_a_window": HANDLER_WINDOW_STEPS, "order": order}
+    for arm in ("graph", "eager"):
+        out[arm] = {"median_ms": statistics.median(times[arm]),
+                    "min_ms": min(times[arm]), "max_ms": max(times[arm]),
+                    "steps": len(times[arm]),
+                    "profile": _profile(functools.partial(one, arm))}
+    toks = {a: torch.cat(state[a]["tokens"], 1).cpu().tolist() for a in arms}
+    out["tokens_equal"] = toks["graph"] == toks["eager"]
+    out["graph_steps"] = dataclasses.asdict(arms["graph"].decode.stats)
+    eng.stop()
+    calls = len(state["graph"]["tokens"])
+    g = out["graph_steps"]
+    if not out["tokens_equal"] or (dev.type == "cuda" and (
+            g["warmups"], g["captures"], g["replays"]) != (1, 1, calls - 1)):
+        raise AssertionError(f"handler decode step, graph against eager: "
+                             f"{out} {toks}")
+    return out
 
 
 def _profile(fn, steps=4, cpu=True) -> dict:
@@ -2541,6 +2636,12 @@ def run_scheduler(cfg, params, dev, *, seed, max_new=16,
         assert es["pages_saved"] >= 1 and es["cow_copies"] >= 1, es
     else:
         assert st["scheduler"]["evictions"] >= 1, st["scheduler"]
+    # each copy-on-write ran once through the store's one graph: a warm-up,
+    # a capture at the second copy, replays after
+    cp, cows = steps["copy_page"], es["cow_copies"]
+    assert dev.type != "cuda" or (
+        cp["warmups"], cp["captures"], cp["warmups"] + cp["replays"]) == (
+        min(cows, 1), int(cows >= 2), cows), (cp, cows)
     assert es["weight_swaps"] >= 1 or not swap_s, es
     assert memory["growth_trees"] <= SWAP_TREES_AFTER, (memory, es)
     assert memory["peak_growth_trees"] <= SWAP_TREES_PEAK, (memory, es)
@@ -2810,10 +2911,14 @@ def _requests(prompts, max_new, base=0):
 
 
 def _step_stats(eng) -> dict:
+    """The scheduler engine's graphed steps' counts: the paged decode and
+    prefill and the copy-on-write page copy."""
     import dataclasses
 
-    return {name: dataclasses.asdict(getattr(eng, f"_{name}_paged").stats)
-            for name in ("decode", "prefill")}
+    out = {name: dataclasses.asdict(getattr(eng, f"_{name}_paged").stats)
+           for name in ("decode", "prefill")}
+    out["copy_page"] = dataclasses.asdict(eng._copy_page_step.stats)
+    return out
 
 
 def _graph_tokens(cfg, params, dev, *, quant_kv, seed) -> dict:
@@ -3114,6 +3219,56 @@ def _graph_prefill_turns(cfg, params, dev, *, quant_kv) -> dict:
             "graph_steps": _step_stats(engines["graph"])}
 
 
+def _copy_page_bytes(cfg, dev, quant, seed=0) -> dict:
+    """The copy-on-write page copy as the engine runs it (``jit_step`` of
+    ``engine.copy_page`` over the donated store, the page pair as device
+    scalars) against the eager indexed copy, on two equal seeded stores
+    of ``COPY_PAGES`` pages (bf16, or int8 with float32 scales): after
+    every copy of ``COPY_PAIRS`` (a warm-up, a capture, replays) every
+    leaf equal byte for byte (gate), one capture."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import copy_page
+    from repro_torch.serving.steps import jit_step
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    graphed = M.init_paged_caches(cfg, COPY_PAGES, SCHED["page_size"],
+                                  quantized=quant, device=dev)
+    for x in graphed.values():
+        if x.is_floating_point():
+            x.copy_(torch.randn(x.shape, generator=g, device=dev))
+        else:
+            x.copy_(torch.randint(-127, 128, x.shape, generator=g,
+                                  device=dev))
+    eager = {k: v.clone() for k, v in graphed.items()}
+    step = jit_step(copy_page, donate_argnums=(0,))
+    equal = []
+    for src, dst in COPY_PAIRS:
+        pair = torch.tensor([src, dst], dtype=torch.int32, device=dev)
+        step(graphed, pair[0], pair[1])
+        for x in eager.values():
+            x[:, dst] = x[:, src]
+        equal.append(all(
+            torch.equal(graphed[k].contiguous().view(torch.uint8),
+                        eager[k].contiguous().view(torch.uint8))
+            for k in graphed))
+    out = {"store": "int8" if quant else "bf16", "pages": COPY_PAGES,
+           "pairs": COPY_PAIRS, "leaves": sorted(graphed),
+           "bytes_equal": equal,
+           "steps": dataclasses.asdict(step.stats)}
+    st = out["steps"]
+    if not all(equal) or (dev.type == "cuda" and (
+            st["warmups"], st["captures"], st["replays"]) != (
+            1, 1, len(COPY_PAIRS) - 1)):
+        raise AssertionError(f"copy_page, graph against eager: {out}")
+    step.reset()
+    return out
+
+
 def graph_step_phase(cfg, params, dev, seed) -> dict:
     """The serving step as one CUDA graph (``steps.jit_step``) against the
     bare step, on the bf16 and the int8 store: tokens, launches, float32
@@ -3138,6 +3293,7 @@ def graph_step_phase(cfg, params, dev, seed) -> dict:
                 cfg, params, dev, quant_kv=quant, rows=rows)
         rec["prefill"] = _graph_prefill_turns(cfg, params, dev,
                                               quant_kv=quant)
+        rec["copy_page"] = _copy_page_bytes(cfg, dev, quant, seed)
     del params2
     out["swap_memory"] = _graph_swap_memory(cfg, params, dev)
     out["seconds"] = time.monotonic() - t0
@@ -3220,7 +3376,8 @@ def family_handler_run(arch, depth, dev, seed, start) -> dict:
     """One family in handler mode at full width: 2 x 4 slots serving 8
     requests of 16 + 16 tokens under hot swaps (``_swap_final_norm``,
     every 0.25 s) and compaction (``run_engine``: K1-K4 launched, table
-    drained, pages free); the B = 4 decode step timed and profiled; two
+    drained, pages free), graphed and then eager; the B = 4 decode step
+    timed and profiled; two
     requests alone, without swaps, equal to the direct greedy loop of the
     port's decode step (``token_check``); peak ``memory_allocated``."""
     import torch
@@ -3231,13 +3388,14 @@ def family_handler_run(arch, depth, dev, seed, start) -> dict:
     rec = _family_model_record(cfg, params, depth, init_s)
     torch.cuda.reset_peak_memory_stats()
     slots, max_seq = 4, 64
-    rec["engine"] = run_engine(cfg, params, dev, n_req=8, prompt_len=16,
-                               max_new=16, handlers=2, slots=slots,
-                               max_seq=max_seq, swap_s=0.25, compact_s=0.2,
-                               seed=seed, perturb=_swap_final_norm,
-                               varied=FAMILY_VARIED)
+    kw = dict(n_req=8, prompt_len=16, max_new=16, handlers=2, slots=slots,
+              max_seq=max_seq, swap_s=0.25, compact_s=0.2, seed=seed,
+              perturb=_swap_final_norm, varied=FAMILY_VARIED)
+    rec["engine"] = run_engine(cfg, params, dev, **kw)
+    rec["eager_engine"] = _engine_arm(run_engine(cfg, params, dev,
+                                                 eager=True, **kw))
     rec["decode_step"] = decode_step_ms(cfg, params, dev, batch=slots,
-                                        steps=32, max_seq=max_seq)
+                                        max_seq=max_seq)
     rec["tokens"] = token_check(cfg, params, dev, n_req=2, prompt_len=16,
                                 max_new=8, max_seq=max_seq, seed=seed + 1,
                                 varied=FAMILY_VARIED)
@@ -3412,25 +3570,78 @@ def _train_batches(cfg, dev, seed):
                "mask": torch.from_numpy(mask.astype(np.float32)).to(dev)}
 
 
+def _update_samples(params, n, seed=0) -> dict:
+    """Up to ``n`` seeded element indices of every leaf (dotted name ->
+    flat index tensor on the leaf's device)."""
+    import torch
+
+    from repro_torch.ft.checkpoint import tree_flatten
+
+    g = torch.Generator().manual_seed(seed)
+    leaves = tree_flatten(params)[0]
+    names = _dotted(params)
+    return {name: torch.randint(0, x.numel(), (min(n, x.numel()),),
+                                generator=g).to(x.device)
+            for name, x in zip(names, leaves)}
+
+
+def _dotted(tree, prefix=""):
+    """The dotted names of a tree's leaves, in ``tree_flatten``'s order
+    (dicts by sorted key)."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        name = f"{prefix}{k}"
+        out += _dotted(v, name + ".") if isinstance(v, dict) else [name]
+    return out
+
+
+def _sampled(tree, idx) -> dict:
+    """The sampled elements of each leaf as float64 on the host."""
+    return {name: _leaf(tree, name).reshape(-1)[i].double().cpu()
+            for name, i in idx.items()}
+
+
 def train_run(arch, dev, seed) -> dict:
     """One published config at full width and depth, trained on
-    ``_train_batches``: ``TrainConfig(remat="full", microbatches=4)``, the
-    default AdamW; one warm-up step of a single microbatch (2 sequences),
-    ``TRAIN_TIMED_STEPS`` timed (CUDA synchronized, host clock), then one
-    more single-microbatch step profiled on the device alone; every loss
-    (the warm-up's first) finite and the first within ``TRAIN_LOSS_NEAR``
-    of ln V; peak ``memory_allocated``.  A tied embedding is scaled by ``EMBED_SCALE``
+    ``_train_batches`` with ``TrainConfig(remat="full", microbatches=4)``
+    and the default AdamW, through the graphed step (``jit_train_step``,
+    which updates its trees in place) and the eager one
+    (``make_train_step``).  The graphed step's first call (its eager
+    warm-up) takes batch 0.  Then the eager arm: ``TRAIN_TIMED_STEPS``
+    steps on batches 1, 2, ... chained from the warm-up's trees, while no
+    graph holds a pool (llama3.2-1b's pool and an eager step's
+    temporaries do not fit the card together, so the arms cannot
+    alternate without a capture at every turn).  Then the graph arm from
+    the same trees: the capture (a capture and a replay) on batch 1 and
+    ``TRAIN_TIMED_STEPS`` replays on batches 2, 3, ...  Timed: the host
+    clock around a synchronized call, CUDA events beside it (a replay's
+    event time is the graph's time on the card).  For each batch both
+    arms ran (gate): the graphed step's loss within
+    ``CARD_VS_CPU_LOSS_REL`` of the eager one's, its gradient norm within
+    ``CARD_VS_CPU_GRAD_REL``, and ``TRAIN_UPDATE_SAMPLES`` sampled
+    elements of each leaf's update (new minus the arm's own old value)
+    within ``lr * (1e-3 + CARD_VS_CPU_GRAD_REL * max|g| / (|g| + eps))``
+    of the eager update (``g`` the eager step's clipped gradient, from its
+    first moment; ``train_card_vs_cpu``'s bounds).  Every loss finite and
+    the first within ``TRAIN_LOSS_NEAR`` of ln V; peak
+    ``memory_allocated``.  A tied embedding is scaled by ``EMBED_SCALE``
     as in every other phase: unscaled, each token's own embedding
-    dominates the tied head's logits and the first loss of llama3.2-1b
-    is ~16.2 against ln V = 11.76."""
+    dominates the tied head's logits and the first loss of llama3.2-1b is
+    ~16.2 against ln V = 11.76."""
+    import dataclasses
+    import gc
     import math
 
     import torch
 
     from repro_torch import configs
     from repro_torch.models import model as M
-    from repro_torch.training.optimizer import OptimizerConfig, adamw_init
-    from repro_torch.training.train_step import TrainConfig, make_train_step
+    from repro_torch.training.optimizer import (OptimizerConfig, adamw_init,
+                                                lr_schedule)
+    from repro_torch.training.train_step import (TrainConfig,
+                                                 jit_train_step,
+                                                 make_train_step)
 
     cfg = configs.get(arch)[0]
     t0 = time.monotonic()
@@ -3448,47 +3659,107 @@ def train_run(arch, dev, seed) -> dict:
                 "microbatches": tcfg.microbatches, "remat": tcfg.remat,
                 "optimizer": "AdamW, repro's defaults (lr 3e-4, warmup 100)",
                 "reduced": [f"global batch {TRAIN_PUBLISHED_BATCH} -> "
-                            f"{TRAIN_BATCH}"]})
+                            f"{TRAIN_BATCH}"],
+                "order": "graph warm-up; eager arm; graph arm"})
     state = adamw_init(params, opt)
-    step = make_train_step(cfg, opt, tcfg)
-    # the warm-up and the profiled step take one microbatch: the same
-    # shapes and kernels as the timed steps' four, in a quarter of the time
-    one_step = make_train_step(cfg, opt, TrainConfig(remat=tcfg.remat))
-    per = TRAIN_BATCH // TRAIN_MICROBATCHES
+    eager = make_train_step(cfg, opt, tcfg)
+    step = jit_train_step(cfg, opt, tcfg)
+    idx = _update_samples(params, TRAIN_UPDATE_SAMPLES, seed)
     batches = _train_batches(cfg, dev, seed)
-    mb = {k: v[:per] for k, v in next(batches).items()}
     torch.cuda.reset_peak_memory_stats()
-    t1 = time.perf_counter()
-    params, state, m = one_step(params, state, mb)
-    warmup = {"sequences": per, "loss": float(m["loss"]),
-              "ms": (time.perf_counter() - t1) * 1e3}
-    times, losses, norms = [], [], []
-    for _ in range(TRAIN_TIMED_STEPS):
-        b = next(batches)
+
+    def timed(fn, *args):
+        start, stop = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        params, state, m = step(params, state, b)
+        start.record()
+        out = fn(*args)
+        stop.record()
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t1) * 1e3)
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
-    held = {"params": params, "state": state}
+        return out, {"ms": (time.perf_counter() - t1) * 1e3,
+                     "event_ms": start.elapsed_time(stop),
+                     "loss": float(out[2]["loss"]),
+                     "grad_norm": float(out[2]["grad_norm"])}
 
-    def one():
-        held["params"], held["state"], _ = one_step(held["params"],
-                                                    held["state"], mb)
+    (params, state, _), warm = timed(step, params, state, next(batches))
+    b = [next(batches) for _ in range(TRAIN_TIMED_STEPS + 1)]
+    # reference cycles through frames (torch.utils.checkpoint's early
+    # stop) hold the warm-up's tensors until collected
+    gc.collect()
+    eager_runs, p, s = [], params, state
+    for i in range(TRAIN_TIMED_STEPS):
+        old = _sampled(p, idx)
+        (p, s, _), e = timed(eager, p, s, b[i])
+        e.update(old=old, new=_sampled(p, idx), m=_sampled(s["m"], idx),
+                 lr=float(lr_schedule(opt, s["step"])),
+                 gmax={n: float(_leaf(s["m"], n).abs().max())
+                       / (1 - opt.b1) for n in idx})
+        eager_runs.append(e)
+    del p, s
+    gc.collect()
+    torch.cuda.empty_cache()
+    graph_runs = []
+    for i in range(TRAIN_TIMED_STEPS + 1):
+        old = _sampled(params, idx)
+        (params, state, _), c = timed(step, params, state, b[i])
+        c.update(old=old, new=_sampled(params, idx))
+        graph_runs.append(c)
+    rec["steps"] = st = dataclasses.asdict(step.graph.stats)
+    step.graph.reset()
+    if (st["warmups"], st["captures"], st["replays"], st["capture_at"]) != (
+            1, 1, TRAIN_TIMED_STEPS + 1, [2]):
+        raise AssertionError(f"train: {arch} graph counts: {st}")
+    checks = []
+    for i, (e, c) in enumerate(zip(eager_runs, graph_runs)):
+        worst = 0.0
+        for n in idx:
+            gr = e["m"][n].abs() / (1 - opt.b1)
+            bound = e["lr"] * (1e-3 + CARD_VS_CPU_GRAD_REL * e["gmax"][n]
+                               / (gr + opt.eps))
+            d = ((c["new"][n] - c["old"][n]) - (e["new"][n] - e["old"][n]))
+            worst = max(worst, float((d.abs() / bound).max()))
+        ok = (abs(c["loss"] - e["loss"])
+              <= CARD_VS_CPU_LOSS_REL * abs(e["loss"])
+              and abs(c["grad_norm"] - e["grad_norm"])
+              <= CARD_VS_CPU_GRAD_REL * e["grad_norm"] and worst <= 1.0)
+        checks.append({"batch": i + 1, "graph_call": ("capture" if i == 0
+                                                      else "replay"),
+                       "loss": [e["loss"], c["loss"]],
+                       "grad_norm": [e["grad_norm"], c["grad_norm"]],
+                       "trees_equal_before": all(
+                           torch.equal(c["old"][n], e["old"][n])
+                           for n in idx),
+                       "max_update_err_over_bound": worst, "ok": ok})
+        if not ok:
+            raise AssertionError(f"train: {arch} graphed step differs from "
+                                 f"the eager one: {checks[-1]}")
+    for r in eager_runs + graph_runs:
+        for k in ("old", "new", "m", "gmax"):
+            r.pop(k, None)
 
-    t1 = time.monotonic()
-    rec["profile"] = {"sequences": per, **_profile(one, steps=1, cpu=False),
-                      "seconds": time.monotonic() - t1}
-    losses.insert(0, warmup["loss"])
-    rec.update({"warmup_step": warmup,
-                "step_ms": {"median": statistics.median(times),
-                            "min": min(times), "max": max(times)},
+    def arm(runs):
+        ms = [r["ms"] for r in runs]
+        ev = [r["event_ms"] for r in runs]
+        return {"median_ms": statistics.median(ms), "min_ms": min(ms),
+                "max_ms": max(ms), "event_median_ms": statistics.median(ev),
+                "event_min_ms": min(ev), "event_max_ms": max(ev),
                 "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
-                / (statistics.median(times) / 1e3),
-                "losses": losses, "timed_grad_norms": norms,
+                / (statistics.median(ms) / 1e3), "steps": runs}
+
+    losses = [warm["loss"]] + [r["loss"] for r in eager_runs + graph_runs]
+    norms = [warm["grad_norm"]] + [r["grad_norm"]
+                                   for r in eager_runs + graph_runs]
+    rec.update({"warmup_step": warm, "capture_call": graph_runs[0],
+                "graph": arm(graph_runs[1:]), "eager": arm(eager_runs),
+                "checks": checks, "capture_ms": st["capture_ms"],
+                "losses": losses, "grad_norms": norms,
                 "ln_vocab": math.log(cfg.vocab),
+                "update_samples": TRAIN_UPDATE_SAMPLES,
+                "tolerance": {"loss_rel": CARD_VS_CPU_LOSS_REL,
+                              "grad_rel": CARD_VS_CPU_GRAD_REL,
+                              "update": "lr * (1e-3 + grad_rel * max|g| / "
+                                        "(|g| + eps))"},
                 "peak_allocated": torch.cuda.max_memory_allocated()})
     if not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError(f"train: {arch} non-finite loss: {rec}")
@@ -3586,22 +3857,24 @@ def train_card_vs_cpu(dev, seed) -> dict:
 
 def train_quickstart(dev, seed) -> dict:
     """``repro``'s quickstart contract (tests/test_system.py) on the card:
-    the smoke llama, ``QUICKSTART_STEPS`` steps on the synthetic corpus,
+    the smoke llama, ``QUICKSTART_STEPS`` steps of the graphed step
+    (``jit_train_step``, as ``repro`` jits it) on the synthetic corpus,
     the last loss at least ``QUICKSTART_DROP`` below the first."""
+    import dataclasses
     import math
 
     from repro_torch import configs
     from repro_torch.data import DataConfig, make_batches
     from repro_torch.models import model as M
     from repro_torch.training.optimizer import OptimizerConfig, adamw_init
-    from repro_torch.training.train_step import TrainConfig, make_train_step
+    from repro_torch.training.train_step import TrainConfig, jit_train_step
 
     cfg = configs.get_smoke("llama3.2-1b")
     params = M.init_params(seed, cfg, device=dev)
     opt = OptimizerConfig(lr=3e-3, warmup_steps=10,
                           total_steps=QUICKSTART_STEPS, schedule="cosine")
     state = adamw_init(params, opt)
-    step = make_train_step(cfg, opt, TrainConfig(remat="none"))
+    step = jit_train_step(cfg, opt, TrainConfig(remat="none"))
     it = make_batches(DataConfig(vocab=cfg.vocab, seq_len=32,
                                  global_batch=16))
     t0 = time.monotonic()
@@ -3612,7 +3885,9 @@ def train_quickstart(dev, seed) -> dict:
     rec = {"config": cfg.name, "steps": QUICKSTART_STEPS,
            "first_loss": losses[0], "last_loss": losses[-1],
            "drop": losses[0] - losses[-1], "required_drop": QUICKSTART_DROP,
+           "graph": dataclasses.asdict(step.graph.stats),
            "seconds": time.monotonic() - t0}
+    step.graph.reset()
     if not all(math.isfinite(x) for x in losses) \
             or rec["drop"] < QUICKSTART_DROP:
         raise AssertionError(f"train: quickstart contract failed: {rec}")
@@ -3620,29 +3895,36 @@ def train_quickstart(dev, seed) -> dict:
 
 
 def train_restart(dev, seed) -> dict:
-    """``repro``'s ``test_checkpoint_restart_bit_exact`` on the card: 6
-    steps straight equal 3 steps, a checkpoint, a restore and 3 steps, bit
-    for bit, under ``torch.use_deterministic_algorithms`` (the embedding's
-    gradient is an indexed accumulation, whose default CUDA kernel adds in
-    any order; cuBLAS on one stream is deterministic, so its warning is
-    let through)."""
+    """``repro``'s ``test_checkpoint_restart_bit_exact`` on the card,
+    through the graphed step (``jit_train_step``, which updates the trees
+    it is given: each run starts from its own copy): 6 steps straight
+    equal 3 steps, a checkpoint, a restore and 3 steps, bit for bit, under
+    ``torch.use_deterministic_algorithms`` (the embedding's gradient is an
+    indexed accumulation, whose default CUDA kernel adds in any order;
+    cuBLAS on one stream is deterministic, so its warning is let
+    through).  Each run's first step is the graph's eager warm-up, its
+    second the capture, so step 4 runs eagerly after the restore and as a
+    replay in the straight run."""
     import torch
 
     from repro_torch import configs
     from repro_torch.data import DataConfig, make_batches
     from repro_torch.ft.checkpoint import (latest_step, load_checkpoint,
-                                           save_checkpoint, tree_flatten)
+                                           save_checkpoint, tree_flatten,
+                                           tree_unflatten)
     from repro_torch.ft.elastic import reshard_tree
     from repro_torch.models import model as M
     from repro_torch.training.optimizer import OptimizerConfig, adamw_init
-    from repro_torch.training.train_step import TrainConfig, make_train_step
+    from repro_torch.training.train_step import TrainConfig, jit_train_step
 
     cfg = configs.get_smoke("llama3.2-1b")
     opt = OptimizerConfig(lr=1e-3, warmup_steps=0)
-    step = make_train_step(cfg, opt, TrainConfig(remat="none"))
+    step = jit_train_step(cfg, opt, TrainConfig(remat="none"))
     data = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=8)
 
     def run(params, state, start, n):
+        leaves, treedef = tree_flatten((params, state))
+        params, state = tree_unflatten(treedef, [x.clone() for x in leaves])
         it = make_batches(data, start_step=start)
         for _ in range(n):
             params, state, _ = step(params, state, next(it))
@@ -3666,8 +3948,11 @@ def train_restart(dev, seed) -> dict:
     finally:
         torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        step.graph.reset()
     a, c = tree_flatten(pA)[0], tree_flatten(pC)[0]
     rec = {"config": cfg.name, "steps": "6 == 3 + checkpoint + 3",
+           "graph": {k: getattr(step.graph.stats, k)
+                     for k in ("warmups", "captures", "replays")},
            "deterministic_algorithms": True,
            "leaves": len(a),
            "leaves_equal": sum(bool(torch.equal(x, y)) for x, y in zip(a, c)),
@@ -3699,12 +3984,15 @@ def train_phase(dev, seed, emit_model) -> dict:
     K.reset_launch_counts()
     out = {"allocated_at_start": start, "models": []}
     for arch in TRAIN_CONFIGS:
+        gc.collect()            # the last model's trees, before the next
+        torch.cuda.empty_cache()
         t1 = time.monotonic()
         rec = train_run(arch, dev, seed)
         rec["seconds"] = time.monotonic() - t1
         emit_model(rec)
         out["models"].append({k: rec[k] for k in (
-            "config", "step_ms", "tokens_per_s", "seconds")})
+            "config", "graph", "eager", "capture_ms", "peak_allocated",
+            "seconds")})
     out["card_vs_cpu"] = train_card_vs_cpu(dev, seed)
     out["quickstart"] = train_quickstart(dev, seed)
     out["restart"] = train_restart(dev, seed)
@@ -3713,6 +4001,47 @@ def train_phase(dev, seed, emit_model) -> dict:
         raise AssertionError(f"train: the training path launched a "
                              f"kernel: {out['launches']}")
     out["memory"] = _released(start, _train_batch_bytes(), "train")
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def serve_bravo_phase(dev) -> dict:
+    """``repro_torch.examples.serve_bravo`` on the card (its lines go to
+    stderr): handler mode on the smoke llama under swaps every 0.25 s and
+    compaction every 0.4 s, for ``bravo-ba``, ``ba`` and
+    ``bravo-pthread``.  Each lock's 8 requests finish (the example raises
+    otherwise) with a sample in the vocabulary, in at least 44 decode
+    steps (4 batches of 6 + 6 - 1 steps when each takes two requests);
+    K1-K3 launched (K4 runs only in a drain check, which the example
+    makes none of); every handler call a warm-up or a replay of its
+    graph."""
+    from repro_torch import configs
+    from repro_torch.examples import serve_bravo
+    from repro_torch.kernels import ops as K
+
+    vocab = configs.get_smoke("llama3.2-1b").vocab
+    t0 = time.monotonic()
+    K.reset_launch_counts()
+    with contextlib.redirect_stdout(sys.stderr):
+        runs = serve_bravo.main(["--device", str(dev)])
+    counts = K.launch_counts()
+    out = {"locks": [], "launches": counts}
+    for r in runs:
+        graphs = {kind: {k: sum(s[kind][k] for s in
+                                r["handler_steps"].values())
+                         for k in ("warmups", "captures", "replays")}
+                  for kind in ("prefill", "decode")}
+        rec = {k: v for k, v in r.items() if k != "handler_steps"}
+        rec["graphs"] = graphs
+        out["locks"].append(rec)
+        dec = graphs["decode"]
+        if (r["decode_steps"] < 44 or dec["warmups"] + dec["replays"]
+                != r["decode_steps"] or not dec["replays"]
+                or not all(0 <= t < vocab for t in r["sample"])):
+            raise AssertionError(f"serve_bravo: {rec}")
+    # the plain versions (CPU tensors) count no launch
+    if dev.type == "cuda" and not all(counts[k] for k in TABLE_KERNELS[:3]):
+        raise AssertionError(f"serve_bravo: K1-K3 not launched: {counts}")
     out["seconds"] = time.monotonic() - t0
     return out
 
@@ -4043,12 +4372,14 @@ def main(argv=None) -> int:
 
     emit({"phase": "sync_gate", **sync_gate(dev, cfg, params)})
 
-    eng = run_engine(cfg, params, dev, n_req=8, prompt_len=16, max_new=16,
-                     handlers=handlers, slots=slots, max_seq=64,
-                     swap_s=0.25, compact_s=0.2, seed=args.seed)
-    step = decode_step_ms(cfg, params, dev, batch=slots, steps=32,
-                          max_seq=64)
-    emit({"phase": "engine", "card": card, **eng, "decode_step": step})
+    kw = dict(n_req=8, prompt_len=16, max_new=16, handlers=handlers,
+              slots=slots, max_seq=64, swap_s=0.25, compact_s=0.2,
+              seed=args.seed)
+    eng = run_engine(cfg, params, dev, **kw)
+    eager_eng = _engine_arm(run_engine(cfg, params, dev, eager=True, **kw))
+    step = decode_step_ms(cfg, params, dev, batch=slots, max_seq=64)
+    emit({"phase": "engine", "card": card, **eng, "eager_engine": eager_eng,
+          "decode_step": step})
 
     sched = run_scheduler(cfg, params, dev, seed=args.seed + 3)
     emit({"phase": "scheduler", "card": card, **sched})
@@ -4090,6 +4421,8 @@ def main(argv=None) -> int:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
     emit({"phase": "graph_step", "card": card,
           **graph_step_phase(cfg, params, dev, args.seed)})
+
+    emit({"phase": "serve_bravo", "card": card, **serve_bravo_phase(dev)})
 
     emit({"phase": "tokens", **token_check(cfg, params, dev, n_req=2,
                                            prompt_len=16, max_new=8,

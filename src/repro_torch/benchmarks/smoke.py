@@ -67,13 +67,20 @@ def spread(readings: Iterable[float]) -> dict:
 
 
 def eager_steps(eng):
-    """Put the bare paged steps on a scheduler-mode engine in place of its
-    graphed ones (``steps.jit_step``): the eager arm of a comparison run in
-    turns.  -> ``eng``."""
+    """Put the bare steps on an engine in place of its graphed ones
+    (``steps.jit_step``): the eager arm of a comparison run in turns.
+    Scheduler mode: the paged decode and prefill steps and the
+    copy-on-write page copy.  Handler mode: the prefill and decode of every
+    handler thread at every batch size made from then on (call it before
+    ``start()``), with the same per-thread cache trees.  -> ``eng``."""
+    from ..serving.engine import copy_page
     from ..serving.steps import make_decode_step, make_paged_prefill_step
 
-    eng._decode_paged = make_decode_step(eng.cfg, paged=True)
-    eng._prefill_paged = make_paged_prefill_step(eng.cfg)
+    eng._graph_handlers = False
+    if eng.scheduler is not None:
+        eng._decode_paged = make_decode_step(eng.cfg, paged=True)
+        eng._prefill_paged = make_paged_prefill_step(eng.cfg)
+        eng._copy_page_step = copy_page
     return eng
 
 

@@ -11,6 +11,9 @@ The twin of ``repro``'s ``examples/elastic_restart.py``: the smoke llama,
 committed checkpoint on 3 hosts, the data pipeline's shard index
 rebalanced from 4 loaders to 3 (the writer path of its BRAVO lock), and
 15 more steps.  It runs on the CUDA card unless given ``--device cpu``.
+The step is ``jit_train_step``, one CUDA graph on the card, where
+``repro`` jits it; the restored trees are new, so the step's first call
+after the restart runs eagerly and its second captures again.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from ..ft.elastic import remicrobatch, reshard_tree
 from ..ft.straggler import StragglerDetector
 from ..models import model as M
 from ..training.optimizer import OptimizerConfig, adamw_init
-from ..training.train_step import TrainConfig, make_train_step
+from ..training.train_step import TrainConfig, jit_train_step
 
 CRASH_AT = 25
 
@@ -54,7 +57,7 @@ def main(argv=None) -> dict:
 
     params = M.init_params(0, cfg, device=dev)
     state = adamw_init(params, opt)
-    step = make_train_step(cfg, opt, TrainConfig(remat="none"))
+    step = jit_train_step(cfg, opt, TrainConfig(remat="none"))
     out = {"run1": [], "run2": []}
 
     # ---- phase 1: 4 "hosts", host 3 is slow; crash at step 25 ----

@@ -8,7 +8,9 @@ restart-on-failure: the end-to-end training script.
 The twin of ``repro``'s ``examples/quickstart.py``: the same arguments,
 model, WSD schedule, data and checkpoint cadence.  It runs on the CUDA card
 unless given ``--device cpu``, and resumes from the newest checkpoint in
-``--ckpt-dir`` when there is one.
+``--ckpt-dir`` when there is one.  The step is ``jit_train_step``: one CUDA
+graph on the card that updates the trees in place, where ``repro`` jits
+the step.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from ..ft.elastic import reshard_tree
 from ..models import model as M
 from ..models.common import ModelConfig
 from ..training.optimizer import OptimizerConfig, adamw_init
-from ..training.train_step import TrainConfig, make_train_step
+from ..training.train_step import TrainConfig, jit_train_step
 
 
 def main(argv=None) -> float:
@@ -72,7 +74,7 @@ def main(argv=None) -> float:
         params, state = restored["params"], restored["state"]
         start = last
 
-    step = make_train_step(cfg, opt, TrainConfig(remat="none"))
+    step = jit_train_step(cfg, opt, TrainConfig(remat="none"))
     it = make_batches(data, start_step=start)
     t0 = time.time()
     m = None

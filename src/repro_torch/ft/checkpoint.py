@@ -61,39 +61,43 @@ class CheckpointCorrupt(IOError):
 # ---------------------------------------------------------------------------
 
 
+# The walks are module functions: a recursive closure refers to itself
+# through its cell, a cycle that would keep the leaves it saw (whole
+# parameter and gradient trees) allocated until the garbage collector ran.
+
+
+def _walk(node, leaves: List[Any]):
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return ("dict", keys, [_walk(node[k], leaves) for k in keys])
+    if isinstance(node, (list, tuple)):
+        return (type(node), None, [_walk(v, leaves) for v in node])
+    if node is None:
+        return ("none", None, [])
+    leaves.append(node)
+    return ("leaf", None, [])
+
+
 def tree_flatten(tree: Any) -> Tuple[List[Any], Any]:
     """-> (leaves, treedef): dicts by sorted key, lists and tuples in
     order, ``None`` as an empty node, anything else a leaf."""
     leaves: List[Any] = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(node):
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return ("dict", keys, [walk(node[k]) for k in keys])
-        if isinstance(node, (list, tuple)):
-            return (type(node), None, [walk(v) for v in node])
-        if node is None:
-            return ("none", None, [])
-        leaves.append(node)
-        return ("leaf", None, [])
 
-    return leaves, walk(tree)
+def _build(node, it):
+    kind, keys, kids = node
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(keys, kids)}
+    if kind == "none":
+        return None
+    if kind == "leaf":
+        return next(it)
+    return kind(_build(c, it) for c in kids)
 
 
 def tree_unflatten(treedef: Any, leaves: List[Any]) -> Any:
-    it = iter(leaves)
-
-    def build(node):
-        kind, keys, kids = node
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(keys, kids)}
-        if kind == "none":
-            return None
-        if kind == "leaf":
-            return next(it)
-        return kind(build(c) for c in kids)
-
-    return build(treedef)
+    return _build(treedef, iter(leaves))
 
 
 def _describe(treedef: Any) -> str:

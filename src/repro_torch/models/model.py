@@ -61,8 +61,12 @@ def _unbind(tree) -> list:
 
 
 def full_remat(fn, *args):
-    """``fn(*args)``, every activation recomputed in the backward pass."""
-    return checkpoint(fn, *args, use_reentrant=False)
+    """``fn(*args)``, every activation recomputed in the backward pass.
+    The blocks draw no random numbers, so no RNG state is kept for the
+    recomputation (reading the card's would refuse a CUDA graph
+    capture)."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def _block(blk, x, remat_policy, lc):
@@ -395,7 +399,10 @@ def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     mask = batch.get("mask")
     mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
     loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+    # a float (no MoE block) made on the device, not copied there, so a
+    # CUDA graph can hold the step
+    aux = aux.float() if isinstance(aux, torch.Tensor) else \
+        torch.full((), aux, dtype=torch.float32, device=loss.device)
     total = loss + aux_weight * aux
     return total, {"loss": loss, "aux": aux, "nll_mean": loss}
 

@@ -37,7 +37,15 @@ Two modes:
   drops the graphs.
 * **Handler mode** (``scheduler=None``): each handler thread gathers up to
   ``slots_per_handler`` requests, runs one prefill and then decode steps
-  against a dense per-batch cache, beside the pool's page map.
+  against a dense per-batch cache, beside the pool's page map.  On the
+  card both steps run as CUDA graphs (``steps.jit_step``, where ``repro``
+  jits them), each handler thread with its own step objects for each
+  batch size, so two threads never share (and thrash) one graph.  The
+  decode cache tree of a (thread, batch size) is kept by the engine,
+  zeroed in place at the start of each batch and donated to the decode
+  step, which writes every leaf in place (``steps.in_place``); a hot swap
+  costs each step object that sees the new tree one eager step and one
+  capture.
 
 Scheduler mode also carries ``repro``'s latency-feedback admission
 (``SchedulerConfig(controller=ControllerConfig(...))``): windowed step and
@@ -79,8 +87,9 @@ from ..obs.metrics import MetricsRegistry
 from .kv_pool import KVPool, page_keys
 from .scheduler import (LatencyFeedbackController, Phase, Scheduler,
                         SchedulerConfig, SlotState)
-from .steps import (GraphedStep, jit_step, make_decode_step,
-                    make_paged_prefill_step, make_prefill_step)
+from .steps import (GraphedStep, flatten, in_place, jit_step,
+                    make_decode_step, make_paged_prefill_step,
+                    make_prefill_step, unflatten)
 
 
 @dataclasses.dataclass
@@ -356,6 +365,38 @@ class PageTable:
         return int(cnt)                        # sync OUTSIDE the lock
 
 
+def copy_page(store: Dict[str, torch.Tensor], src: torch.Tensor,
+              dst: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Copy-on-write: page ``src`` of every leaf of the page store (all
+    layers, K and V, and on the quantized store their scales) into page
+    ``dst``, in place.  ``src`` and ``dst`` are int32 scalars on the
+    store's device, so a CUDA graph of this copy replays for any pair.
+    -> ``store``."""
+    s, d = src.long().view(1), dst.long().view(1)
+    for x in store.values():
+        x.index_copy_(1, d, x.index_select(1, s))
+    return store
+
+
+@dataclasses.dataclass
+class HandlerSteps:
+    """One handler thread's steps at one batch size (``jit_step`` graphs
+    on the card), and the decode cache tree the decode step updates in
+    place, which the engine zeroes at the start of each batch."""
+    prefill: Callable
+    decode: Callable
+    caches: Any
+
+
+def _logits_only(prefill: Callable) -> Callable:
+    """Handler mode's prefill, which reads nothing of the step's result:
+    the step returning its logits alone, so a graph of it copies no cache
+    out at a replay."""
+    def logits(params, batch):
+        return prefill(params, batch)[0]
+    return logits
+
+
 def _perturb(params):
     """Default hot-swap update: every float leaf times (1 + 1e-6)."""
     if isinstance(params, dict):
@@ -409,8 +450,12 @@ class ServingEngine:
         self._failures_lock = threading.Lock()
         self._degraded = threading.Event()   # hot-swap drain failed: stop
         #                                      admitting, drain in-flight
-        self._prefill = make_prefill_step(cfg)
-        self._decode = make_decode_step(cfg)
+        # handler mode's steps, bare: ``_handler_steps`` makes each
+        # thread's graphs of them at each batch size
+        self._prefill = _logits_only(make_prefill_step(cfg))
+        self._decode = in_place(make_decode_step(cfg), arg=1, out=2)
+        self._graph_handlers = True    # False: bare (smoke.eager_steps)
+        self._hsteps: Dict[tuple, HandlerSteps] = {}
 
         # ---- scheduler mode (continuous batching over the paged pool) ----
         self.sched_cfg = scheduler
@@ -458,6 +503,10 @@ class ServingEngine:
                                       donate_argnums=(1,))
         self._prefill_paged = jit_step(make_paged_prefill_step(cfg),
                                        donate_argnums=(1,))
+        # copy-on-write of one page over the donated store, as ``repro``'s
+        # jit_step; the page pair rides as device scalars, so one graph a
+        # store serves every copy
+        self._copy_page_step = jit_step(copy_page, donate_argnums=(0,))
         self._free_est = n_pages        # host mirror of pool pressure
         self._compact_req = False
         # decode steps seen so far: the first obs_warmup_steps stay out of
@@ -507,8 +556,56 @@ class ServingEngine:
                     break
             self._serve_batch(hid, reqs)
 
+    def _decode_caches(self, batch: int) -> Any:
+        """Zero decode caches for ``batch`` rows, each leaf in the dtype
+        the decode step returns for it (found by running the step on the
+        meta device): a step that promotes a leaf, as Zamba2's convolution
+        window beside float32 weights or RWKV's token shifts at float32
+        compute, gets it promoted from the start, which changes no value,
+        since zeros promote to zeros."""
+        caches = M.init_caches(self.cfg, batch, self.max_seq,
+                               dtype=torch.bfloat16, device="meta")
+        p_leaves, p_struct = flatten(self.store.params)
+        meta = unflatten(p_struct, [torch.empty_like(x, device="meta")
+                                    for x in p_leaves])
+        tok = torch.zeros((batch, 1), dtype=torch.int32, device="meta")
+        clen = torch.ones((batch,), dtype=torch.int32, device="meta")
+        # one step reaches the fixed point: promoting twice is promoting once
+        caches = make_decode_step(self.cfg)(meta, caches, tok, clen)[2]
+        leaves, struct = flatten(caches)
+        return unflatten(struct, [
+            torch.zeros(x.shape, dtype=x.dtype, device=self.device)
+            for x in leaves])
+
+    def _handler_steps(self, hid: int, batch: int) -> HandlerSteps:
+        """Handler ``hid``'s steps at ``batch`` rows, with its decode cache
+        tree zeroed (made on first use, and again after ``stop()``)."""
+        hs = self._hsteps.get((hid, batch))
+        if hs is None:
+            g = self._graph_handlers
+            hs = self._hsteps[(hid, batch)] = HandlerSteps(
+                prefill=jit_step(self._prefill) if g else self._prefill,
+                decode=(jit_step(self._decode, donate_argnums=(1,)) if g
+                        else self._decode),
+                caches=None)
+        if hs.caches is None:
+            hs.caches = self._decode_caches(batch)
+        else:
+            for x in flatten(hs.caches)[0]:
+                x.zero_()
+        return hs
+
+    def handler_step_stats(self) -> Dict[str, Dict[str, Any]]:
+        """Each handler step object's warm-ups, captures and replays, by
+        ``"h<thread>_b<batch size>"``."""
+        return {f"h{hid}_b{b}": {
+                    name: dataclasses.asdict(step.stats)
+                    for name, step in (("prefill", hs.prefill),
+                                       ("decode", hs.decode))
+                    if isinstance(step, GraphedStep)}
+                for (hid, b), hs in sorted(self._hsteps.items())}
+
     def _serve_batch(self, hid: int, reqs: List[Request]) -> None:
-        cfg = self.cfg
         dev = self.device
         B = len(reqs)
         S = max(len(r.prompt) for r in reqs)
@@ -522,16 +619,16 @@ class ServingEngine:
                                device=dev)
         toks_dev = torch.from_numpy(toks).to(dev)
 
+        hs = self._handler_steps(hid, B)
         # prefill under a read lock (one epoch for the whole batch)
         tok, params, _ = self.store.read_batch(rid_dev)
         try:
-            self._prefill(params, {"tokens": toks_dev})
+            hs.prefill(params, {"tokens": toks_dev})
         finally:
             self.store.done_read_batch(tok, rid_dev)
         self.stats.inc("prefills")
 
-        caches = M.init_caches(cfg, B, self.max_seq, dtype=torch.bfloat16,
-                               device=dev)
+        caches = hs.caches
         # feed the prompt token by token through decode steps (per-slot
         # lengths differ), then generate
         outs: List[List[int]] = [[] for _ in range(B)]
@@ -545,8 +642,8 @@ class ServingEngine:
             try:
                 rtok, params_now, _ = self.store.read_batch(rid_dev)
                 try:
-                    nxt, _logits, caches = self._decode(params_now, caches,
-                                                        cur, clen)
+                    nxt, _logits, caches = hs.decode(params_now, caches,
+                                                     cur, clen)
                 finally:
                     self.store.done_read_batch(rtok, rid_dev)
             finally:
@@ -603,9 +700,10 @@ class ServingEngine:
     def _copy_page(self, src: int, dst: int) -> None:
         """Copy-on-write: duplicate one page of the store (all layers, K
         and V, and on the quantized store their scales) into a private
-        page, in place."""
-        for x in self._pages_kv.values():
-            x[:, dst] = x[:, src]
+        page, in place, through the graphed :func:`copy_page`."""
+        pair = torch.tensor([src, dst], dtype=torch.int32,
+                            device=self.device)   # one small upload
+        self._copy_page_step(self._pages_kv, pair[0], pair[1])
 
     def _release_slot_pages(self, st: SlotState) -> int:
         """Return a slot's pages to the pool: drop its refs on shared
@@ -1109,9 +1207,14 @@ class ServingEngine:
         for t in self._threads:
             t.join(timeout=self.ecfg.join_timeout_s)
         # the graphed steps hold their pools and the parameter trees they
-        # were captured on
-        for step in (getattr(self, "_decode_paged", None),
-                     getattr(self, "_prefill_paged", None)):
+        # were captured on; the handler steps' cache trees go too (their
+        # counts stay readable)
+        steps = [getattr(self, name, None) for name in (
+            "_decode_paged", "_prefill_paged", "_copy_page_step")]
+        for hs in list(self._hsteps.values()):
+            steps += [hs.prefill, hs.decode]
+            hs.caches = None
+        for step in steps:
             if isinstance(step, GraphedStep):
                 step.reset()
         self.check_health()
@@ -1125,7 +1228,9 @@ class ServingEngine:
                 out[name] = dataclasses.asdict(st)
         out["device_leases"] = self.registry.stats()
         out["kv_pool"] = self.kv_pool.stats()
-        if self.scheduler is not None:
+        if self.scheduler is None:
+            out["handler_steps"] = self.handler_step_stats()
+        else:
             out["scheduler"] = self.scheduler.stats()
             if self._h_step.count:
                 out["scheduler"]["decode_p50_us"] = round(

@@ -198,12 +198,24 @@ def add_launches(launches: Dict[str, int]) -> None:
         K.COUNTERS[name].add(n)
 
 
+# ``torch.cuda.graph`` captures on one side stream shared by the whole
+# process, so two threads may not capture at once: captures take this lock
+_CAPTURE_LOCK = threading.Lock()
+
+
 def capture_graph(fn: Callable, args: Sequence):
     """Capture ``fn(*args)`` as a CUDA graph on the current device ->
     (graph, its results, the kernel launches it recorded).  Other threads
-    may run CUDA work meanwhile (``capture_error_mode="thread_local"``)."""
+    may run CUDA work meanwhile (``capture_error_mode="thread_local"``:
+    CUDA refuses an unsafe call on the capturing thread only; work that
+    other threads put on the capturing stream, as autograd's device thread
+    does in a backward pass, is captured).  One capture runs at a time in
+    the process.  ``torch.cuda.graph`` empties the allocator's cache
+    first, which is also what frees the pools of the graphs dropped since:
+    the allocator frees a dropped graph's pool in ``empty_cache`` or after
+    an allocation fails outside a capture, not otherwise."""
     graph = torch.cuda.CUDAGraph()
-    with _build.recording_launches() as launches:
+    with _CAPTURE_LOCK, _build.recording_launches() as launches:
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             out = fn(*args)
     return graph, out, dict(launches)
@@ -308,8 +320,9 @@ def jit_step(fn: Callable, donate_argnums: Sequence[int] = ()) -> GraphedStep:
     libraries, cuBLAS's handle and the kernels' plans, and whose results
     are the call's.  The second call with it captures ``fn``
     (``capture_error_mode="thread_local"``: other threads may run CUDA
-    work meanwhile) and replays the graph, as every later call with that
-    key does, on the current stream.  So a key seen once is never
+    work meanwhile; one capture at a time in the process) and replays the
+    graph, as every later call with that key does, on the current
+    stream.  So a key seen once is never
     captured, and each call runs the step once.  A capture or replay error
     raises.  Results are fresh tensors, except a donated argument, which
     comes back as the caller's own object.  The eager warm-up counts its
@@ -318,6 +331,32 @@ def jit_step(fn: Callable, donate_argnums: Sequence[int] = ()) -> GraphedStep:
     ``kernels.ops.launch_counts`` goes on counting device launches.  On
     CPU tensors ``fn`` runs eagerly."""
     return GraphedStep(fn, donate_argnums)
+
+
+def in_place(step: Callable, arg: int, out: int) -> Callable:
+    """``step`` with result ``out`` written into argument ``arg`` (a tree of
+    the same structure, shapes and dtypes) and that argument returned in
+    its place: a step whose new state comes back as new tensors made to
+    update donated state, as a graph needs.  A leaf the step already
+    wrote in place (the same tensor) is not copied."""
+    def run(*args):
+        res = list(step(*args))
+        dst, dst_s = flatten(args[arg])
+        src, src_s = flatten(res[out])
+        if dst_s != src_s:
+            raise ValueError("in_place: the step's result and the donated "
+                             "argument differ in structure")
+        for d, x in zip(dst, src):
+            if d is not x:
+                if d.dtype != x.dtype or d.shape != x.shape:
+                    raise ValueError(
+                        f"in_place: a result leaf {tuple(x.shape)} "
+                        f"{x.dtype} does not fit its donated leaf "
+                        f"{tuple(d.shape)} {d.dtype}")
+                d.copy_(x)
+        res[out] = args[arg]
+        return tuple(res)
+    return functools.wraps(step)(run)
 
 
 def make_prefill_step(cfg: ModelConfig):

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Tuple
+from typing import Any, Iterator, Tuple
 
 import torch
 
@@ -71,15 +71,15 @@ def adamw_init(params: Any, cfg: OptimizerConfig) -> Any:
                                 device=leaves[0].device)}
 
 
-@torch.no_grad()
-def adamw_update(params: Any, grads: Any, state: Any,
-                 cfg: OptimizerConfig) -> Tuple[Any, Any, torch.Tensor]:
-    """-> (new params, new state, the global gradient norm).  Leaves are
-    taken in ``repro``'s order (dicts by sorted key), which orders the
-    norm's sum as ``jax.tree.leaves`` does."""
+def _adamw(params: Any, grads: Any, state: Any, cfg: OptimizerConfig
+           ) -> Tuple[torch.Tensor, torch.Tensor, Iterator[tuple]]:
+    """-> (the new step count, the global gradient norm, an iterator of
+    ``(p, m, v, new p, new m, new v)`` a leaf).  Everything the iterator
+    reads besides its own leaf is computed before it starts, so a caller
+    may write each leaf's new values in place as they come."""
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
-    ps, treedef = tree_flatten(params)
+    ps = tree_flatten(params)[0]
     gs = tree_flatten(grads)[0]
     ms = tree_flatten(state["m"])[0]
     vs = tree_flatten(state["v"])[0]
@@ -93,8 +93,9 @@ def adamw_update(params: Any, grads: Any, state: Any,
     cd = torch.float32 if sd == torch.float32 else torch.bfloat16
 
     def c(x):
-        """A Python constant as JAX takes it beside a ``cd`` array."""
-        return torch.tensor(x, dtype=cd, device=step.device)
+        """A Python constant as JAX takes it beside a ``cd`` array, filled
+        on the device (a copy from the host would refuse a CUDA graph)."""
+        return torch.full((), x, dtype=cd, device=step.device)
 
     b1, b2, eps, wd = c(cfg.b1), c(cfg.b2), c(cfg.eps), c(cfg.weight_decay)
     b1c, b2c = c(1 - cfg.b1), c(1 - cfg.b2)
@@ -103,18 +104,49 @@ def adamw_update(params: Any, grads: Any, state: Any,
     bc2 = (1 - cfg.b2 ** s32).to(cd)
     lr_c, scale_c = lr.to(cd), scale.to(cd)
 
+    def leaves():
+        for p, g, m, v in zip(ps, gs, ms, vs):
+            g = g.to(cd) * scale_c
+            m32 = m.to(cd) * b1 + b1c * g
+            v32 = v.to(cd) * b2 + b2c * torch.square(g)
+            mh = m32 / bc1
+            vh = v32 / bc2
+            delta = mh / (torch.sqrt(vh) + eps) + wd * p.to(cd)
+            yield (p, m, v, (p.to(cd) - lr_c * delta).to(p.dtype),
+                   m32.to(sd), v32.to(sd))
+
+    return step, gnorm, leaves()
+
+
+@torch.no_grad()
+def adamw_update(params: Any, grads: Any, state: Any,
+                 cfg: OptimizerConfig) -> Tuple[Any, Any, torch.Tensor]:
+    """-> (new params, new state, the global gradient norm).  Leaves are
+    taken in ``repro``'s order (dicts by sorted key), which orders the
+    norm's sum as ``jax.tree.leaves`` does."""
+    step, gnorm, leaves = _adamw(params, grads, state, cfg)
     newp, newm, newv = [], [], []
-    for p, g, m, v in zip(ps, gs, ms, vs):
-        g = g.to(cd) * scale_c
-        m32 = m.to(cd) * b1 + b1c * g
-        v32 = v.to(cd) * b2 + b2c * torch.square(g)
-        mh = m32 / bc1
-        vh = v32 / bc2
-        delta = mh / (torch.sqrt(vh) + eps) + wd * p.to(cd)
-        newp.append((p.to(cd) - lr_c * delta).to(p.dtype))
-        newm.append(m32.to(sd))
-        newv.append(v32.to(sd))
+    for *_, p1, m1, v1 in leaves:
+        newp.append(p1)
+        newm.append(m1)
+        newv.append(v1)
+    treedef = tree_flatten(params)[1]
     return (tree_unflatten(treedef, newp),
             {"m": tree_unflatten(treedef, newm),
              "v": tree_unflatten(treedef, newv), "step": step},
             gnorm)
+
+
+@torch.no_grad()
+def adamw_update_(params: Any, grads: Any, state: Any,
+                  cfg: OptimizerConfig) -> torch.Tensor:
+    """:func:`adamw_update` written into ``params`` and ``state`` in place,
+    leaf by leaf (no second tree exists at once), as a donated step does.
+    -> the global gradient norm."""
+    step, gnorm, leaves = _adamw(params, grads, state, cfg)
+    for p, m, v, p1, m1, v1 in leaves:
+        p.copy_(p1)
+        m.copy_(m1)
+        v.copy_(v1)
+    state["step"].copy_(step)
+    return gnorm

@@ -152,6 +152,23 @@ def test_default_device_entry_points_raise_without_cuda(no_cuda):
             make()
 
 
+def test_examples_are_checked_and_raise_without_cuda(no_cuda):
+    """Every example module of the port, ``serve_bravo`` included, is
+    among the files the import checks read, and without ``--device``
+    refuses to run without a card."""
+    import importlib
+
+    names = sorted(p.stem for p in (PORT / "examples").glob("*.py")
+                   if p.name != "__init__.py")
+    assert names == ["elastic_restart", "quickstart", "serve_bravo"]
+    files = _port_files()
+    for name in names:
+        assert PORT / "examples" / f"{name}.py" in files
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.main(["--locks", "ba"] if name == "serve_bravo" else [])
+
+
 @pytest.mark.parametrize("name", ["obs", "scheduler", "prefill", "quant"])
 def test_serving_benchmark_clis_raise_without_cuda(no_cuda, name):
     import importlib
