@@ -13,6 +13,14 @@ non-zero exit and no result line:
    timing build (``BUILDS``: the parent K1/K2 design, the parent chunk
    design), one process each, all started together; then ptxas's report (registers,
    spills, static shared memory) on the chunk kernel's instantiations;
+2a. locks (on the host, while nvcc builds): the paper's lock experiments
+   and the host analysis (``locks_phase``): every lock variant under
+   ``LiveMem`` and ``SimMem`` (``repro_torch.benchmarks.smoke_locks``),
+   the source lint over ``src/repro_torch`` with PyTorch's host syncs in
+   its lease-window rule (0 findings, empty allowlist), and
+   ``figures.test_rwlock`` for ``ba`` and ``bravo-ba`` at 4 readers and
+   ``figures.alternator('bravo-ba', 4)``, whose rows are virtual time on
+   the simulator's modelled 72-CPU X5-2;
 3. kernels: each table kernel (K1-K4) against its plain PyTorch version on
    the card, exact, at the 4096-slot table with M in {1, 4, 16, 256}, K in
    {1, 5, 128} and seeded sweeps with collisions, cleared bias lanes, -1
@@ -75,6 +83,15 @@ non-zero exit and no result line:
    slots, K 5 and 1000 on 65,536) and K9 on 4096 and 65,536 slots against
    the parents and K3 on the same table, in turns (``scan_designs``; the
    parent K4 refuses K > 128);
+3b. autotune: ``repro_torch.kernels.autotune`` on the ``paged`` build
+   (``autotune_phase``): K5/K7's ``min_split_positions`` and K6/K8's
+   ``pairs`` swept at llama3.2-1b's heads on 256 lanes of 16 (decode 16
+   rows, chunk 2 rows x 32 columns), every candidate checked against the
+   plain version (1e-5) before it is timed (a CUDA graph of 100 launches,
+   median of 11 windows, twice in turns), the winners written to a
+   temporary table; then the wrappers' plans read back with the committed
+   ``kernels/tuning_table.json`` in force, equal to the committed knob's
+   plan at the sweep shapes and to the built-in plan at the tick shapes;
 3c. device_bravo: the port's device-BRAVO benchmark
    (``repro_torch.benchmarks.device_bravo``, batch 64, 100 iterations):
    the single-lock ``DeviceLeaseTable`` (K2 acquire and release, K3 drain
@@ -209,7 +226,7 @@ non-zero exit and no result line:
    model at a time, each released before the next with
    ``memory_allocated`` back within one store (its page store or decode
    caches) of the phase's start: ``rwkv6-7b`` (ssm) at 16 of 32 layers,
-   ``zamba2-2.7b`` (hybrid), ``phi3.5-moe`` at 16 of 32 layers and
+   ``zamba2-2.7b`` (hybrid) at 30 of 54, ``phi3.5-moe`` at 16 of 32 and
    ``llama4-maverick`` at 2 of 48 (moe, bf16 parameters;
    ``FAMILY_HANDLER``) in handler mode as in phase 5 (hot swaps of a new
    final norm scale, K1-K4 launched, graphed handler steps, the B = 4
@@ -500,7 +517,9 @@ SWAP_TREES_PEAK = 4.5
 # (rwkv6-7b 35.9 s, minicpm-2b 74.6, phi-3-vision 70.1 on an H100 80GB
 # HBM3, 700 W) run half their layers, so the script stays near 950 s of
 # its 1200.
-FAMILY_HANDLER = (("rwkv6-7b", 16), ("zamba2-2.7b", None),
+# zamba2-2.7b at 30 of 54 layers (a multiple of its hybrid_attn_every, 6)
+# to keep the script inside its time with the locks and autotune phases
+FAMILY_HANDLER = (("rwkv6-7b", 16), ("zamba2-2.7b", 30),
                   ("phi3.5-moe-42b-a6.6b", 16),
                   ("llama4-maverick-400b-a17b", 2))
 FAMILY_SCHEDULER = (("gemma-2b", None), ("minicpm-2b", 20),
@@ -4325,7 +4344,11 @@ def main(argv=None) -> int:
           "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": card})
 
-    emit({"phase": "build", **build_all()})
+    # the lock experiments and the lint run on the host while nvcc builds
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        building = ex.submit(build_all)
+        emit({"phase": "locks", **locks_phase()})
+        emit({"phase": "build", **building.result()})
     emit({"phase": "ptxas", "source": SOURCES["paged"],
           "chunk_kernels": ptxas_chunk_report()})
 
@@ -4355,6 +4378,8 @@ def main(argv=None) -> int:
                            "time), and (bound_simt_ms) at the float32 "
                            "rate outside the tensor cores, 67 TFLOP/s",
           "times": times})
+
+    emit({"phase": "autotune", "card": card, **autotune_phase(dev)})
 
     bench = lease_benchmarks(dev)
     emit({"phase": "device_bravo", "card": card, **bench["device_bravo"]})
@@ -4474,6 +4499,126 @@ def main(argv=None) -> int:
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+# ---------------------------------------------------------------------------
+# Phases 2a and 3b: the lock experiments, the lint, the autotune sweep
+# ---------------------------------------------------------------------------
+
+
+def locks_phase() -> dict:
+    """The paper's lock experiments and the host analysis on this machine's
+    CPU, while the kernels build: ``repro_torch.benchmarks.smoke_locks``
+    (every lock variant under ``LiveMem`` and ``SimMem``; it raises on a
+    torn read or a lost write), the source lint over ``src/repro_torch``
+    (PyTorch's host syncs in the lease-window rule; 0 findings after the
+    allowlist, which must be empty), and three rows of the paper's figures
+    under the coherence simulator: ``test_rwlock`` (fig. 3) for ``ba`` and
+    ``bravo-ba`` at 4 readers and ``alternator('bravo-ba', 4)`` (fig. 2).
+    The rows are virtual time on the modelled 72-CPU X5-2, not a reading
+    of this host or of the card."""
+    from repro_torch.analysis import check as CHK
+    from repro_torch.analysis import lint_src as LS
+    from repro_torch.benchmarks import figures as FIG
+    from repro_torch.benchmarks import smoke_locks
+
+    t0 = time.monotonic()
+    lines = []
+    sims = smoke_locks.run(lines.append)
+    t_smoke = time.monotonic() - t0
+    waivers = LS.load_allowlist(CHK.ALLOWLIST)
+    findings = LS.apply_allowlist(LS.lint_tree(), waivers)
+    if findings or waivers:
+        raise AssertionError(f"locks: source lint: "
+                             f"{[str(f) for f in findings]}, waivers "
+                             f"{waivers}")
+    t_lint = time.monotonic() - t0 - t_smoke
+    rows = [FIG.test_rwlock("ba", 4), FIG.test_rwlock("bravo-ba", 4),
+            FIG.alternator("bravo-ba", 4)]
+    for r in rows:
+        if not (r.ops > 0 and r.elapsed_ns > 0):
+            raise AssertionError(f"locks: empty figure row {r.row()}")
+    return {"smoke_locks": {"variants": len(sims), "sim": sims,
+                            "seconds": t_smoke},
+            "source_lint": {"root": "src/repro_torch", "findings": 0,
+                            "seconds": t_lint},
+            "figure_rows": [r.row() for r in rows],
+            "figure_time": "virtual ns on the modelled 72-CPU X5-2",
+            "test_rwlock_bravo_vs_ba": rows[1].ops_per_ms
+            / rows[0].ops_per_ms,
+            "seconds": time.monotonic() - t0}
+
+
+def autotune_phase(dev) -> dict:
+    """``repro_torch.kernels.autotune`` on the card, on the ``paged`` build
+    the kernel phases loaded: the sweep of K5/K7's ``min_split_positions``
+    and K6/K8's ``pairs`` at its two shapes (decode: 16 rows on 256 lanes;
+    chunk: 2 rows x 32 columns on 256 lanes), every candidate checked
+    against the plain version (1e-5) and then timed, its winners merged
+    into a table in a temporary directory (never the repo's); the phase
+    fails on a ``"WRONG"`` candidate, an untimed one or a table that does
+    not hold the winners.  Then the wrappers' plans read back with the
+    committed table (``kernels/tuning_table.json``) in force: at the sweep
+    shapes each equals the plan of the committed knob, and at the engine's
+    tick shapes (8 lanes of 16) each equals the built-in plan."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import autotune as AT
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import paged_attn as PA
+    from repro_torch.kernels import paged_chunk_attn as PCA
+
+    t0 = time.monotonic()
+    card = torch.cuda.get_device_name(dev)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "tuning_table.json")
+        report = AT.run(path, seed=0, device=dev)
+        with open(path) as f:
+            written = json.load(f)
+    for kernel, r in report.items():
+        for c, rec in r["results"].items():
+            if rec == "WRONG" or rec["ms"] is None:
+                raise AssertionError(f"autotune: {kernel} at {r['knob']}="
+                                     f"{c}: {rec}")
+        if written[kernel][card][r["knob"]] != r["best"]:
+            raise AssertionError(f"autotune: {kernel}: table {written} "
+                                 f"does not hold the winner {r['best']}")
+    t_sweep = time.monotonic() - t0
+    committed = json.loads(K.TUNING_PATH.read_text())
+    heads = dict(h=32, kvh=8, hd=64, ps=16)
+    plans = {}
+    for kernel, (knob, _) in AT.KNOBS.items():
+        value = committed.get(kernel, {}).get(card, {}).get(knob, 0)
+        int8 = kernel.endswith("_quant")
+        kv = torch.empty((1, 16, 8, 64), device=dev,
+                         dtype=torch.int8 if int8 else torch.bfloat16)
+        rec = {"committed": value,
+               "read": K.tuned(kernel, knob, dev.index or 0)}
+        for shape, lanes in (("sweep", 256), ("tick", 8)):
+            if kernel.startswith("paged_attn"):
+                b = AT.CARD_SHAPES["decode"]["b"] if shape == "sweep" else 8
+                q = torch.empty((b, heads["h"], heads["hd"]), device=dev)
+                plan = PA.decode_plan(q, kv, lanes)
+                want = PA.decode_plan(q, kv, lanes,
+                                      knob=value if shape == "sweep" else 0)
+            else:
+                q = torch.empty((2, 32, heads["h"], heads["hd"]), device=dev)
+                plan = PCA.chunk_plan(q, kv, lanes)
+                want = PCA.chunk_plan(q, kv, lanes,
+                                      knob=value if shape == "sweep" else 0)
+            if plan != want:
+                raise AssertionError(f"autotune: {kernel} {shape} plan "
+                                     f"{plan}, want {want}")
+            rec[shape] = list(plan)
+        if rec["read"] != value:
+            raise AssertionError(f"autotune: {kernel}: read {rec['read']}, "
+                                 f"committed {value}")
+        plans[kernel] = rec
+    return {"card_key": card, "sweep": report, "written": written,
+            "plans": plans, "sweep_seconds": t_sweep,
+            "seconds": time.monotonic() - t0}
 
 
 def _leaves(tree):

@@ -9,5 +9,9 @@ decode, the admission sweep), ``prefill`` (the chunk kernel, no dense KV
 buffer, the prefix dedup sweep) and ``quant`` (the int8 page store's
 bytes, error, latency and prefix-index collisions); the pass/fail helpers,
 the spread of repeated windows and the dense token oracle they share in
-``smoke``; and ``decode_sweep`` and ``chunk_sweep``, the timing sweeps of
-the paged kernels K5/K7 and K6/K8, which need a CUDA card."""
+``smoke``; ``decode_sweep`` and ``chunk_sweep``, the timing sweeps of
+the paged kernels K5/K7 and K6/K8, which need a CUDA card; and the paper's
+lock experiments, host programs under the coherence simulator:
+``figures`` (one function a figure, on ``common``'s harness), ``run``
+(their CSV rows) and ``smoke_locks`` (every lock variant live and
+simulated)."""

@@ -9,13 +9,24 @@ Where ``repro``'s wrappers consumed the table buffer (donation and
 and return that same tensor; ``publish`` and ``clear`` return a new table,
 as ``repro``'s legacy kernel did.  A CPU tensor takes the plain version
 (``kernels.ref``); a CUDA tensor launches the hand-written kernel in
-``csrc/table_kernels.cu`` or ``csrc/paged_attn.cu``, or raises.  There is no
-autotune table yet: ``repro``'s paged kernels read their tiling knobs from
-one, and the CUDA kernels choose their own tiling.
+``csrc/table_kernels.cu`` or ``csrc/paged_attn.cu``, or raises.
+
+The paged kernels' plans read one knob each from the autotune table,
+``tuning_table.json`` beside this module (:func:`tuned`), written by
+``kernels/autotune.py``: K5/K7 ``min_split_positions`` (the least KV
+positions worth a split of the grid) and K6/K8 ``pairs`` ((column, query
+head) pairs a CTA).  The table is keyed by kernel, then by the card's name
+(``torch.cuda.get_device_name``), then by knob; it is read once per process
+and cached on the host, so a plan stays a host computation, legal inside a
+CUDA graph capture.  A missing file, card or knob, 0, or a value outside
+the knob's candidates gives the plan the wrapper computes without a table.
 """
 
 from __future__ import annotations
 
+import functools
+import json
+import pathlib
 from typing import Dict
 
 import torch
@@ -31,7 +42,8 @@ __all__ = ["as_table2d", "revocation_scan", "revocation_poll",
            "fused_publish", "fused_publish_multi", "fused_clear",
            "paged_attention", "paged_attention_quant",
            "paged_chunk_attention", "paged_chunk_attention_quant", "LANES",
-           "COUNTERS", "launch_counts", "reset_launch_counts"]
+           "COUNTERS", "launch_counts", "reset_launch_counts", "tuned",
+           "TUNING_PATH"]
 
 # one launch counter per kernel, keyed by the ``repro.kernels.ops`` name
 COUNTERS = {c.name: c for c in (_pub.FUSED_PUBLISH_MULTI, _pub.FUSED_PUBLISH,
@@ -42,6 +54,29 @@ COUNTERS = {c.name: c for c in (_pub.FUSED_PUBLISH_MULTI, _pub.FUSED_PUBLISH,
                                 _pa.PAGED_ATTENTION_QUANT,
                                 _pca.PAGED_CHUNK_ATTENTION_QUANT,
                                 _scan.REVOCATION_SCAN, _pub.PUBLISH)}
+
+
+TUNING_PATH = pathlib.Path(__file__).with_name("tuning_table.json")
+
+
+@functools.lru_cache(maxsize=None)
+def _tuning() -> dict:
+    try:
+        return json.loads(TUNING_PATH.read_text())
+    except (OSError, ValueError):
+        return {}
+
+
+@functools.lru_cache(maxsize=None)
+def tuned(kernel: str, knob: str, device_index: int) -> int:
+    """The autotune table's ``knob`` of ``kernel`` (``repro``'s kernel
+    names: ``paged_attn``, ``paged_attn_quant``, ``paged_chunk_attn``,
+    ``paged_chunk_attn_quant``) for the card at ``device_index``; 0 (the
+    wrapper's own plan) where the table has none.  Cached: the file and
+    the card's name are read once per process."""
+    card = torch.cuda.get_device_name(device_index)
+    v = _tuning().get(kernel, {}).get(card, {}).get(knob, 0)
+    return v if isinstance(v, int) and not isinstance(v, bool) else 0
 
 
 def launch_counts() -> Dict[str, int]:

@@ -7,15 +7,16 @@ per request attends to the KV pool's page store through the request's
 page-index vector, never through a dense cache.  K7
 (``paged_attention_quant``) replaces the same kernel built with
 ``quantized=True`` (``_paged_attn_quant_call``): K5 over int8 pages with one
-float32 scale per (page, KV head), dequantized in the kernel.  The Pallas
-kernel's ``lanes_per_step`` knob (how many page DMAs a TPU grid step keeps
-in flight) has no counterpart: the CUDA kernel splits the page lanes over
-the grid (:func:`decode_splits`, from host shapes alone) and walks each
-split in tiles of 32 to 128 positions, streamed through shared memory with
-16-byte asynchronous copies; a second pass merges the splits' partial
-softmax states.  Both passes count as one launch.  Any head_dim up to
-:data:`MAX_HEAD_DIM` runs, padded to the next width the kernels are built
-for (16, 32, 64, 128, 256).
+float32 scale per (page, KV head), dequantized in the kernel.  The CUDA
+kernel splits the page lanes over the grid (:func:`decode_splits`, from
+host shapes alone) and walks each split in tiles of 32 to 128 positions,
+streamed through shared memory with 16-byte asynchronous copies; a second
+pass merges the splits' partial softmax states.  Both passes count as one
+launch.  Any head_dim up to :data:`MAX_HEAD_DIM` runs, padded to the next
+width the kernels are built for (16, 32, 64, 128, 256).  The Pallas
+kernel's tuning knob, ``lanes_per_step`` (the KV one grid step takes), has
+its counterpart in the autotune table's ``min_split_positions``: the least
+positions a split of the grid takes (:func:`decode_plan`).
 
 A CPU tensor takes the plain version (``ref.paged_attn_ref``,
 ``ref.paged_attn_quant_ref``); a CUDA tensor launches the kernel or raises.
@@ -44,6 +45,10 @@ MAX_SPLIT_PAGES = 512        # page lanes of one decode split
 # into splits of 128 or 64 gained at most 5% (decode_sweep on an H100, 8
 # rows) and cost 16-40% (16 rows)
 MIN_SPLIT_POSITIONS = 256
+# the autotune knob ``min_split_positions`` (``kernels/autotune.py``): 0 is
+# MIN_SPLIT_POSITIONS; ``repro``'s counterpart is ``lanes_per_step``, the
+# KV one grid step takes
+SPLIT_POSITION_CANDIDATES = (0, 128, 512, 1024)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
@@ -143,20 +148,25 @@ def check_args(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
 
 
 def decode_splits(b: int, h: int, kvh: int, lanes: int, ps: int,
-                  n_sm: int, resident: int) -> Tuple[int, int]:
+                  n_sm: int, resident: int,
+                  min_positions: int = 0) -> Tuple[int, int]:
     """K5/K7's KV split, from host shapes alone (never from ``cache_len``'s
     values, so a call moves nothing between host and device): -> (number
     of splits, page lanes per split).  The grid has ``b * kvh * groups``
     CTAs a split (``groups``: the query heads of a KV head in fours); the
     splits fill one wave of ``resident`` CTAs on
     each of ``n_sm`` SMs, as long as each split keeps
-    ``MIN_SPLIT_POSITIONS`` positions, and a split never holds more than
-    ``MAX_SPLIT_PAGES`` lanes.  One split runs no second pass."""
+    ``min_positions`` positions (the autotune knob; 0, or a value outside
+    :data:`SPLIT_POSITION_CANDIDATES`, is ``MIN_SPLIT_POSITIONS``), and a
+    split never holds more than ``MAX_SPLIT_PAGES`` lanes.  One split runs
+    no second pass."""
     if lanes <= 0:
         return 1, 0
+    if not min_positions or min_positions not in SPLIT_POSITION_CANDIDATES:
+        min_positions = MIN_SPLIT_POSITIONS
     groups = -(-(h // kvh) // DECODE_HEADS)
     wave = max(1, resident * n_sm // max(1, b * kvh * groups))
-    most = lanes * ps // MIN_SPLIT_POSITIONS
+    most = lanes * ps // min_positions
     n = max(1, min(wave, most, lanes), -(-lanes // MAX_SPLIT_PAGES))
     pps = -(-lanes // n)
     return -(-lanes // pps), pps
@@ -196,18 +206,26 @@ def _codes(q: torch.Tensor, k_pages: torch.Tensor):
 
 
 def decode_plan(q: torch.Tensor, k_pages: torch.Tensor, lanes: int,
-                lib: Optional[ctypes.CDLL] = None) -> Tuple[int, int]:
+                lib: Optional[ctypes.CDLL] = None,
+                knob: Optional[int] = None) -> Tuple[int, int]:
     """The split :func:`paged_attention` and :func:`paged_attention_quant`
     launch on these CUDA operands with ``lanes`` page lanes: -> (number of
     splits, page lanes a split).  The residency is taken at the largest
     split the call can have; a smaller split needs less shared memory, so
-    at least as many CTAs fit."""
+    at least as many CTAs fit.  ``knob``: ``min_split_positions``; None
+    reads the autotune table (``ops.tuned``) for this card and kernel."""
+    from .ops import tuned   # ops imports this module
+
     b, h = q.shape[0], q.shape[-2]
     ps, kvh = k_pages.shape[1], k_pages.shape[2]
+    if knob is None:
+        kernel = ("paged_attn_quant" if k_pages.dtype == torch.int8
+                  else "paged_attn")
+        knob = tuned(kernel, "min_split_positions", q.device.index or 0)
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
     resident = decode_residency(q, k_pages, lanes,
                                 min(lanes, MAX_SPLIT_PAGES), lib)
-    return decode_splits(b, h, kvh, lanes, ps, n_sm, resident)
+    return decode_splits(b, h, kvh, lanes, ps, n_sm, resident, knob)
 
 
 def _decode(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,

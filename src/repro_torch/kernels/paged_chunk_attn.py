@@ -8,9 +8,10 @@ page store in place; padding columns come out zero.  K8
 (``paged_chunk_attention_quant``) replaces ``_make_chunk_attn_kernel(True)``
 (``_chunk_attn_quant_call``): K6 over int8 pages with float32 per-(page, KV
 head) scales, dequantized in the kernel.  The Pallas kernel's q-block height
-is not part of the result (every query row is computed on its own).  The
-CUDA kernel takes a block of (column, query head) pairs of one KV head a
-CTA (:func:`chunk_pairs`), computes on the tensor cores, splits the page
+(its tuning knob ``block_q``) is not part of the result (every query row is
+computed on its own); its counterpart is the autotune table's ``pairs``.
+The CUDA kernel takes a block of (column, query head) pairs of one KV head
+a CTA (:func:`chunk_pairs`), computes on the tensor cores, splits the page
 lanes over the grid (:func:`chunk_splits`, from host shapes alone) and
 merges the splits' partial softmax states in a second pass; both passes
 count as one launch.
@@ -46,6 +47,10 @@ PAIRS_HD = (33, 64)  # the head_dims padded to 64, which have both layouts
 # faster than 12 of ~340 and 30% faster than 16 of 256 (chunk_sweep on an
 # H100, bf16 and int8 pages)
 MIN_CHUNK_SPLIT_POSITIONS = 512
+# the autotune knob ``pairs`` (``kernels/autotune.py``): 0 is chunk_pairs'
+# own choice; SMALL_PAIRS and WIDE_PAIRS are built only for PAIRS_HD, and
+# CHUNK_PAIRS only outside it
+PAIRS_CANDIDATES = (0, SMALL_PAIRS, CHUNK_PAIRS, WIDE_PAIRS)
 
 
 def pair_blocks(s: int, h: int, kvh: int, pairs: int = CHUNK_PAIRS) -> int:
@@ -55,7 +60,7 @@ def pair_blocks(s: int, h: int, kvh: int, pairs: int = CHUNK_PAIRS) -> int:
 
 
 def chunk_pairs(b: int, s: int, h: int, kvh: int, hd: int, lanes: int,
-                ps: int, n_sm: int) -> int:
+                ps: int, n_sm: int, knob: int = 0) -> int:
     """(column, query head) pairs of one CTA, from host shapes alone.
     :data:`CHUNK_PAIRS` outside :data:`PAIRS_HD`.  Within it
     :data:`WIDE_PAIRS`, whose two warpgroups share each staged K/V tile
@@ -64,10 +69,15 @@ def chunk_pairs(b: int, s: int, h: int, kvh: int, hd: int, lanes: int,
     ``MIN_CHUNK_SPLIT_POSITIONS``) and the grid would leave SMs idle: then
     :data:`SMALL_PAIRS`, whose four warps each take a quarter of every
     tile, so that a tile's products spread over an SM's four schedulers and
-    over eight times the SMs (the engine's prefill tick)."""
+    over eight times the SMs (the engine's prefill tick).  ``knob`` (the
+    autotune table's ``pairs``) overrides that choice where the kernel is
+    built for it; 0, a value outside :data:`PAIRS_CANDIDATES` or a layout
+    not built at this ``hd`` leaves it."""
     lo, hi = PAIRS_HD
     if not lo <= hd <= hi:
         return CHUNK_PAIRS
+    if knob in (SMALL_PAIRS, WIDE_PAIRS):
+        return knob
     short = lanes * ps < 2 * MIN_CHUNK_SPLIT_POSITIONS
     if short and b * kvh * pair_blocks(s, h, kvh, WIDE_PAIRS) < n_sm:
         return SMALL_PAIRS
@@ -117,16 +127,29 @@ def chunk_residency(q: torch.Tensor, k_pages: torch.Tensor, pairs: int,
     return _RESIDENT[key]
 
 
+def _tuned_pairs(q: torch.Tensor, k_pages: torch.Tensor) -> int:
+    """The autotune table's ``pairs`` for this card and kernel (K6 or K8)."""
+    from .ops import tuned   # ops imports this module
+
+    kernel = ("paged_chunk_attn_quant" if k_pages.dtype == torch.int8
+              else "paged_chunk_attn")
+    return tuned(kernel, "pairs", q.device.index or 0)
+
+
 def chunk_plan(q: torch.Tensor, k_pages: torch.Tensor, lanes: int,
-               lib: Optional[ctypes.CDLL] = None) -> Tuple[int, int, int]:
+               lib: Optional[ctypes.CDLL] = None,
+               knob: Optional[int] = None) -> Tuple[int, int, int]:
     """The layout and split :func:`paged_chunk_attention` and
     :func:`paged_chunk_attention_quant` launch on these CUDA operands with
     ``lanes`` page lanes: -> (pairs a CTA, number of splits, page lanes a
-    split)."""
+    split).  ``knob``: ``pairs``; None reads the autotune table
+    (``ops.tuned``) for this card and kernel."""
     b, s, h, hd = q.shape
     ps, kvh = k_pages.shape[1], k_pages.shape[2]
+    if knob is None:
+        knob = _tuned_pairs(q, k_pages)
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    pairs = chunk_pairs(b, s, h, kvh, hd, lanes, ps, n_sm)
+    pairs = chunk_pairs(b, s, h, kvh, hd, lanes, ps, n_sm, knob)
     resident, _ = chunk_residency(q, k_pages, pairs, lib)
     return (pairs,) + chunk_splits(b, s, h, kvh, lanes, ps, n_sm, resident,
                                    pairs)
@@ -159,7 +182,8 @@ def _chunk(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
         if pairs is None:
             n_sm = torch.cuda.get_device_properties(
                 q.device).multi_processor_count
-            pairs = chunk_pairs(b, s, h, kvh, hd, lanes, ps, n_sm)
+            pairs = chunk_pairs(b, s, h, kvh, hd, lanes, ps, n_sm,
+                                _tuned_pairs(q, k_pages))
     out = torch.empty_like(q)
     part = ml = None
     if n_split > 1:

@@ -21,7 +21,8 @@ COPIES = ["core/errors.py", "core/atomics.py", "core/table.py",
           "core/rwlocks.py", "core/bravo.py", "core/factory.py",
           "obs/__init__.py", "obs/trace.py", "obs/metrics.py",
           "obs/chrome.py", "obs/slo.py", "serving/scheduler.py",
-          "serving/loadgen.py", "ft/straggler.py", "data/pipeline.py"]
+          "serving/loadgen.py", "ft/straggler.py", "data/pipeline.py",
+          "core/sim.py", "analysis/checker.py", "analysis/scenarios.py"]
 
 
 # the reference and what only it may import; the port keeps its own copies
@@ -63,12 +64,38 @@ def test_package_imports_without_jax_in_a_fresh_process():
     assert res.returncode == 0, res.stderr
 
 
+@pytest.mark.parametrize("module,argv", [
+    ("repro_torch.analysis.check", ["--max-schedules", "50"]),
+    ("repro_torch.benchmarks.run", ["--only", "fig2"]),
+    ("repro_torch.benchmarks.smoke_locks", []),
+    ("repro_torch.kernels.autotune", ["--device", "cpu"]),
+], ids=lambda x: x if isinstance(x, str) else " ".join(x))
+def test_host_entry_points_run_without_jax_in_a_fresh_process(module, argv):
+    """The lock experiments, the checker and lint, and the autotune sweep
+    run as modules and exit 0 without importing JAX or the reference."""
+    code = ("import runpy, sys\n"
+            f"sys.argv = [{module!r}] + {argv!r}\n"
+            "try:\n"
+            f"    runpy.run_module({module!r}, run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert not e.code, e.code\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-2000:]
+
+
 # the copies differ from their originals only by the package name and by
 # the originals' change-history tags, which the port's text leaves out
-HISTORY_TAGS = [(r" \((?:PR|ISSUE) \d+\)", ""),
+HISTORY_TAGS = [(r" \((?:PR|ISSUE) \d+(?:/\d+)?\)", ""),
                 (r"(?: of| —) (?:PR|ISSUE) \d+(?: satellite)?", ""),
                 (r"until (?:PR|ISSUE) \d+ ", "until recently "),
-                (r"the pre-(?:PR|ISSUE)-\d+ ", "the earlier ")]
+                (r"the pre-(?:PR|ISSUE)-\d+ ", "the earlier "),
+                (r", (?:PR|ISSUE) \d+\)", ")"),
+                (r"\b(?:PR|ISSUE)-\d+ ", "")]
 
 
 @pytest.mark.parametrize("rel", COPIES)
