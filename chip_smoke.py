@@ -233,7 +233,7 @@ non-zero exit and no result line:
    decode step graphed and eager in turns, the engine graphed and then
    on the bare steps, two requests alone equal to the greedy loop); and
    ``gemma-2b``, ``minicpm-2b`` (bf16) at 20 of 40 layers,
-   ``phi-3-vision-4.2b`` at 16 of 32 and ``granite-20b`` at 26 of 52
+   ``phi-3-vision-4.2b`` at 8 of 32 and ``granite-20b`` at 26 of 52
    (``FAMILY_SCHEDULER``) in graphed
    scheduler mode as in phase 6 (K1-K3, K5, K6 launched), their tokens
    teacher-forced within ``BF16_VS_F32_REL`` of the dense loop's best,
@@ -257,7 +257,23 @@ non-zero exit and no result line:
    loss down by 0.5 in 60 graphed steps); 6 graphed steps equal to 3 +
    checkpoint + restore + 3, bit for bit, under deterministic algorithms;
    ``memory_allocated`` back within one train batch of the phase's
-   start.
+   start;
+12. mesh, the last phase (``mesh_phase``): the mesh layer over
+   ``torch.distributed`` on a world of one rank over NCCL, started from a
+   ``file://`` store in a temporary directory and torn down after:
+   llama3.2-1b's scheduler engine with ``mesh=make_local_mesh()`` and
+   ``MeshRules()`` and without a mesh, in turns, on the same requests
+   (tokens equal, K1/K2/K5/K6 launched as often); ``make_distributed_
+   revoke`` and ``make_sharded_revoke`` on a registry's 16 KB table with
+   1000 readers holding one lock (counts equal to K3's and numpy's, only
+   that lock's bias lane cleared), then the registry's revoke through
+   ``configure_mesh``; ``make_compressed_psum`` over every leaf of one
+   full-width train step's gradients (equal to the leaf functions,
+   exactly); phi3.5-moe's MoE layer at full width through ``moe_forward``
+   with the mesh, the capacity and the dropless bodies, against the
+   one-device layer on float32 activations (``MESH_MOE_REL``); the
+   scheduler twin's ``mesh2d`` at (1, 1, 1) and the device_bravo twin's
+   ``collective``; all-reduces, all-gathers and all-to-alls counted.
 
 The random weights are the reference's distributions with the (tied)
 embedding scaled by ``EMBED_SCALE``.  Unscaled, the current token's own
@@ -518,12 +534,14 @@ SWAP_TREES_PEAK = 4.5
 # HBM3, 700 W) run half their layers, so the script stays near 950 s of
 # its 1200.
 # zamba2-2.7b at 30 of 54 layers (a multiple of its hybrid_attn_every, 6)
-# to keep the script inside its time with the locks and autotune phases
+# to keep the script inside its time with the locks and autotune phases;
+# phi-3-vision at 8 of 32 (51.5 s at 16 on an H100 80GB HBM3, 700 W) to
+# make room for the mesh phase
 FAMILY_HANDLER = (("rwkv6-7b", 16), ("zamba2-2.7b", 30),
                   ("phi3.5-moe-42b-a6.6b", 16),
                   ("llama4-maverick-400b-a17b", 2))
 FAMILY_SCHEDULER = (("gemma-2b", None), ("minicpm-2b", 20),
-                    ("phi-3-vision-4.2b", 16), ("granite-20b", 26))
+                    ("phi-3-vision-4.2b", 8), ("granite-20b", 26))
 # the families' variety check: a greedy output that repeats one token
 # depends on neither cache nor attention, and a random deep model can have
 # such a fixed point for some prompts (on an H100 80GB HBM3, 700 W, at
@@ -2088,7 +2106,8 @@ def lease_benchmarks(dev) -> dict:
 
     out = {}
     for phase, run, kernels in (
-            ("device_bravo", lambda: DBB.run(dev, batch=64, iters=100),
+            ("device_bravo", lambda: DBB.run(dev, batch=64, iters=100,
+                                            collective=False),
              ["fused_publish", "revocation_poll"] + LEGACY_KERNELS),
             ("registry_bench", lambda: RB.run(dev), TABLE_KERNELS)):
         K.reset_launch_counts()
@@ -3681,8 +3700,8 @@ def train_run(arch, dev, seed) -> dict:
                             f"{TRAIN_BATCH}"],
                 "order": "graph warm-up; eager arm; graph arm"})
     state = adamw_init(params, opt)
-    eager = make_train_step(cfg, opt, tcfg)
-    step = jit_train_step(cfg, opt, tcfg)
+    eager = make_train_step(cfg, opt, tcfg=tcfg)
+    step = jit_train_step(cfg, opt, tcfg=tcfg)
     idx = _update_samples(params, TRAIN_UPDATE_SAMPLES, seed)
     batches = _train_batches(cfg, dev, seed)
     torch.cuda.reset_peak_memory_stats()
@@ -3821,7 +3840,7 @@ def train_card_vs_cpu(dev, seed) -> dict:
     cpu_params["embed"].mul_(EMBED_SCALE)
     card_params = reshard_tree(cpu_params, cpu_params, device=dev)
     opt = OptimizerConfig(lr=1e-3, warmup_steps=0)
-    step = make_train_step(cfg, opt, TrainConfig(remat="none"))
+    step = make_train_step(cfg, opt, tcfg=TrainConfig(remat="none"))
     data = DataConfig(vocab=cfg.vocab, seq_len=CARD_VS_CPU["seq"] + 1,
                       global_batch=CARD_VS_CPU["batch"], seed=seed)
     b = next(make_batches(data))
@@ -3893,7 +3912,7 @@ def train_quickstart(dev, seed) -> dict:
     opt = OptimizerConfig(lr=3e-3, warmup_steps=10,
                           total_steps=QUICKSTART_STEPS, schedule="cosine")
     state = adamw_init(params, opt)
-    step = jit_train_step(cfg, opt, TrainConfig(remat="none"))
+    step = jit_train_step(cfg, opt, tcfg=TrainConfig(remat="none"))
     it = make_batches(DataConfig(vocab=cfg.vocab, seq_len=32,
                                  global_batch=16))
     t0 = time.monotonic()
@@ -3938,7 +3957,7 @@ def train_restart(dev, seed) -> dict:
 
     cfg = configs.get_smoke("llama3.2-1b")
     opt = OptimizerConfig(lr=1e-3, warmup_steps=0)
-    step = jit_train_step(cfg, opt, TrainConfig(remat="none"))
+    step = jit_train_step(cfg, opt, tcfg=TrainConfig(remat="none"))
     data = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=8)
 
     def run(params, state, start, n):
@@ -4135,7 +4154,7 @@ def scheduler_bench_phase(cfg, params, dev) -> dict:
 
     return _twin_phase("scheduler_bench", lambda: SB.run(
         cfg, params, dev, windows=TWIN_WINDOWS["scheduler"],
-        near_tie_rel=BF16_VS_F32_REL), kernels=ENGINE_KERNELS)
+        near_tie_rel=BF16_VS_F32_REL, mesh=False), kernels=ENGINE_KERNELS)
 
 
 def prefill_bench_phase(cfg, params, dev) -> dict:
@@ -4469,6 +4488,8 @@ def main(argv=None) -> int:
         dev, args.seed,
         lambda rec: emit({"phase": "train_model", "card": card, **rec}))})
 
+    emit({"phase": "mesh", "card": card, **mesh_phase(dev, args.seed)})
+
     # launches: the scheduler run (the serving path) for every kernel it
     # runs, the quantized scheduler run for K7/K8, the device_bravo
     # benchmark for K9/K10; K4 runs on the handler run's drained-table
@@ -4499,6 +4520,296 @@ def main(argv=None) -> int:
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+# ---------------------------------------------------------------------------
+# Phase 12, the last: the mesh layer (M12) on a world of one rank over NCCL
+# ---------------------------------------------------------------------------
+
+MESH_ENGINE_ARMS = ("mesh", "plain", "mesh", "plain")
+MESH_KERNELS = ["fused_publish_multi", "fused_publish", "paged_attention",
+                "paged_chunk_attention"]
+MESH_HOLDERS = 1000              # readers holding one lock in the revokes
+MESH_TRAIN = dict(batch=1, seq=256)   # the gradient tree's train step
+MESH_MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MESH_MOE_PREFILL = (4, 64)       # (B, S) through the capacity body
+MESH_MOE_DECODE = 8              # tokens through the dropless body
+MESH_MOE_REL = 1e-5
+
+
+def mesh_phase(dev, seed) -> dict:
+    """Phase ``mesh``: ``repro``'s meshed paths (M12) on the card, on a
+    world of one rank over NCCL from a ``file://`` store in a temporary
+    directory, run last so that no CUDA graph of an earlier phase shares
+    the process with a communicator.  llama3.2-1b's scheduler engine with
+    ``mesh=make_local_mesh()`` and ``MeshRules()`` against the engine with
+    no mesh, in turns (tokens equal, K1/K2/K5/K6 launched as often); both
+    revokes on the 16 KB table with placed holders (counts equal to K3's
+    and numpy's, the lane cleared), then the registry's meshed revoke;
+    ``make_compressed_psum`` over the gradient tree of one full-width
+    train step (exactly ``decompress(compress(g))`` and its error, one
+    rank); phi3.5-moe's MoE layer at full width through ``moe_forward``
+    with the mesh, the capacity and the dropless bodies, against the
+    one-device layer on float32 activations (``MESH_MOE_REL``); the two
+    twins' mesh sections (``mesh2d`` at (1, 1, 1), ``collective``).  An
+    NCCL failure or any failed check raises."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import llama3_2_1b
+    from repro_torch.dist import sharding as DS
+    from repro_torch.launch.mesh import init_world, make_local_mesh
+    from repro_torch.models import model as M
+
+    t0 = time.monotonic()
+    cfg = llama3_2_1b.CONFIG
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        backend = init_world(d, device=dev)
+        try:
+            if backend != "nccl":
+                raise AssertionError(f"mesh: backend {backend}, not nccl")
+            mesh = make_local_mesh(device=dev)
+            out["world"] = {"backend": backend, "ranks": 1,
+                            "mesh": dict(zip(mesh.mesh_dim_names,
+                                             mesh.shape)),
+                            "nccl": str(torch.cuda.nccl.version())}
+            params = M.init_params(seed, cfg, device=dev)
+            params["embed"].mul_(EMBED_SCALE)
+            DS.reset_collective_counts()
+            out["engine"] = _mesh_engine(cfg, params, dev, mesh, seed)
+            out["revokes"] = _mesh_revokes(dev, mesh)
+            out["compressed"] = _mesh_compressed(cfg, params, dev, mesh,
+                                                 seed)
+            out["twins"] = _mesh_twins(cfg, params, dev)
+            del params
+            torch.cuda.empty_cache()
+            out["moe"] = _mesh_moe(dev, mesh, seed)
+            out["collectives"] = DS.collective_counts()
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    for kind in ("all_reduce", "all_gather", "all_to_all"):
+        if not out["collectives"].get(kind):
+            raise AssertionError(f"mesh: no {kind} ran: "
+                                 f"{out['collectives']}")
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def _mesh_engine(cfg, params, dev, mesh, seed) -> dict:
+    """The scheduler engine with and without the mesh, in turns, on
+    ``run_scheduler``'s first wave (every request queued before the engine
+    starts, no swap and no compaction, so the ticks are the same)."""
+    import torch
+
+    from repro_torch.dist.sharding import MeshRules
+    from repro_torch.kernels import ops as K
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    prompts = _sched_prompts(seed + 3, cfg.vocab)[0]
+    runs = []
+    for arm in MESH_ENGINE_ARMS:
+        kw = {"mesh": mesh, "rules": MeshRules()} if arm == "mesh" else {}
+        eng = ServingEngine(cfg, params, n_pages=SCHED_PAGES, device=dev,
+                            scheduler=SchedulerConfig(**SCHED), **kw)
+        reqs = [Request(rid=i, prompt=p, max_new=16)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t = time.monotonic()
+        eng.start()
+        try:
+            for r in reqs:
+                if not r.done.wait(timeout=600):
+                    raise AssertionError(f"mesh: request {r.rid} timed out")
+            wall = time.monotonic() - t
+        finally:
+            eng.stop()
+        counts = K.launch_counts()
+        runs.append({"arm": arm, "wall_s": wall,
+                     "tokens_per_s": 16 * len(reqs) / wall,
+                     "launches": {k: counts[k] for k in MESH_KERNELS},
+                     "outputs": [r.out.tolist() for r in reqs]})
+    first = runs[0]
+    for r in runs[1:]:
+        if r["outputs"] != first["outputs"]:
+            raise AssertionError(f"mesh: the {r['arm']} engine's tokens "
+                                 f"differ from the meshed engine's")
+        if r["launches"] != first["launches"]:
+            raise AssertionError(f"mesh: launches {r['launches']} against "
+                                 f"{first['launches']}")
+    # the plain versions (CPU tensors) count no launch
+    if dev.type == "cuda" and not all(first["launches"].values()):
+        raise AssertionError(f"mesh: a kernel did not launch: "
+                             f"{first['launches']}")
+    return {"requests": len(prompts), "max_new": 16,
+            "tokens_equal": True, "launches_equal": True,
+            "launches": first["launches"],
+            "runs": [{k: v for k, v in r.items() if k != "outputs"}
+                     for r in runs],
+            "outputs": first["outputs"]}
+
+
+def _mesh_revokes(dev, mesh) -> dict:
+    """Both revokes with ``MESH_HOLDERS`` readers holding one lock of a
+    registry (a 4096-slot, 16 KB table), then the registry's own revoke
+    through ``configure_mesh`` once they have released."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import device_bravo as DB
+    from repro_torch.core import registry as RG
+    from repro_torch.kernels import ops as K
+
+    reg = RG.BravoRegistry(device=dev)
+    hs = [reg.alloc(f"mesh{i}") for i in range(4)]
+    h = hs[2]
+    ids = torch.arange(MESH_HOLDERS, dtype=torch.int32, device=dev)
+    granted = h.acquire(ids)
+    held = int(granted.sum())
+    table = reg.table.cpu().numpy()
+    want = int((table == h.lock_id).sum())
+    k3 = int(K.revocation_poll(reg.table, h.lock_id))
+    dist_count = int(DB.make_distributed_revoke(mesh, "data")(reg.table, h))
+    rb0 = reg.rbias.cpu().numpy()
+    rb, shard_count = RG.make_sharded_revoke(mesh, ("data",))(
+        reg.table, reg.rbias, h)
+    rb = rb.cpu().numpy()
+    other = np.arange(rb0.size) != h.idx
+    if not (dist_count == int(shard_count) == k3 == want == held > 0):
+        raise AssertionError(f"mesh: revoke counts {dist_count}, "
+                             f"{int(shard_count)}; K3 {k3}; numpy {want}; "
+                             f"granted {held}")
+    if rb[h.idx] != 0 or not (rb[other] == rb0[other]).all():
+        raise AssertionError("mesh: the sharded revoke's rbias")
+    h.release(ids, granted)
+    reg.configure_mesh(mesh, ("data",))
+    scans = h.revoke()
+    lane = int(reg.rbias[h.idx])
+    if lane != 0 or h.held() != 0:
+        raise AssertionError(f"mesh: registry revoke left lane {lane}, "
+                             f"held {h.held()}")
+    return {"table_slots": int(table.size), "holders": MESH_HOLDERS,
+            "granted": held, "distributed_count": dist_count,
+            "sharded_count": int(shard_count), "k3_count": k3,
+            "numpy_count": want, "lane_cleared": True,
+            "registry_revoke_scans": scans}
+
+
+def _mesh_compressed(cfg, params, dev, mesh, seed) -> dict:
+    """``make_compressed_psum`` over every leaf of one train step's
+    gradients (``MESH_TRAIN``), each against the leaf functions."""
+    import torch
+
+    from repro_torch.ft.checkpoint import tree_flatten
+    from repro_torch.ft.compression import (compress_grads_int8,
+                                            decompress_grads_int8,
+                                            make_compressed_psum)
+    from repro_torch.training import train_step as TT
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    B, S = MESH_TRAIN["batch"], MESH_TRAIN["seq"]
+    batch = {k: torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev,
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+    loss, grads = TT._make_compute_grads(cfg, TT.TrainConfig(remat="full"))(
+        params, batch)
+    fn = make_compressed_psum(mesh, ("data",))
+    leaves = tree_flatten(grads)[0]
+    n = 0
+    for leaf in leaves:
+        err = 1e-3 * torch.randn(leaf.shape, generator=g, device=dev)
+        mean, new_err = fn(leaf, err)
+        q, scale, want_err = compress_grads_int8(leaf, err)
+        want = decompress_grads_int8(q.to(torch.int32), scale, 1)
+        if not (torch.equal(mean, want) and torch.equal(new_err, want_err)):
+            raise AssertionError("mesh: compressed psum differs from the "
+                                 "leaf functions")
+        n += leaf.numel()
+    return {"leaves": len(leaves), "elements": n, "loss": float(loss),
+            "exact": True}
+
+
+def _mesh_twins(cfg, params, dev) -> dict:
+    """The twins' mesh sections: ``scheduler.bench_mesh2d`` at (1, 1, 1)
+    (teacher-forced within ``BF16_VS_F32_REL``, as the twin's full-width
+    phase) and ``device_bravo.bench_collective``."""
+    from repro_torch.benchmarks import device_bravo as DBB
+    from repro_torch.benchmarks import scheduler as SB
+    from repro_torch.benchmarks.smoke import FAILURES
+
+    FAILURES.clear()
+    with contextlib.redirect_stdout(sys.stderr):   # their [ok] lines
+        rec = {"mesh2d": SB.bench_mesh2d(cfg, params, dev, True, 8,
+                                         BF16_VS_F32_REL),
+               "collective": DBB.bench_collective(dev, 16)}
+    if FAILURES:
+        raise AssertionError(f"mesh: twin sections: {FAILURES}")
+    rec["mesh2d"].pop("tokens")
+    return rec
+
+
+def _mesh_moe(dev, mesh, seed) -> dict:
+    """One phi3.5-moe MoE layer at full width (its bf16 parameters),
+    float32 activations: the capacity body (the rules' layout) and the
+    dropless body through ``moe_forward`` with the mesh, against the
+    one-device layer, in turns."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.dist.sharding import mesh_view
+    from repro_torch.models import transformer as TT
+
+    cfg, rules, _ = configs.get(MESH_MOE_ARCH)
+    cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    p = {k: v[0] for k, v in TT.init_moe(g, cfg, 1).items()}
+    data_axes = rules.batch_axes(mesh_view(mesh))
+    B, S = MESH_MOE_PREFILL
+    x = torch.randn((B, S, cfg.d_model), generator=g, device=dev)
+    xd = torch.randn((MESH_MOE_DECODE, 1, cfg.d_model), generator=g,
+                     device=dev)
+    out = {"arch": MESH_MOE_ARCH, "experts": cfg.moe_experts,
+           "d_model": cfg.d_model, "d_ff": cfg.moe_d_ff or cfg.d_ff,
+           "prefill_tokens": B * S, "decode_tokens": MESH_MOE_DECODE}
+    for body, xin, kw in (
+            ("capacity", x, dict(split_tokens_over_model=True,
+                                 weight_resident=rules.moe_weight_resident)),
+            ("decode_tp", xd, dict(split_tokens_over_model=False,
+                                   decode_tp=True))):
+        decode = kw.get("decode_tp", False)
+        times = {}
+        for arm in ("mesh", "plain", "mesh", "plain"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if arm == "mesh":
+                y, aux = TT.moe_forward(p, xin, cfg, mesh, data_axes, **kw)
+            else:
+                y, aux = TT.moe_forward(p, xin, cfg, decode_tp=decode)
+            torch.cuda.synchronize()
+            times.setdefault(arm, []).append((time.perf_counter() - t) * 1e3)
+            if arm == "mesh":
+                ym, am = y, float(aux)
+            else:
+                yp, ap = y, float(aux)
+        err = float((ym - yp).abs().max())
+        scale = float(yp.abs().max())
+        if not (torch.isfinite(ym).all() and err <= MESH_MOE_REL * scale
+                and abs(am - ap) <= MESH_MOE_REL * abs(ap)):
+            raise AssertionError(f"mesh: MoE {body}: {err} of {scale}, "
+                                 f"aux {am} against {ap}")
+        out[body] = {"max_abs_err": err, "max_abs": scale, "aux": am,
+                     "aux_plain": ap, "ms": times}
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,12 @@ Transfer accounting: every host crossing of the legacy path goes through
 the counting shims of :class:`TransferCounter`, and the lease table's pair
 runs under ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
 host-device synchronization (on the CPU the gate is recorded as inactive).
-``repro``'s ``collective`` section (a 512-device revocation scan through
-``make_distributed_revoke``) waits for a multi-card slice.
+``collective``: ``make_distributed_revoke`` on a 1-D ("data",) and a 2-D
+("pod", "data") mesh over the current world (a world of one rank starts
+here when none runs: NCCL on the card, gloo on the CPU), on ``repro``'s
+seed-9 table, its count held to numpy's.  ``repro``'s full mode runs it on
+512 fake devices; a run across several cards waits for a machine with
+them (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -252,10 +256,52 @@ def bench_latency(dev, batch: int, iters: int) -> dict:
             "revoke_drained_us": revoke_s * 1e6}
 
 
+def collective_table() -> np.ndarray:
+    """``repro``'s table: 37 of 4096 slots hold 77 (numpy seed 9)."""
+    rng = np.random.default_rng(9)
+    table = np.zeros((32, 128), np.int32)
+    hits = rng.choice(4096, 37, replace=False)
+    table.reshape(-1)[hits] = 77
+    return table
+
+
+def bench_collective(dev, iters: int) -> dict:
+    """Distributed revocation scan on the 1D and 2D meshes."""
+    import torch.distributed as dist
+
+    from ..launch.mesh import local_world, make_mesh
+
+    with local_world(dev):
+        world = dist.get_world_size()
+        pod = 2 if world % 2 == 0 and world > 1 else 1
+        meshes = [("1d", (world,), ("data",), ("data",)),
+                  ("2d", (pod, world // pod), ("pod", "data"),
+                   ("pod", "data"))]
+        table = collective_table()
+        want = int((table == 77).sum())
+        t = torch.from_numpy(table).to(dev)
+        out = {"ranks": world}
+        for name, shape, names, axes in meshes:
+            mesh = make_mesh(shape, names, device=dev)
+            fn = DB.make_distributed_revoke(
+                mesh, axis=axes[0] if len(axes) == 1 else axes)
+            cnt = int(fn(t, 77))
+            check(cnt == want == 37,
+                  f"distributed revoke count on {name} mesh {shape} == "
+                  f"numpy's {want} (got {cnt})")
+            dt = timeit(lambda: int(fn(t, 77)), max(2, iters // 8))
+            out[name] = {"mesh": dict(zip(names, shape)), "axes": list(axes),
+                         "count_ok": cnt == want,
+                         "scan_collective_us": dt * 1e6}
+        return out
+
+
 def run(device=None, *, smoke: bool = False, batch: int = 64,
-        iters=None) -> dict:
+        iters=None, collective: bool = True) -> dict:
     """Every section on ``device`` (default: the CUDA card); -> the
-    record, whose ``failures`` lists every check that did not hold."""
+    record, whose ``failures`` lists every check that did not hold.
+    ``collective=False`` leaves that section to the caller
+    (``chip_smoke.py`` runs it in its last phase)."""
     dev = resolve(device)
     iters = iters or (4 if smoke else 100)
     FAILURES.clear()
@@ -270,9 +316,8 @@ def run(device=None, *, smoke: bool = False, batch: int = 64,
         "in_place": bench_in_place(dev, batch),
         "transfers": bench_transfers(dev, batch),
         "latency": bench_latency(dev, batch, iters),
-        "collective": {"ported": False,
-                       "reason": "make_distributed_revoke waits for a "
-                                 "multi-card slice (ROADMAP.md)"},
+        "collective": (bench_collective(dev, iters) if collective
+                       else {"run": "by the caller"}),
     }
     rec["failures"] = list(FAILURES)
     return rec

@@ -17,8 +17,16 @@ exit nonzero on a mismatch or a lost guarantee):
   ("disallow")``); in place of the reference's lint of the decode step's
   compiled HLO, one paged decode step under the same gate.  Both read
   "inactive" on the CPU.
-* ``mesh2d``: not ported; it waits for the multi-device work (ROADMAP
-  M12) and is recorded as such.
+* ``mesh2d``: the scheduler engine on ``repro``'s 2D dry-run topology's
+  axes (``"pod", "data", "model"``), token for token against the dense
+  decode loop while the updater hot-swaps the weights (identity swaps).
+  The mesh is ``(1, 1, 1)`` in smoke mode and on a world of fewer than 8
+  ranks (a world of one rank starts here when none runs: NCCL on the
+  card, gloo on the CPU), and ``(2, 2, 2)`` on a world of 8 ranks, where
+  the data axes' product (4) divides ``max_slots`` and the paged steps
+  shard their rows; every rank then runs this section with the same
+  requests.  That world runs on the CPU over gloo: on CUDA the engine
+  refuses a mesh of more than one rank (ROADMAP R16).
 * ``throughput`` (full mode): the handler engine and the scheduler engine
   at ``max_slots`` 1, 2, 4 and 8 (the admission sweep), on its graphed
   steps and on the bare ones, each run ``windows`` times in turns;
@@ -68,8 +76,10 @@ def _sched(max_slots=4):
 
 
 def _run_engine(eng, prompts, max_new):
-    """Submit every prompt at once; -> (outputs, wall s, dropped)."""
-    eng.start()
+    """Submit every prompt at once (starting the engine unless it runs);
+    -> (outputs, wall s, dropped)."""
+    if not eng._threads:
+        eng.start()
     reqs = [Request(rid=i, prompt=p, max_new=max_new)
             for i, p in enumerate(prompts)]
     t0 = time.perf_counter()
@@ -216,10 +226,48 @@ def bench_transfers(cfg, params, dev) -> dict:
             "lease_roundtrip_us": pair_s * 1e6}
 
 
-def bench_mesh2d() -> dict:
-    """The reference runs the scheduler on a 2D ("pod", "data", "model")
-    mesh; the port has no multi-device path yet."""
-    return {"ported": False, "waits_for": "M12"}
+def mesh2d(smoke: bool, dev):
+    """``repro``'s ``mesh2d``: (1, 1, 1) in smoke mode or on fewer than 8
+    ranks, else (2, 2, 2) over the first 8 (the world must hold exactly
+    8 then)."""
+    import torch.distributed as dist
+
+    from ..launch.mesh import make_mesh
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    shape = (1, 1, 1) if smoke or world < 8 else (2, 2, 2)
+    return make_mesh(shape, ("pod", "data", "model"), device=dev)
+
+
+def bench_mesh2d(cfg, params, dev, smoke: bool, max_new: int,
+                 near_tie_rel: Optional[float] = None) -> dict:
+    """Scheduler-driven decode on the 2D dry-run topology's axis layout."""
+    import math
+
+    from ..dist.sharding import MeshRules
+    from ..launch.mesh import local_world
+
+    with local_world(dev):
+        mesh = mesh2d(smoke, dev)
+        shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        prompts = [np.arange(1, 7, dtype=np.int32) + i for i in range(4)]
+        sc = _sched()
+        eng = ServingEngine(cfg, params, n_pages=N_PAGES, scheduler=sc,
+                            device=dev, mesh=mesh, rules=MeshRules())
+        eng.start(swap_period_s=0.1, perturb=lambda p: p)
+        got, wall, dropped = _run_engine(eng, prompts, max_new)
+        toks = hold_tokens(cfg, params, dev, prompts, got, max_new,
+                           near_tie_rel)
+        check(dropped == 0 and toks["ok"],
+              f"2D-mesh scheduler run matches {toks['oracle']} (mesh "
+              f"{shape})")
+        st = eng.lock_stats()
+        nb = shape["pod"] * shape["data"]
+        return {"mesh": shape, "ranks": math.prod(mesh.shape),
+                "match": toks["exact"], "hold": toks, "tokens": got,
+                "batch_sharded": nb > 1 and sc.max_slots % nb == 0,
+                "weight_swaps": st["engine"]["weight_swaps"],
+                "decode_steps": st["engine"]["decode_steps"],
+                "wall_s": wall}
 
 
 def _latency_us(eng) -> dict:
@@ -277,11 +325,13 @@ def bench_throughput(cfg, params, dev, max_new: int,
 
 def run(cfg=None, params=None, device=None, *, smoke: bool = False,
         windows: int = 1, tokens: int = 8,
-        near_tie_rel: Optional[float] = None) -> dict:
+        near_tie_rel: Optional[float] = None, mesh: bool = True) -> dict:
     """Every section on ``device`` (default: the CUDA card) with the model
     ``cfg``/``params`` (default: the llama3.2-1b smoke config, parameters
     from seed 0); throughput (full mode) over ``windows`` rounds; -> the
-    record, whose ``failures`` lists every check that did not hold."""
+    record, whose ``failures`` lists every check that did not hold.
+    ``mesh=False`` leaves ``mesh2d`` to the caller (``chip_smoke.py``
+    runs it in its last phase, apart from the CUDA graphs of the rest)."""
     from .. import configs
     from ..models import model as M
 
@@ -302,8 +352,10 @@ def run(cfg=None, params=None, device=None, *, smoke: bool = False,
         "equivalence": bench_equivalence(cfg, params, dev, tokens,
                                          near_tie_rel),
         "transfers": bench_transfers(cfg, params, dev),
-        "mesh2d": bench_mesh2d(),
     }
+    rec["mesh2d"] = bench_mesh2d(cfg, params, dev, smoke, tokens,
+                                 near_tie_rel) if mesh else \
+        {"run": "by the caller"}
     if not smoke:
         rec["throughput"] = bench_throughput(cfg, params, dev, tokens,
                                              windows)

@@ -78,8 +78,10 @@ def eager_steps(eng):
 
     eng._graph_handlers = False
     if eng.scheduler is not None:
-        eng._decode_paged = make_decode_step(eng.cfg, paged=True)
-        eng._prefill_paged = make_paged_prefill_step(eng.cfg)
+        eng._decode_paged = make_decode_step(eng.cfg, eng.mesh, eng.rules,
+                                             paged=True)
+        eng._prefill_paged = make_paged_prefill_step(eng.cfg, eng.mesh,
+                                                     eng.rules)
         eng._copy_page_step = copy_page
     return eng
 

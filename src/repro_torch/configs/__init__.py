@@ -3,12 +3,12 @@
 Every module defines:
   CONFIG: ModelConfig          — the exact published configuration
   SMOKE:  ModelConfig          — reduced same-family config for CPU tests
+  RULES:  MeshRules            — per-arch sharding rules (the mesh layer,
+                                 ``dist.sharding``)
   SHAPES: tuple[str, ...]      — applicable input shapes
 
-``repro``'s modules also carry per-arch sharding rules (``RULES``); on one
-card there is nothing to shard, so the port's have none and :func:`get`
-returns ``(CONFIG, shapes)``.  Every architecture of ``repro`` is here, in
-its order.
+Every architecture of ``repro`` is here, in its order, and :func:`get`
+returns ``(CONFIG, RULES, SHAPES)`` as ``repro``'s does.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import dataclasses
 import importlib
 from typing import Dict, Tuple
 
+from ..dist.sharding import MeshRules
 from ..models.common import ModelConfig
 
 ARCH_IDS = (
@@ -51,10 +52,10 @@ SHAPES: Dict[str, ShapeSpec] = {
 }
 
 
-def get(arch: str) -> Tuple[ModelConfig, Tuple[str, ...]]:
-    """-> (ModelConfig, applicable shape names)."""
+def get(arch: str) -> Tuple[ModelConfig, MeshRules, Tuple[str, ...]]:
+    """-> (ModelConfig, MeshRules, applicable shape names)."""
     mod = importlib.import_module(f".{_MODULES[arch]}", __package__)
-    return mod.CONFIG, mod.SHAPES
+    return mod.CONFIG, getattr(mod, "RULES", MeshRules()), mod.SHAPES
 
 
 def get_smoke(arch: str) -> ModelConfig:

@@ -1,6 +1,7 @@
 """Granite-20B (code) [dense] — MQA (kv=1), wide FFN (gpt-bigcode style,
 non-GLU GELU).  [arXiv:2405.04324; hf]"""
 
+from ..dist.sharding import MeshRules
 from ..models.common import ModelConfig
 
 CONFIG = ModelConfig(
@@ -15,5 +16,7 @@ SMOKE = ModelConfig(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=1, head_dim=16,
     d_ff=256, vocab=512, glu=False, act="gelu",
 )
+
+RULES = MeshRules(shard_heads=True)  # 48 % 16 == 0; kv=1 replicated
 
 SHAPES = ("train_4k", "prefill_32k", "decode_32k")

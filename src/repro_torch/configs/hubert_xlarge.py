@@ -2,6 +2,7 @@
 frontend STUBBED (input_specs provides frame embeddings); masked-prediction
 head over 504 clusters.  [arXiv:2106.07447; unverified]"""
 
+from ..dist.sharding import MeshRules
 from ..models.common import ModelConfig
 
 CONFIG = ModelConfig(
@@ -18,6 +19,8 @@ SMOKE = ModelConfig(
     d_ff=128, vocab=64, causal=False, use_rope=False, glu=False, act="gelu",
     frontend="audio_stub",
 )
+
+RULES = MeshRules(shard_heads=True, shard_kv_heads=True)
 
 # encoder-only: no decode step (DESIGN.md §Arch-applicability)
 SHAPES = ("train_4k", "prefill_32k")

@@ -1,6 +1,7 @@
 """Llama-3.2-1B [dense] — small llama3, GQA kv=8, tied embeddings.
 [hf:meta-llama/Llama-3.2-1B; unverified]"""
 
+from ..dist.sharding import MeshRules
 from ..models.common import ModelConfig
 
 CONFIG = ModelConfig(
@@ -15,5 +16,7 @@ SMOKE = ModelConfig(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
     d_ff=128, vocab=512, tie_embeddings=True,
 )
+
+RULES = MeshRules(shard_heads=True)
 
 SHAPES = ("train_4k", "prefill_32k", "decode_32k")

@@ -4,6 +4,7 @@ multimodal (text path only here).  [hf:meta-llama/Llama-4-*; unverified]"""
 
 import torch
 
+from ..dist.sharding import MeshRules
 from ..models.common import ModelConfig
 
 CONFIG = ModelConfig(
@@ -24,5 +25,9 @@ SMOKE = ModelConfig(
     moe_experts=8, moe_top_k=1, moe_every=2, moe_shared_expert=True,
     moe_d_ff=128,
 )
+
+# 40 heads is not divisible by |model|=16: keep head-dim activations
+# unsharded; weights still shard on the flattened q_dim (5120 % 16 == 0).
+RULES = MeshRules(shard_heads=False, attn_impl="seqshard")
 
 SHAPES = ("train_4k", "prefill_32k", "decode_32k")  # full attention: no 500k

@@ -3,6 +3,7 @@ GQA kv=8.  [hf:microsoft/Phi-3.5-MoE-instruct; hf]"""
 
 import torch
 
+from ..dist.sharding import MeshRules
 from ..models.common import ModelConfig
 
 CONFIG = ModelConfig(
@@ -22,5 +23,12 @@ SMOKE = ModelConfig(
     d_ff=96, vocab=512,
     moe_experts=4, moe_top_k=2, moe_every=1, moe_d_ff=96,
 )
+
+# §Perf iteration 5: experts fully resident (E over model only — one expert
+# per chip; d_ff unsharded), dense weights replicated over data (no FSDP):
+# eliminates every per-layer weight/activation gather except the small
+# dispatch a2a.  fsdp=None is safe because ZeRO-1 moment sharding carries
+# the optimizer memory.
+RULES = MeshRules(shard_heads=True, fsdp=None, moe_weight_resident=False)
 
 SHAPES = ("train_4k", "prefill_32k", "decode_32k")

@@ -2,6 +2,7 @@
 input_specs provides precomputed patch embeddings).
 [hf:microsoft/Phi-3-vision-128k-instruct; hf]"""
 
+from ..dist.sharding import MeshRules
 from ..models.common import ModelConfig
 
 CONFIG = ModelConfig(
@@ -17,5 +18,7 @@ SMOKE = ModelConfig(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
     d_ff=128, vocab=512, frontend="vision_stub", frontend_tokens=8,
 )
+
+RULES = MeshRules(shard_heads=True, shard_kv_heads=True)
 
 SHAPES = ("train_4k", "prefill_32k", "decode_32k")

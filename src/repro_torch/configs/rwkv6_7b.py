@@ -2,6 +2,7 @@
 decode state -> runs the 500k long-context decode shape.
 [arXiv:2404.05892; hf]"""
 
+from ..dist.sharding import MeshRules
 from ..models.common import ModelConfig
 
 CONFIG = ModelConfig(
@@ -16,5 +17,7 @@ SMOKE = ModelConfig(
     n_layers=2, d_model=128, n_heads=2, n_kv_heads=2, head_dim=64,
     d_ff=256, vocab=512, use_rope=False,
 )
+
+RULES = MeshRules(shard_heads=True)
 
 SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")

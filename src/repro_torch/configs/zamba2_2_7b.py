@@ -3,6 +3,7 @@
 long-context decode shape with the attention KV cache sequence-sharded.
 [arXiv:2411.15242; hf]"""
 
+from ..dist.sharding import MeshRules
 from ..models.common import ModelConfig
 
 CONFIG = ModelConfig(
@@ -18,5 +19,7 @@ SMOKE = ModelConfig(
     d_ff=128, vocab=512,
     ssm_kind="mamba2", ssm_state=16, ssm_expand=2, hybrid_attn_every=2,
 )
+
+RULES = MeshRules(shard_heads=True, shard_kv_heads=True)
 
 SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")

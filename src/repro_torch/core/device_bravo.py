@@ -31,8 +31,13 @@ copied with ``non_blocking=True`` into pinned host memory and a CUDA event
 marks the copy's completion, so the writer waits on at most one event per
 decision instead of one synchronize per poll.
 
-``make_distributed_revoke`` (the collective over a mesh of cards) waits for
-a multi-card slice; ROADMAP.md lists it.
+Multi-device revocation (:func:`make_distributed_revoke`): over a mesh of
+ranks (``launch.mesh``), each rank counts its row-shard of the table with
+the K3 kernel and the partial counts reduce hierarchically, one
+``all_reduce`` per mesh axis.  It runs on any world; the card's smoke run
+holds it on a world of one rank over NCCL, and the CPU tests on gloo
+worlds of 2-8 ranks (a run across several cards waits for a machine with
+them, ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -391,3 +396,43 @@ class LeaseHandle:
 
     def rearm(self) -> bool:
         return self.table.rearm()
+
+
+# ---------------------------------------------------------------------------
+# Multi-device revocation (the collective pattern; see module docstring)
+# ---------------------------------------------------------------------------
+
+
+def make_distributed_revoke(mesh, axis="data"):
+    """Each rank counts its row-shard of the table (K3 on the shard); the
+    partial counts reduce hierarchically (``all_reduce`` on the innermost
+    axis first, the outermost last).
+
+    ``axis`` is a mesh axis name or an outermost-first tuple of them, e.g.
+    ``("pod", "data")`` on the multi-pod mesh.  The table's leading (row)
+    dim is sharded over the product of those axes.  Returns a fn
+    ``(table, lock) -> count``: ``table`` is the global (rows, 128) table,
+    of which each rank reads only its block, and the count (an int32
+    tensor) is the same on every rank.  ``lock`` may be a raw lock id or
+    any handle carrying a ``lock_id`` attribute (:class:`LeaseHandle`,
+    :class:`~.registry.RegistryHandle`) — registry locks share one table,
+    so the same collective drains any of them.  Every rank must call it
+    with the same lock, as every collective."""
+    from ..dist.sharding import (P, hierarchical_psum, mesh_view,
+                                 shard_map_compat)
+
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    missing = [a for a in axes if a not in mesh_view(mesh).axis_names]
+    assert not missing, f"mesh {mesh_view(mesh).axis_names} lacks axes " \
+        f"{missing}"
+
+    def rev(table, lock):
+        lid = int(getattr(lock, "lock_id", lock))
+
+        def body(shard):
+            return hierarchical_psum(K.revocation_poll(shard, lid), axes)
+
+        return shard_map_compat(body, mesh, in_specs=(P(axes, None),),
+                         out_specs=P())(table)
+
+    return rev

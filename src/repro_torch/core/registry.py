@@ -25,8 +25,15 @@ already changed.  Callers must not switch streams around these calls.
 The semantics (lane recycling with fresh values, TWA-style writer parking,
 bounded drains with :class:`~.errors.DrainTimeout`, the stuck-lane scrub and
 the generation bump) are ``repro``'s, unchanged; see that module's
-docstring.  ``configure_mesh`` / ``make_sharded_revoke`` wait for the
-multi-device slice.
+docstring.
+
+On a mesh of ranks (:meth:`BravoRegistry.configure_mesh`,
+:func:`make_sharded_revoke`) the rbias vector is sharded with the table's
+rows: a revoke clears the lane on its owning shard only, and each drain
+poll is a K3 count of every rank's row-shard reduced hierarchically.  It
+runs on any world (on the card, a world of one rank over NCCL; in the CPU
+tests, gloo worlds of 2-8 ranks); a run across several cards waits for a
+machine with them (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -49,7 +56,8 @@ from .device_bravo import (TABLE_SLOTS, _drain, _release_ids32_all_impl,
 from .errors import DrainTimeout, ProtocolError
 from .table import next_lock_id
 
-__all__ = ["BravoRegistry", "RegistryHandle", "MAX_LOCKS", "PARK_SLOTS"]
+__all__ = ["BravoRegistry", "RegistryHandle", "MAX_LOCKS", "PARK_SLOTS",
+           "make_sharded_revoke"]
 
 MAX_LOCKS = 128   # bias lanes per registry by default (K4 polls any number)
 PARK_SLOTS = 16   # TWA-style waiting array: parking slots shared by lanes
@@ -110,6 +118,10 @@ class BravoRegistry:
         # device-resident slow-path pressure counter: denied publishes are
         # folded on the device (only while tracing) and read only in stats()
         self._dev_denied = torch.zeros((), dtype=torch.int32, device=dev)
+        # multi-pod mode (configure_mesh): revoke clears the bias lane on
+        # its OWNING shard and polls with the hierarchical count
+        self._mesh = None
+        self._sharded_revoke = None
 
     @property
     def publishes(self) -> int:
@@ -136,6 +148,33 @@ class BravoRegistry:
         return self._c_lane_scrubs.value
 
     # ------------------------------------------------------- lock lifecycle
+    def configure_mesh(self, mesh, axis=("pod", "data")) -> None:
+        """Route revocation through :func:`make_sharded_revoke`.  The
+        per-lock rbias vector is sharded WITH the table, so ``revoke``
+        clears only the lane on the shard that owns it, and the drain's
+        match counts reduce hierarchically (the innermost axis first)
+        instead of each poll scanning the whole table.  Everything else —
+        per-lock drain gates, the adaptive inhibit policy, the host shadow
+        vectors — is unchanged.  Every rank revokes the same locks in the
+        same order.  Pass ``mesh=None`` to drop back to the one-device
+        revoke."""
+        from ..dist.sharding import mesh_view
+        with self._mu:
+            if mesh is None:
+                self._mesh = self._sharded_revoke = None
+                return
+            axes = (axis,) if isinstance(axis, str) else tuple(axis)
+            lanes = 1
+            for a in axes:
+                lanes *= mesh_view(mesh).shape[a]
+            if self.max_locks % lanes != 0:
+                raise ProtocolError(
+                    f"max_locks {self.max_locks} does not divide evenly "
+                    f"over {lanes} mesh shards; each shard must own an "
+                    f"equal run of bias lanes")
+            self._mesh = mesh
+            self._sharded_revoke = make_sharded_revoke(mesh, axes)
+
     def alloc(self, name: Optional[str] = None) -> "RegistryHandle":
         """Allocate a lock: a free bias lane + a fresh lock value, armed."""
         with self._mu:
@@ -285,16 +324,26 @@ class BravoRegistry:
                pipeline_depth: int = 2) -> int:
         """Clear ``h``'s bias lane (only!), drain its leases with K3 polls,
         and set its inhibit deadline from its measured revocation cost.
-        Other locks' biases, drains and rearms are untouched throughout."""
+        Other locks' biases, drains and rearms are untouched throughout.
+
+        With a mesh configured (:meth:`configure_mesh`) the lane clear and
+        the drain polls both run through the sharded collective: the clear
+        lands on the lane's owning shard, and each poll reduces
+        hierarchically.  The drain decides on the global count, so every
+        rank dispatches the same polls."""
         n = self.n if n is None else n
         idx = h.idx
+        sharded = self._sharded_revoke
         deadline = time.monotonic() + max_wait_s
         with self._mu:
             self._check_open(h)
             # a second writer (epoch swap racing pool compaction) parks on
             # the first writer's drain instead of polling the table
             self._park_until_idle(idx, deadline, f"revoke({h.name})")
-            _set_lane(self.rbias, idx, 0)
+            if sharded is not None:
+                self.rbias.copy_(sharded(self.table, self.rbias, h)[0])
+            else:
+                _set_lane(self.rbias, idx, 0)
             self._armed[idx] = False
             self._revoking[idx] += 1
             self.revocations[idx] += 1
@@ -305,6 +354,12 @@ class BravoRegistry:
             # dispatch under the mutex: the poll is ordered on the stream
             # before any later publish or release on the table
             with self._mu:
+                if sharded is not None:
+                    # idempotent re-clear of an already-cleared lane; the
+                    # hierarchical count is the poll result
+                    rb, cnt = sharded(self.table, self.rbias, h)
+                    self.rbias.copy_(rb)
+                    return cnt
                 return K.revocation_poll(self.table, lid)
 
         try:
@@ -413,6 +468,56 @@ class BravoRegistry:
                     "armed": int(self._armed.sum()),
                     "rbias_armed": int(self.rbias.sum()),
                     "denied_publishes": int(self._dev_denied)}
+
+
+# ---------------------------------------------------------------------------
+# Multi-pod revocation with the rbias vector sharded WITH the table
+# ---------------------------------------------------------------------------
+
+
+def make_sharded_revoke(mesh, axis=("pod", "data")):
+    """Distributed revocation for REGISTRY locks: the per-lock ``rbias``
+    vector is sharded over the same mesh axes as the table rows, so
+    clearing one lock's bias touches only the shard that OWNS that lane.
+    Match counts (K3 on each rank's row-shard) reduce hierarchically, the
+    innermost axis first, one partial per pod on the outermost.
+
+    ``axis`` is a mesh axis name or an outermost-first tuple.  Returns
+    ``fn(table, rbias, lock) -> (rbias', count)`` on the global table and
+    rbias (each rank reads and clears only its blocks; ``rbias'`` comes
+    back whole by an all-gather of the blocks, and the count is the same
+    on every rank).  ``lock`` is a :class:`RegistryHandle` (or any object
+    with ``idx`` + ``lock_id``).  The lane product of the axes must divide
+    ``MAX_LOCKS`` for the rbias shard to be even."""
+    from ..dist.sharding import (P, axis_index, axis_size, hierarchical_psum,
+                                 mesh_view, shard_map_compat)
+
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    missing = [a for a in axes if a not in mesh_view(mesh).axis_names]
+    if missing:
+        raise ProtocolError(
+            f"mesh {mesh_view(mesh).axis_names} lacks axes {missing} "
+            f"required for the sharded revoke")
+
+    def rev(table, rbias, lock):
+        lidx, lid = int(lock.idx), int(lock.lock_id)
+
+        def body(table_shard, rbias_shard):
+            lanes = rbias_shard.shape[0]
+            didx = 0
+            for a in axes:              # outermost-first flattened shard id
+                didx = didx * axis_size(a) + axis_index(a)
+            local = lidx - didx * lanes  # off-shard -> out of range -> no-op
+            rb = rbias_shard.clone()
+            if 0 <= local < lanes:
+                _set_lane(rb, local, 0)
+            cnt = K.revocation_poll(table_shard, lid)
+            return rb, hierarchical_psum(cnt, axes)
+
+        return shard_map_compat(body, mesh, in_specs=(P(axes, None), P(axes)),
+                         out_specs=(P(axes), P()))(table, rbias)
+
+    return rev
 
 
 class RegistryHandle:

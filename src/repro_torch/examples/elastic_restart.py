@@ -57,7 +57,7 @@ def main(argv=None) -> dict:
 
     params = M.init_params(0, cfg, device=dev)
     state = adamw_init(params, opt)
-    step = jit_train_step(cfg, opt, TrainConfig(remat="none"))
+    step = jit_train_step(cfg, opt, tcfg=TrainConfig(remat="none"))
     out = {"run1": [], "run2": []}
 
     # ---- phase 1: 4 "hosts", host 3 is slow; crash at step 25 ----

@@ -74,7 +74,7 @@ def main(argv=None) -> float:
         params, state = restored["params"], restored["state"]
         start = last
 
-    step = jit_train_step(cfg, opt, TrainConfig(remat="none"))
+    step = jit_train_step(cfg, opt, tcfg=TrainConfig(remat="none"))
     it = make_batches(data, start_step=start)
     t0 = time.time()
     m = None

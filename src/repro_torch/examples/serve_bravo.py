@@ -11,8 +11,8 @@ The twin of ``repro``'s ``examples/serve_bravo.py``: the smoke llama3.2-1b
 every 0.25 s and page compaction every 0.4 s, once for each lock; each
 prints tokens/s, decode steps, swaps and the model lock's fast-path share
 and revocations.  ``repro`` builds a one-device ``Mesh`` and
-``MeshRules``; on one card there is nothing to shard, so the port has no
-counterpart.  It runs on the CUDA card unless given ``--device cpu``; on
+``MeshRules``; the port's engine without a mesh is that one-device path
+(``mesh=`` takes a ``launch.mesh`` mesh where there are ranks).  It runs on the CUDA card unless given ``--device cpu``; on
 the card the handler's prefill and decode steps run as CUDA graphs.
 """
 

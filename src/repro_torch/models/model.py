@@ -11,6 +11,13 @@ a Python loop where ``repro`` used ``lax.scan``.  The paged page store
 (:func:`init_paged_caches`) is the scheduler's data plane and holds dense
 attention only, as in ``repro``.
 
+With ``mesh=`` (a mesh of ranks from ``launch.mesh``) and ``rules=``
+(``dist.sharding.MeshRules``), :func:`forward` and :func:`loss_fn` run
+``repro``'s meshed program: every rank computes the dense parts whole, and
+the ``shard_map`` sites (the paged attention of the dense stack, the MoE
+layers, with ``repro``'s flags) run per rank with explicit collectives;
+``mesh=None`` is the one-device path, unchanged.
+
 Training recomputes as ``repro`` does: a stack given a ``remat_policy``
 (``training.train_step.remat_policy_by_name``: a callable ``policy(fn,
 *args)`` that returns ``fn(*args)`` and chooses what autograd keeps)
@@ -29,6 +36,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve
+from ..dist.sharding import MeshRules, mesh_view
 from .common import (ModelConfig, Params, ShapeOnly, dense_init, matmul,
                      rms_norm)
 from .ssm import CHUNK, init_mamba2, init_rwkv6, mamba2_block, rwkv6_block
@@ -183,12 +191,21 @@ def from_jax_params(np_params: Dict[str, Any], cfg: ModelConfig,
     return walk(np_params)
 
 
+def _data_axes(rules: Optional[MeshRules], mesh) -> Tuple[str, ...]:
+    if mesh is None:
+        return ()
+    return (rules or MeshRules()).batch_axes(mesh_view(mesh))
+
+
 def embed_inputs(p: Params, cfg: ModelConfig,
-                 batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+                 batch: Dict[str, torch.Tensor],
+                 rules: Optional[MeshRules] = None,
+                 mesh=None) -> torch.Tensor:
     """[frontend embeddings | token embeddings] in the compute dtype, scaled
     by sqrt(d_model) rounded to that dtype.  ``audio``: the whole input is
     the frame embeddings ``batch["embeds"]`` (the stub frontend), not
-    scaled."""
+    scaled.  ``rules``/``mesh``: ``repro``'s layout hint here is the
+    identity (``dist.sharding.constrain``)."""
     cd = cfg.compute_dtype
     if cfg.family == "audio":
         return batch["embeds"].to(cd)
@@ -201,7 +218,8 @@ def embed_inputs(p: Params, cfg: ModelConfig,
     return x * scale.to(cd).item()
 
 
-def lm_logits(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def lm_logits(p: Params, cfg: ModelConfig, x: torch.Tensor,
+              rules: Optional[MeshRules] = None, mesh=None) -> torch.Tensor:
     x = rms_norm(x, p["final_ln"], cfg.norm_eps)
     head = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
     return matmul(x, head.to(x.dtype))
@@ -209,9 +227,12 @@ def lm_logits(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def dense_stack(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 positions, caches=None, cache_len=None, make_caches=True,
-                pages=None, new_lens=None, remat_policy=None):
+                pages=None, new_lens=None, remat_policy=None, mesh=None,
+                rules=None):
     """Dense / audio / vlm stack: one block a layer.  -> (x, aux,
-    caches)."""
+    caches).  With ``mesh``, paged attention shards its rows over the
+    rules' data axes."""
+    data_axes = _data_axes(rules, mesh)
     ks, vs = [], []
     for i, lp in enumerate(_unbind(p["layers"])):
         lc = _index(caches, i)
@@ -219,7 +240,8 @@ def dense_stack(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         def blk(x, lp=lp, lc=lc):
             return block_forward(lp, x, cfg, positions=positions, cache=lc,
                                  cache_len=cache_len, pages=pages,
-                                 new_lens=new_lens)
+                                 new_lens=new_lens, mesh=mesh,
+                                 data_axes=data_axes)
         x, _, nc = _block(blk, x, remat_policy, lc)
         if caches is None and make_caches:
             ks.append(nc["k"])
@@ -233,12 +255,19 @@ def dense_stack(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
 def moe_stack(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions,
               caches=None, cache_len=None, make_caches=True,
-              remat_policy=None, **_):
+              remat_policy=None, mesh=None, rules=None, **_):
     """MoE stack: periods of ``moe_every`` layers; the last layer of each
     period is MoE, the first k-1 are dense.  Decode (``cache_len`` given)
     runs the MoE layers' dropless body.  Any ``remat_policy`` recomputes
-    each block fully."""
+    each block fully.  With ``mesh``, the MoE layers run expert-parallel
+    with ``repro``'s flags: tokens split over "model" when the rules say
+    so and no cache is given, the experts' d_ff resident over the data
+    axes likewise."""
     k = cfg.moe_every
+    rules = rules or MeshRules()
+    data_axes = _data_axes(rules, mesh)
+    split_tok = rules.split_moe_tokens and cache_len is None
+    resident = rules.moe_weight_resident and cache_len is None
     remat = full_remat if remat_policy is not None else None
     aux = 0.0
     periods = []
@@ -258,7 +287,10 @@ def moe_stack(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions,
             def blk(x, sub=sub, is_moe=is_moe, cj=cj):
                 return block_forward(sub, x, cfg, positions=positions,
                                      is_moe=is_moe, cache=cj,
-                                     cache_len=cache_len)
+                                     cache_len=cache_len, mesh=mesh,
+                                     data_axes=data_axes,
+                                     split_tokens_over_model=split_tok,
+                                     moe_weight_resident=resident)
             x, a, nc = _block(blk, x, remat, cj)
             aux = aux + a
             ncs.append(nc)
@@ -340,7 +372,8 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             make_caches: bool = True,
             pages: Optional[torch.Tensor] = None,
             new_lens: Optional[torch.Tensor] = None,
-            remat_policy=None,
+            remat_policy=None, mesh=None,
+            rules: Optional[MeshRules] = None,
             ) -> Tuple[torch.Tensor, Any, Any]:
     """Full forward pass -> (logits, aux loss, caches).
 
@@ -357,14 +390,14 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     from :func:`init_paged_caches` and ``pages`` the batch's (B, P) int32
     page-index matrix.  Column ``j`` sits at position ``cache_len - S + j``
     (right-aligned chunks; ``new_lens`` marks each row's valid tail;
-    padding columns take position 0).  ``remat_policy``: see the module
-    docstring."""
+    padding columns take position 0).  ``remat_policy``, ``mesh`` and
+    ``rules`` (default ``MeshRules()``): see the module docstring."""
     if pages is not None and cfg.family not in _PAGED_FAMILIES:
         raise ValueError(f"paged decode supports dense attention caches "
                          f"only (family={cfg.family})")
     if pages is not None and caches is None:
         raise ValueError("paged forward needs the page store as caches")
-    x = embed_inputs(p, cfg, batch)
+    x = embed_inputs(p, cfg, batch, rules, mesh)
     S = x.shape[1]
     if cache_len is None:
         positions = torch.arange(S, device=x.device)[None]
@@ -375,11 +408,12 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     x, aux, new_caches = _STACKS[cfg.family](
         p, x, cfg, positions=positions, caches=caches, cache_len=cache_len,
         make_caches=make_caches, pages=pages, new_lens=new_lens,
-        remat_policy=remat_policy)
-    return lm_logits(p, cfg, x), aux, new_caches
+        remat_policy=remat_policy, mesh=mesh, rules=rules)
+    return lm_logits(p, cfg, x, rules, mesh), aux, new_caches
 
 
 def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            mesh=None, rules: Optional[MeshRules] = None,
             remat_policy=None, aux_weight: float = 0.01
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The training loss -> (total, {"loss", "aux", "nll_mean"}): the
@@ -388,7 +422,7 @@ def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     the MoE load-balance loss.  Positions of a frontend prefix that the
     labels do not cover carry no loss."""
     logits, aux, _ = forward(p, cfg, batch, remat_policy=remat_policy,
-                             make_caches=False)
+                             make_caches=False, mesh=mesh, rules=rules)
     labels = batch["labels"].long()
     logits32 = logits.float()
     if logits32.shape[1] != labels.shape[1]:

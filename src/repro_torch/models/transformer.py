@@ -1,15 +1,22 @@
 """Decoder transformer blocks in plain PyTorch: GQA attention, the
 (gated) MLP and the mixture-of-experts layer.
 
-The port of ``repro.models.transformer`` on one device: attention with no
-cache (prefill, through :func:`~.common.flash_attention`), with a
-per-request cache (decode, through :func:`~.common.decode_attention`) and
-over the KV pool's page store (the scheduler's data plane, through the
-kernels K5 and K6, or K7 and K8 over the quantized page store); the MoE
-layer's two bodies at one model shard, where ``repro``'s all-to-alls and
-reductions over the mesh are the identity.  Where JAX returned a new
-cache, the cached branches write the new K/V into the caller's cache
-tensors in place and return them.
+The port of ``repro.models.transformer``: attention with no cache
+(prefill, through :func:`~.common.flash_attention`), with a per-request
+cache (decode, through :func:`~.common.decode_attention`) and over the KV
+pool's page store (the scheduler's data plane, through the kernels K5 and
+K6, or K7 and K8 over the quantized page store); the MoE layer's dispatch
+and decode bodies.  Where JAX returned a new cache, the cached branches
+write the new K/V into the caller's cache tensors in place and return
+them.
+
+On a mesh of ranks (``launch.mesh``; ``mesh=None`` is the one-device path,
+unchanged) each of ``repro``'s ``shard_map`` sites runs per rank with
+explicit collectives (``dist.sharding.shard_map_compat``): the four paged
+wrappers run their kernel on the rank's rows when the data axes divide
+the batch, and the MoE layer dispatches its tokens to expert shards over
+"model" with two all-to-alls (capacity counted on each shard's own
+tokens) or, decoding, reduces the expert shards' partial outputs.
 """
 
 from __future__ import annotations
@@ -19,6 +26,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..dist.sharding import (P, all_gather, all_to_all, axis_index,
+                             axis_size, mesh_view, pmean, psum,
+                             shard_map_compat)
 from ..kernels import ops as K
 from ..kernels.quant import requant_scatter
 from .common import (ModelConfig, Params, act_fn, apply_rope, decode_attention,
@@ -93,7 +103,99 @@ def with_sink(pages: torch.Tensor) -> torch.Tensor:
     return pages.as_strided(shape, pages.stride(), pages.storage_offset())
 
 
-def _paged_attn_quant(q, k, v, cache, pages, cache_len, new_lens):
+def _data_split(mesh, data_axes, b: int):
+    """The live data axes when they split a batch of ``b`` rows over more
+    than one rank, else None (the unsharded call)."""
+    if mesh is None:
+        return None
+    view = mesh_view(mesh)
+    bax = tuple(a for a in data_axes if a in view.axis_names)
+    nb = 1
+    for a in bax:
+        nb *= view.shape[a]
+    return bax if nb > 1 and b % nb == 0 else None
+
+
+def _paged_attention_sharded(q, k_pages, v_pages, pages, cache_len,
+                             mesh, data_axes):
+    """Decode attention over the page store (K5), wired for meshes: when
+    the data axes are live and divide the batch, requests shard over them
+    and each rank streams only ITS requests' pages through the kernel; the
+    page store replicates (it is the pool)."""
+    bax = _data_split(mesh, data_axes, q.shape[0])
+    if bax is not None:
+        def body(q_, pg_, cl_, kp_, vp_):
+            return K.paged_attention(q_, kp_, vp_, pg_, cl_)
+
+        return shard_map_compat(body, mesh,
+                         in_specs=(P(bax), P(bax), P(bax), P(), P()),
+                         out_specs=P(bax))(
+                             q, pages, cache_len, k_pages, v_pages)
+    return K.paged_attention(q, k_pages, v_pages, pages, cache_len)
+
+
+def _paged_chunk_attention(q, k_pages, v_pages, pages, cache_len, new_lens,
+                           mesh, data_axes):
+    """Chunk-prefill attention over the page store (K6), sharded like
+    :func:`_paged_attention_sharded`: each rank streams only its rows'
+    pages."""
+    bax = _data_split(mesh, data_axes, q.shape[0])
+    if bax is not None:
+        def body(q_, pg_, cl_, nl_, kp_, vp_):
+            return K.paged_chunk_attention(q_, kp_, vp_, pg_, cl_, nl_)
+
+        return shard_map_compat(body, mesh,
+                         in_specs=(P(bax), P(bax), P(bax), P(bax), P(),
+                                   P()),
+                         out_specs=P(bax))(
+                             q, pages, cache_len, new_lens, k_pages, v_pages)
+    return K.paged_chunk_attention(q, k_pages, v_pages, pages, cache_len,
+                                   new_lens)
+
+
+def _paged_attention_quant_sharded(q, k_pages, v_pages, k_scale, v_scale,
+                                   pages, cache_len, mesh, data_axes):
+    """Quantized-pool decode attention (K7), sharded like
+    :func:`_paged_attention_sharded`; the per-page scales replicate with
+    the page store (they are pool metadata)."""
+    bax = _data_split(mesh, data_axes, q.shape[0])
+    if bax is not None:
+        def body(q_, pg_, cl_, kp_, vp_, ks_, vs_):
+            return K.paged_attention_quant(q_, kp_, vp_, ks_, vs_, pg_, cl_)
+
+        return shard_map_compat(body, mesh,
+                         in_specs=(P(bax), P(bax), P(bax), P(), P(), P(),
+                                   P()),
+                         out_specs=P(bax))(
+                             q, pages, cache_len, k_pages, v_pages, k_scale,
+                             v_scale)
+    return K.paged_attention_quant(q, k_pages, v_pages, k_scale, v_scale,
+                                   pages, cache_len)
+
+
+def _paged_chunk_attention_quant(q, k_pages, v_pages, k_scale, v_scale,
+                                 pages, cache_len, new_lens, mesh,
+                                 data_axes):
+    """Quantized-pool chunk-prefill attention (K8), sharded like
+    :func:`_paged_chunk_attention`; scales replicate with the store."""
+    bax = _data_split(mesh, data_axes, q.shape[0])
+    if bax is not None:
+        def body(q_, pg_, cl_, nl_, kp_, vp_, ks_, vs_):
+            return K.paged_chunk_attention_quant(q_, kp_, vp_, ks_, vs_, pg_,
+                                                 cl_, nl_)
+
+        return shard_map_compat(body, mesh,
+                         in_specs=(P(bax), P(bax), P(bax), P(bax), P(), P(),
+                                   P(), P()),
+                         out_specs=P(bax))(
+                             q, pages, cache_len, new_lens, k_pages, v_pages,
+                             k_scale, v_scale)
+    return K.paged_chunk_attention_quant(q, k_pages, v_pages, k_scale,
+                                         v_scale, pages, cache_len, new_lens)
+
+
+def _paged_attn_quant(q, k, v, cache, pages, cache_len, new_lens,
+                      mesh=None, data_axes=()):
     """The quantized data plane: merge the chunk's K/V into the touched
     int8 pages in place (``requant_scatter``: dequantize, scatter,
     re-quantize; shared prefix pages lie below the touched window and are
@@ -104,15 +206,17 @@ def _paged_attn_quant(q, k, v, cache, pages, cache_len, new_lens):
         cache["k"], cache["v"], cache["k_scale"], cache["v_scale"], k, v,
         pages, cache_len, new_lens)
     if S == 1 and new_lens is None:
-        return K.paged_attention_quant(q[:, 0].contiguous(), kc, vc, ksc, vsc,
-                                       pages, cache_len)[:, None]
+        return _paged_attention_quant_sharded(
+            q[:, 0].contiguous(), kc, vc, ksc, vsc, pages, cache_len, mesh,
+            data_axes)[:, None]
     nl = new_lens if new_lens is not None \
         else torch.full((B,), S, dtype=torch.int32, device=q.device)
-    return K.paged_chunk_attention_quant(q.contiguous(), kc, vc, ksc, vsc,
-                                         pages, cache_len, nl)
+    return _paged_chunk_attention_quant(q.contiguous(), kc, vc, ksc, vsc,
+                                        pages, cache_len, nl, mesh, data_axes)
 
 
-def _paged_attn(q, k, v, cache, pages, cache_len, new_lens):
+def _paged_attn(q, k, v, cache, pages, cache_len, new_lens, mesh=None,
+                data_axes=()):
     """The paged data plane: scatter the chunk's K/V into the page store in
     place (invalid columns to the sink page), then attend by page index —
     S == 1 with no ``new_lens`` through K5, anything else through K6."""
@@ -133,12 +237,12 @@ def _paged_attn(q, k, v, cache, pages, cache_len, new_lens):
     with_sink(kc)[page, off] = k.to(kc.dtype)
     with_sink(vc)[page, off] = v.to(vc.dtype)
     if S == 1 and new_lens is None:
-        return K.paged_attention(q[:, 0].contiguous(), kc, vc, pages,
-                                 cache_len)[:, None]
+        return _paged_attention_sharded(q[:, 0].contiguous(), kc, vc, pages,
+                                        cache_len, mesh, data_axes)[:, None]
     nl = new_lens if new_lens is not None \
         else torch.full((B,), S, dtype=torch.int32, device=dev)
-    return K.paged_chunk_attention(q.contiguous(), kc, vc, pages, cache_len,
-                                   nl)
+    return _paged_chunk_attention(q.contiguous(), kc, vc, pages, cache_len,
+                                  nl, mesh, data_axes)
 
 
 def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -147,6 +251,7 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                  cache_len: Optional[torch.Tensor] = None,
                  pages: Optional[torch.Tensor] = None,
                  new_lens: Optional[torch.Tensor] = None,
+                 mesh=None, data_axes: Tuple[str, ...] = (),
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, d).  Without ``cache``: causal attention over the S
     positions; returns the new K/V as the cache.  With ``cache`` (decode,
@@ -164,7 +269,8 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     index (K5 for one decode token, K6 for a chunk).  A store that also
     holds ``k_scale``/``v_scale`` is the quantized store (int8 pages with
     per-(page, KV head) scales): writes go through ``requant_scatter`` and
-    attention through K7/K8."""
+    attention through K7/K8.  With ``mesh``, the paged attention runs on
+    each rank's rows of the batch when ``data_axes`` divide it."""
     B, S, _ = x.shape
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     q = matmul(h, p["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
@@ -178,7 +284,8 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             raise ValueError("paged attention needs a per-request (B,) "
                              "cache_len")
         paged = _paged_attn_quant if "k_scale" in cache else _paged_attn
-        o = paged(q, k, v, cache, pages, cache_len, new_lens)
+        o = paged(q, k, v, cache, pages, cache_len, new_lens, mesh,
+                  data_axes)
         new_cache = cache
     elif cache is None:
         o = flash_attention(q, k, v, causal=cfg.causal,
@@ -208,7 +315,7 @@ def mlp_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Mixture-of-Experts at one model shard
+# Mixture-of-Experts with explicit expert parallelism over a mesh
 # ---------------------------------------------------------------------------
 
 
@@ -244,17 +351,29 @@ def _expert_mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                         for e in range(a.shape[0])])
 
 
-def _moe_local(x: torch.Tensor, router, wi, wg, wo, cfg: ModelConfig):
-    """``repro``'s dispatch body at one model shard.
+def _moe_local(x: torch.Tensor, router, wi, wg, wo, cfg: ModelConfig,
+               model_axis: Optional[str] = None, n_model: int = 1,
+               weight_resident_axes: Tuple[str, ...] = ()):
+    """``repro``'s dispatch body, on one device or on one rank's shard.
 
-    x: (T, d).  Each (token, choice) pair takes the next place of its
-    expert's capacity bucket, ``cap = ceil(T * k * capacity_factor / E)``,
-    counted by a cumulative sum over the flat ``(T * k,)`` order; a pair
-    past ``cap`` is dropped (it adds zeros at place 0, which leaves the
-    place's token exact).  The experts run on their buckets; the outputs
-    come back weighted by the routing probabilities."""
+    x: (T, d) local tokens.  Each (token, choice) pair takes the next place
+    of its expert's capacity bucket, ``cap = ceil(T * k * capacity_factor
+    / E)`` on the LOCAL T, counted by a cumulative sum over the flat
+    ``(T * k,)`` order; a pair past ``cap`` is dropped (it adds zeros at
+    place 0, which leaves the place's token exact).  The experts run on
+    their buckets; the outputs come back weighted by the routing
+    probabilities.
+
+    With ``model_axis`` (inside ``shard_map_compat``) the experts are
+    sharded over it (``E / n_model`` a rank): the (E, cap, d) send buffer
+    goes out by an all-to-all, the rank's experts run on every source's
+    buckets, and a second all-to-all brings the outputs back.
+    ``weight_resident_axes``: the experts' d_ff is also sharded over those
+    axes, so the received buckets are all-gathered over them, the partial
+    outputs summed, and each rank keeps its own rows."""
     T, d = x.shape
     E, k = cfg.moe_experts, cfg.moe_top_k
+    e_loc = E // n_model
     cap = max(1, math.ceil(T * k * cfg.capacity_factor / E))
     probs, top_p, top_e = _route(x, router, cfg)
     flat_e = top_e.reshape(-1)                             # (T*k,)
@@ -270,42 +389,156 @@ def _moe_local(x: torch.Tensor, router, wi, wg, wo, cfg: ModelConfig):
                     torch.where(keep[:, None], x[flat_t], 0).float(),
                     accumulate=True)
     recv = send.to(x.dtype)
+    if model_axis is not None:
+        # rank i receives, from every peer j, j's buckets for i's experts:
+        # (n_model, e_loc, cap, d), axis 0 the source
+        recv = all_to_all(recv, model_axis)
+        recv = recv.reshape(n_model, e_loc, cap, d).transpose(0, 1)
+        recv = recv.reshape(e_loc, n_model * cap, d)
+        rows0 = recv.shape[1]
+        for ax in weight_resident_axes:
+            recv = all_gather(recv, ax, dim=1)
     a = act_fn(cfg.act)(_expert_mm_f32(recv, wi))
     if cfg.glu:
         a = a * _expert_mm_f32(recv, wg)
-    out = matmul(a.to(x.dtype), wo)                        # (E, cap, d)
+    out = matmul(a.to(x.dtype), wo)                        # (E_loc, rows, d)
+    if model_axis is not None:
+        if weight_resident_axes:
+            # complete the d_ff contraction across the ff shards, then keep
+            # this rank's rows (the last-gathered axis is outermost)
+            out = psum(out, weight_resident_axes)
+            didx = 0
+            for ax in reversed(weight_resident_axes):
+                didx = didx * axis_size(ax) + axis_index(ax)
+            out = out.narrow(1, didx * rows0, rows0)
+        out = out.reshape(e_loc, n_model, cap, d).transpose(0, 1)
+        out = all_to_all(out.reshape(E, cap, d).contiguous(), model_axis)
     gathered = torch.where(keep[:, None], out[flat_e, safe_pos], 0)
     y = (gathered.float() * flat_p[:, None].float()).reshape(T, k, d)
     y = y.sum(dim=1).to(x.dtype)
     return y, _aux_loss(probs, top_e, E)
 
 
-def _moe_local_tp(x: torch.Tensor, router, wi, wg, wo, cfg: ModelConfig):
-    """``repro``'s dropless decode body at one model shard: every expert
-    runs on every token, each output weighted by the token's renormalised
-    top-k probability for that expert (0 where not chosen)."""
+def _moe_local_tp(x: torch.Tensor, router, wi, wg, wo, cfg: ModelConfig,
+                  data_axes: Optional[Tuple[str, ...]] = None):
+    """``repro``'s dropless decode body: every expert runs on every token,
+    each output weighted by the token's renormalised top-k probability for
+    that expert (0 where not chosen).
+
+    With ``data_axes`` (inside ``shard_map_compat``; ``None`` is one
+    device) the rank holds its experts over "model" with their d_ff
+    sharded over "data": the tokens are all-gathered over the data axes,
+    each rank's partial output summed over ("model", *data_axes), and the
+    rank keeps its own tokens."""
+    T_loc = x.shape[0]
     E = cfg.moe_experts
-    probs, top_p, top_e = _route(x, router, cfg)
-    eix = torch.arange(E, device=x.device)
-    sel = top_e[:, None, :] == eix[None, :, None]          # (T, E, k)
-    w = torch.where(sel, top_p[:, None, :], 0.0).sum(dim=-1)   # (T, E)
-    a = act_fn(cfg.act)(matmul(x[None], wi))               # (E, T, ff)
+    xg = x
+    for ax in data_axes or ():
+        xg = all_gather(xg, ax, dim=0)
+    probs, top_p, top_e = _route(xg, router, cfg)
+    e_loc = wi.shape[0]
+    base = 0 if data_axes is None else axis_index("model") * e_loc
+    eix = base + torch.arange(e_loc, device=x.device)
+    sel = top_e[:, None, :] == eix[None, :, None]          # (T, E_loc, k)
+    w = torch.where(sel, top_p[:, None, :], 0.0).sum(dim=-1)   # (T, E_loc)
+    a = act_fn(cfg.act)(matmul(xg[None], wi))              # (E_loc, T, ff)
     if cfg.glu:
-        a = a * matmul(x[None], wg)
-    out = matmul(a.to(x.dtype), wo)                        # (E, T, d)
+        a = a * matmul(xg[None], wg)
+    out = matmul(a.to(x.dtype), wo)                        # (E_loc, T, d)
     y = torch.einsum("etd,te->td", out.float(), w.float())
+    if data_axes is not None:
+        y = psum(y, ("model",) + tuple(data_axes))
+        if data_axes:
+            didx = 0
+            for ax in reversed(data_axes):
+                didx = didx * axis_size(ax) + axis_index(ax)
+            y = y.narrow(0, didx * T_loc, T_loc)
     return y.to(x.dtype), _aux_loss(probs, top_e, E)
 
 
-def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                decode_tp: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+def _moe_sharded(p: Params, h: torch.Tensor, cfg: ModelConfig, mesh,
+                 data_axes: Tuple[str, ...], split_tokens_over_model: bool,
+                 decode_tp: bool, weight_resident: bool):
+    """``repro``'s three ``shard_map`` layouts of the MoE bodies."""
+    model_axis = "model"
+    view = mesh_view(mesh)
+    n_model = view.shape[model_axis]
+    token_axes = data_axes + ((model_axis,) if split_tokens_over_model
+                              else ())
+    mesh_axes = tuple(view.axis_names)
+
+    if decode_tp:
+        # the experts' d_ff is split over "data" alone, and the body sums
+        # over every data axis: another live one would count each partial
+        # once a rank along it (ROADMAP R15), so it is refused
+        doubled = [a for a in data_axes
+                   if a != "data" and view.shape.get(a, 1) > 1]
+        if doubled:
+            raise NotImplementedError(
+                f"moe_forward(decode_tp=True) over data axes {doubled} "
+                "besides 'data': the dropless body would sum their "
+                "replicas' partial outputs")
+
+        def body(h_loc, router, wi, wg, wo):
+            y, aux = _moe_local_tp(h_loc, router, wi, wg, wo, cfg,
+                                   data_axes)
+            return y, pmean(aux, mesh_axes)
+        in_specs = (P(data_axes or None, None), P(),
+                    P(model_axis, None, "data"), P(model_axis, None, "data"),
+                    P(model_axis, "data", None))
+        out_specs = (P(data_axes or None, None), P())
+    elif weight_resident:
+        wr_axes = tuple(a for a in data_axes if a in view.axis_names)
+
+        def body(h_loc, router, wi, wg, wo):
+            y, aux = _moe_local(h_loc, router, wi, wg, wo, cfg, model_axis,
+                                n_model, weight_resident_axes=wr_axes)
+            return y, pmean(aux, mesh_axes)
+        in_specs = (P(token_axes, None), P(),
+                    P(model_axis, None, wr_axes or None),
+                    P(model_axis, None, wr_axes or None),
+                    P(model_axis, wr_axes or None, None))
+        out_specs = (P(token_axes, None), P())
+    else:
+        def body(h_loc, router, wi, wg, wo):
+            y, aux = _moe_local(h_loc, router, wi, wg, wo, cfg, model_axis,
+                                n_model)
+            return y, pmean(aux, mesh_axes)
+        in_specs = (P(token_axes, None), P(), P(model_axis, None, None),
+                    P(model_axis, None, None), P(model_axis, None, None))
+        out_specs = (P(token_axes, None), P())
+
+    return shard_map_compat(body, mesh, in_specs, out_specs)(
+        h, p["router"], p["wi"], p.get("wg"), p["wo"])
+
+
+def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, mesh=None,
+                data_axes: Tuple[str, ...] = (),
+                split_tokens_over_model: bool = True,
+                decode_tp: bool = False,
+                weight_resident: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (B, S, d), aux-loss scalar.  ``decode_tp``: the
     dropless decode body, else the capacity dispatch body; the always-on
-    shared expert (llama4) is added to either."""
+    shared expert (llama4) is added to either, outside the sharded part.
+
+    With ``mesh`` the bodies run per rank as ``repro``'s ``shard_map``
+    lays them out: tokens over ``data_axes`` (and "model" when
+    ``split_tokens_over_model``), experts over "model", and with
+    ``weight_resident`` (or ``decode_tp``) the experts' d_ff over the data
+    axes; the aux loss is the mean of the ranks'.  ``decode_tp`` on a mesh
+    where a data axis other than "data" is above 1 raises
+    ``NotImplementedError`` (ROADMAP R15).  ``mesh=None`` is one device,
+    where the flags change nothing."""
     B, S, d = x.shape
     h = rms_norm(x, p["ln"], cfg.norm_eps).reshape(B * S, d)
-    body = _moe_local_tp if decode_tp else _moe_local
-    y, aux = body(h, p["router"], p["wi"], p.get("wg"), p["wo"], cfg)
+    if mesh is None:
+        body = _moe_local_tp if decode_tp else _moe_local
+        y, aux = body(h, p["router"], p["wi"], p.get("wg"), p["wo"], cfg)
+    else:
+        y, aux = _moe_sharded(p, h, cfg, mesh, tuple(data_axes),
+                              split_tokens_over_model, decode_tp,
+                              weight_resident)
     y = y.reshape(B, S, d).to(x.dtype)
     if "shared" in p:
         sh = p["shared"]
@@ -324,18 +557,25 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 def block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                   positions, is_moe: bool = False, cache=None,
-                  cache_len=None, pages=None, new_lens=None):
+                  cache_len=None, pages=None, new_lens=None, mesh=None,
+                  data_axes: Tuple[str, ...] = (),
+                  split_tokens_over_model: bool = True,
+                  moe_weight_resident: bool = False):
     """One block -> (x', aux loss, cache').  A dense block has no
     auxiliary loss, so it is the float 0.0; an MoE block (``is_moe``)
     decodes through the dropless body whenever ``cache_len`` is given, as
-    ``repro``'s MoE stack chooses."""
+    ``repro``'s MoE stack chooses.  ``mesh`` and the flags after it: see
+    :func:`attn_forward` and :func:`moe_forward`."""
     a, new_cache = attn_forward(p["attn"], x, cfg, positions=positions,
                                 cache=cache, cache_len=cache_len,
-                                pages=pages, new_lens=new_lens)
+                                pages=pages, new_lens=new_lens, mesh=mesh,
+                                data_axes=tuple(data_axes or ()))
     x = x + a
     if is_moe:
-        m, aux = moe_forward(p["moe"], x, cfg,
-                             decode_tp=cache_len is not None)
+        m, aux = moe_forward(p["moe"], x, cfg, mesh, tuple(data_axes or ()),
+                             split_tokens_over_model,
+                             decode_tp=cache_len is not None,
+                             weight_resident=moe_weight_resident)
     else:
         m, aux = mlp_forward(p["mlp"], x, cfg), 0.0
     return x + m, aux, new_cache

@@ -58,13 +58,29 @@ checkpoint written by :mod:`repro_torch.ft.checkpoint` (or by ``repro``'s)
 leaf by leaf, CRC-verified, onto the engine's device before any lock is
 taken.
 
+On a mesh (``mesh=`` from ``launch.mesh``, ``rules=`` a
+``dist.sharding.MeshRules``) the steps are ``repro``'s meshed steps: each
+rank runs the engine, and the paged attention and the MoE layers run per
+rank with their collectives.  The ranks' collectives must come in one
+order, so a mesh of more than one rank serves in scheduler mode without
+the latency controller (both of which would let each rank's clock decide
+its own batches), and each tick starts with one all-reduce over a gloo
+group by which the ranks agree on how many queued requests to admit and
+whether to stop; every rank is given the same requests in the same order.
+A mesh of one rank (the card's smoke run) changes nothing else.  A mesh of
+more than one rank on CUDA is refused with ``NotImplementedError``: the
+rows' NCCL all-gathers of the paged steps sit inside the steps' CUDA
+graphs, and across cards such an engine hangs (ROADMAP R16).
+
 Not ported: ``repro``'s host-only mode (``device_leases=False``); every
 lock here mirrors its readers on the device.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import math
 import queue
 import threading
 import time
@@ -72,6 +88,7 @@ from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.atomics import LiveMem
 from ..core.device_bravo import LeaseHandle
@@ -79,6 +96,7 @@ from ..core.errors import DrainTimeout
 from ..core.factory import LockEnv
 from ..core.registry import BravoRegistry, RegistryHandle
 from ..device import DeviceLike, resolve
+from ..dist.sharding import MeshRules
 from ..kernels.quant import quant_layout_tag
 from ..models import model as M
 from ..models.common import ModelConfig
@@ -418,9 +436,30 @@ class ServingEngine:
                  kv_stripes: int = 4,
                  scheduler: Optional[SchedulerConfig] = None,
                  engine_cfg: Optional[EngineConfig] = None,
-                 quant_kv: bool = False, device: DeviceLike = None):
+                 quant_kv: bool = False, device: DeviceLike = None,
+                 mesh=None, rules: Optional[MeshRules] = None):
         self.device = resolve(device)
         self.cfg = cfg
+        self.mesh = mesh
+        self.rules = rules if rules is not None or mesh is None \
+            else MeshRules()
+        # ranks of a mesh of more than one agree at every tick (see the
+        # module docstring) over a host group
+        self._host_group = None
+        self._pending: collections.deque = collections.deque()
+        if mesh is not None and math.prod(mesh.shape) > 1:
+            if self.device.type == "cuda":
+                raise NotImplementedError(
+                    "a mesh of more than one rank on CUDA: the paged "
+                    "steps' NCCL all-gathers inside their CUDA graphs hang "
+                    "across cards (ROADMAP R16); serve such a mesh on the "
+                    "CPU over gloo, or a mesh of one rank on the card")
+            if scheduler is None or scheduler.controller is not None:
+                raise ValueError(
+                    "a mesh of more than one rank serves in scheduler mode "
+                    "without the latency controller: the ranks' "
+                    "collectives must come in one order")
+            self._host_group = dist.new_group(backend="gloo")
         self.ecfg = engine_cfg or EngineConfig()
         self.env = env or LockEnv(LiveMem())
         self.metrics = MetricsRegistry()
@@ -452,8 +491,10 @@ class ServingEngine:
         #                                      admitting, drain in-flight
         # handler mode's steps, bare: ``_handler_steps`` makes each
         # thread's graphs of them at each batch size
-        self._prefill = _logits_only(make_prefill_step(cfg))
-        self._decode = in_place(make_decode_step(cfg), arg=1, out=2)
+        self._prefill = _logits_only(make_prefill_step(cfg, mesh,
+                                                       self.rules))
+        self._decode = in_place(make_decode_step(cfg, mesh, self.rules),
+                                arg=1, out=2)
         self._graph_handlers = True    # False: bare (smoke.eager_steps)
         self._hsteps: Dict[tuple, HandlerSteps] = {}
 
@@ -499,10 +540,12 @@ class ServingEngine:
         self._active = torch.zeros((ms,), dtype=torch.int32, device=dev)
         # one CUDA graph each on the card (``jit_step``), as ``repro`` jits
         # them; the page store is used in place, as it donates it
-        self._decode_paged = jit_step(make_decode_step(cfg, paged=True),
-                                      donate_argnums=(1,))
-        self._prefill_paged = jit_step(make_paged_prefill_step(cfg),
-                                       donate_argnums=(1,))
+        self._decode_paged = jit_step(
+            make_decode_step(cfg, mesh, self.rules, paged=True),
+            donate_argnums=(1,))
+        self._prefill_paged = jit_step(
+            make_paged_prefill_step(cfg, mesh, self.rules),
+            donate_argnums=(1,))
         # copy-on-write of one page over the donated store, as ``repro``'s
         # jit_step; the page pair rides as device scalars, so one graph a
         # store serves every copy
@@ -672,6 +715,8 @@ class ServingEngine:
             priority=r.priority))
 
     def _drain_inq(self) -> None:
+        if self._host_group is not None:
+            return                   # the ranks admit by agreement
         while True:
             try:
                 r = self.inq.get_nowait()
@@ -1053,7 +1098,31 @@ class ServingEngine:
             return True
         return False
 
+    def _agree(self) -> bool:
+        """One round of the ranks' agreement: queue what has arrived, admit
+        the number of requests every rank holds (all ranks are given the
+        same requests in the same order), stop once any rank stops.
+        -> whether to stop."""
+        while True:
+            try:
+                r = self.inq.get_nowait()
+            except queue.Empty:
+                break
+            if r is not None:
+                self._pending.append(r)
+        t = torch.tensor([len(self._pending), -int(self._stop.is_set())],
+                         dtype=torch.int64)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self._host_group)
+        for _ in range(int(t[0])):
+            self._submit_slot(self._pending.popleft())
+        return bool(t[1] < 0)
+
     def _schedule_loop(self) -> None:
+        if self._host_group is not None:
+            while not self._agree():
+                if not self._schedule_tick():
+                    self._stop.wait(self.ecfg.idle_poll_s)
+            return
         while not self._stop.is_set():
             if not self._schedule_tick():
                 try:

@@ -17,6 +17,12 @@ update it in place.  :func:`jit_step` wraps a step as ``repro``'s
 eagerly on the first call with new arguments, captured on the second (the
 counterpart of a compile) and replayed from then on; on CPU tensors it
 runs eagerly, as ``repro``'s drops donation on the CPU backend.
+
+Each maker takes ``repro``'s ``mesh`` and ``rules`` (``launch.mesh``,
+``dist.sharding.MeshRules``); ``mesh=None`` is the one-device step.  A
+meshed step's collectives (NCCL on the card) enter the graph when it is
+captured; the first, eager call of a new key runs them first, which is
+the warm-up NCCL needs before a capture.
 """
 
 from __future__ import annotations
@@ -359,15 +365,16 @@ def in_place(step: Callable, arg: int, out: int) -> Callable:
     return functools.wraps(step)(run)
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, mesh=None, rules=None):
     def prefill(params, batch):
-        logits, _, caches = M.forward(params, cfg, batch)
+        logits, _, caches = M.forward(params, cfg, batch, mesh=mesh,
+                                      rules=rules)
         return logits[:, -1], caches
     return prefill
 
 
-def make_decode_step(cfg: ModelConfig, sample: str = "greedy",
-                     paged: bool = False):
+def make_decode_step(cfg: ModelConfig, mesh=None, rules=None,
+                     sample: str = "greedy", paged: bool = False):
     """decode_step(params, caches, token, cache_len[, pages]) ->
     (next_token (B, 1) int32, logits (B, V), caches).
 
@@ -393,21 +400,23 @@ def make_decode_step(cfg: ModelConfig, sample: str = "greedy",
         def decode(params, caches, token, cache_len, pages):
             logits, _, caches = M.forward(params, cfg, {"tokens": token},
                                           caches=caches, cache_len=cache_len,
-                                          pages=pages)
+                                          pages=pages, mesh=mesh,
+                                          rules=rules)
             nxt, logits = _sample(logits)
             return nxt, logits, caches
         return decode
 
     def decode(params, caches, token, cache_len):
         logits, _, caches = M.forward(params, cfg, {"tokens": token},
-                                      caches=caches, cache_len=cache_len)
+                                      caches=caches, cache_len=cache_len,
+                                      mesh=mesh, rules=rules)
         nxt, logits = _sample(logits)
         return nxt, logits, caches
 
     return decode
 
 
-def make_paged_prefill_step(cfg: ModelConfig):
+def make_paged_prefill_step(cfg: ModelConfig, mesh=None, rules=None):
     """prefill_chunk(params, caches, tokens, cache_len, chunk_lens, pages)
     -> (next_token (R,) int32, caches).
 
@@ -424,7 +433,8 @@ def make_paged_prefill_step(cfg: ModelConfig):
     def prefill(params, caches, tokens, cache_len, chunk_lens, pages):
         logits, _, caches = M.forward(params, cfg, {"tokens": tokens},
                                       caches=caches, cache_len=cache_len,
-                                      pages=pages, new_lens=chunk_lens)
+                                      pages=pages, new_lens=chunk_lens,
+                                      mesh=mesh, rules=rules)
         nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return nxt, caches
 

@@ -23,6 +23,7 @@ from repro import configs as JC
 from repro.models import ssm as JS
 from repro.models import transformer as JT
 from repro_torch import configs as TC
+from repro_torch.dist.sharding import MeshRules
 from repro_torch.models import ssm as TS
 from repro_torch.models import transformer as TT
 
@@ -68,8 +69,9 @@ def _dtype_name(v):
 @pytest.mark.parametrize("arch", TC.ARCH_IDS)
 def test_config_copies_field_for_field(arch):
     jcfg, _, jshapes = JC.get(arch)
-    tcfg, tshapes = TC.get(arch)
+    tcfg, trules, tshapes = TC.get(arch)
     assert tshapes == jshapes
+    assert trules == MeshRules(**dataclasses.asdict(JC.get(arch)[1]))
     for jc, tc in ((jcfg, tcfg), (JC.get_smoke(arch), TC.get_smoke(arch))):
         jf = [f.name for f in dataclasses.fields(jc)]
         assert [f.name for f in dataclasses.fields(tc)] == jf
@@ -99,7 +101,7 @@ def test_num_params_match_repro_and_published_ranges(arch):
         "zamba2-2.7b": (2.3e9, 3.1e9),
     }
     jcfg, _, _ = JC.get(arch)
-    tcfg, _ = TC.get(arch)
+    tcfg, _, _ = TC.get(arch)
     n = tcfg.num_params()
     assert n == jcfg.num_params()
     assert tcfg.num_active_params() == jcfg.num_active_params()

@@ -111,25 +111,11 @@ CONFIG_COPIES = sorted(p.name for p in (PORT / "configs").glob("*.py")
 
 
 def _config_copy(text: str) -> str:
-    """``repro``'s config module as the port copies it: no ``RULES`` (with
-    the comments above it) and no import of ``dist``, the dtypes torch's."""
-    lines = text.splitlines(keepends=True)
-    drop = set()
-    for node in ast.parse(text).body:
-        if isinstance(node, ast.ImportFrom) and node.module == \
-                "dist.sharding":
-            drop.add(node.lineno - 1)
-        if isinstance(node, ast.Assign) and any(
-                getattr(t, "id", "") == "RULES" for t in node.targets):
-            start, end = node.lineno - 1, node.end_lineno - 1
-            while start and lines[start - 1].lstrip().startswith("#"):
-                start -= 1
-            if end + 1 < len(lines) and not lines[end + 1].strip():
-                end += 1
-            drop.update(range(start, end + 1))
-    out = "".join(x for i, x in enumerate(lines) if i not in drop)
-    return out.replace("import jax.numpy as jnp",
-                       "import torch").replace("jnp.", "torch.")
+    """``repro``'s config module as the port copies it: the dtypes
+    torch's; ``RULES`` and its ``MeshRules`` import (``dist.sharding``)
+    as they are."""
+    return text.replace("import jax.numpy as jnp",
+                        "import torch").replace("jnp.", "torch.")
 
 
 def test_every_config_but_audio_is_copied():
@@ -144,6 +130,33 @@ def test_every_config_but_audio_is_copied():
 def test_config_copies_match_their_originals(name):
     want = _config_copy((REF / "configs" / name).read_text())
     assert (PORT / "configs" / name).read_text() == want
+
+
+def _defs(path: pathlib.Path):
+    text = path.read_text()
+    out = {}
+    for node in ast.parse(text).body:
+        if isinstance(node, (ast.ClassDef, ast.FunctionDef)):
+            out[node.name] = ast.get_source_segment(text, node)
+        elif isinstance(node, ast.Assign) and len(node.targets) == 1 \
+                and isinstance(node.targets[0], ast.Name):
+            out[node.targets[0].id] = ast.get_source_segment(text, node)
+    return out
+
+
+# the parts of ``repro.dist.sharding`` the port keeps as they are; its spec
+# functions read a ShapeMesh where ``repro``'s read a JAX Mesh
+SHARDING_COPIES = ["MeshRules", "_REPLICATED", "_COL_PARALLEL",
+                   "_ROW_PARALLEL", "_CACHE_CORE", "_core_spec"]
+
+
+@pytest.mark.parametrize("name", SHARDING_COPIES)
+def test_sharding_copies_match_their_originals(name):
+    want = _defs(REF / "dist" / "sharding.py")[name]
+    got = _defs(PORT / "dist" / "sharding.py")[name]
+    if name == "_core_spec":
+        want = want.replace("mesh: Mesh", "mesh: ShapeMesh")
+    assert got == want
 
 
 @pytest.fixture

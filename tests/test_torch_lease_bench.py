@@ -109,7 +109,11 @@ def test_device_bravo_entry_point_on_the_cpu(tmp_path):
     for key in ("fused_pair_us", "legacy_pair_us", "pair_speedup",
                 "revoke_drained_us"):
         assert lat[key] > 0, key
-    assert rec["collective"]["ported"] is False
+    col = rec["collective"]
+    assert col["ranks"] == 1
+    for name, shape in (("1d", {"data": 1}), ("2d", {"pod": 1, "data": 1})):
+        assert col[name]["mesh"] == shape and col[name]["count_ok"]
+        assert col[name]["scan_collective_us"] > 0
 
 
 def test_registry_entry_point_meets_the_bias_flap_gates(tmp_path):

@@ -94,7 +94,11 @@ def test_transfers_and_mesh2d_sections():
     assert rec["lease_sync_gate"] == rec["decode_step_sync_gate"] \
         == "inactive"
     assert rec["lease_roundtrip_us"] > 0
-    assert SB.bench_mesh2d() == {"ported": False, "waits_for": "M12"}
+    mesh = SB.bench_mesh2d(cfg, params, CPU, True, 4)
+    assert SM.FAILURES == []
+    assert mesh["mesh"] == {"pod": 1, "data": 1, "model": 1}
+    assert mesh["ranks"] == 1 and not mesh["batch_sharded"]
+    assert mesh["match"] and mesh["decode_steps"] > 0
 
 
 def test_throughput_sweep_records_every_window(models):

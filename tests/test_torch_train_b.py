@@ -151,7 +151,8 @@ def _compare_steps(arch, tkw, okw, compute="float32", param=None,
     with MESH:
         jp1, js1, jm = _jax_step(arch, compute, param, jt, jo)(
             jp, js0, jax_batch(b))
-    tp1, ts1, tm = TT.make_train_step(ct, to, tt)(tp, ts0, torch_batch(b))
+    tp1, ts1, tm = TT.make_train_step(ct, to, tcfg=tt)(tp, ts0,
+                                                      torch_batch(b))
     assert int(tm["step"]) == int(jm["step"]) == 1
     assert abs(float(tm["loss"]) - float(jm["loss"])) \
         <= STEP_LOSS_REL * abs(float(jm["loss"]))
@@ -227,8 +228,8 @@ def test_smoke_train_step(arch):
     b = torch_batch(batch(cfg, 0, B=4, S=16))
     opt = TO.OptimizerConfig()
     state = TO.adamw_init(params, opt)
-    step = TT.make_train_step(cfg, opt,
-                              TT.TrainConfig(remat="full", microbatches=2))
+    step = TT.make_train_step(
+        cfg, opt, tcfg=TT.TrainConfig(remat="full", microbatches=2))
     p2, s2, metrics = step(params, state, b)
     loss = float(metrics["loss"])
     assert np.isfinite(loss) and loss > 0

@@ -86,7 +86,7 @@ def test_seeded_run_matches_repro_through_pipeline_and_checkpoints(tmp_path):
     with MESH:
         jstep = jax.jit(JT.make_train_step(cj, jo, MESH, RULES,
                                            JT.TrainConfig(remat="none")))
-    tstep = make_train_step(ct, to, TrainConfig(remat="none"))
+    tstep = make_train_step(ct, to, tcfg=TrainConfig(remat="none"))
     jmgr = JCk.CheckpointManager(tmp_path / "jax", keep=2)
     tmgr = CheckpointManager(tmp_path / "torch", keep=2)
     _, _, want = _jax_run(jp, JO.adamw_init(jp, jo), jstep, data, 0, 6,
@@ -128,7 +128,7 @@ def test_training_reduces_loss_on_learnable_data():
     opt = OptimizerConfig(lr=3e-3, warmup_steps=10, total_steps=60,
                           schedule="cosine")
     state = adamw_init(params, opt)
-    step = make_train_step(cfg, opt, TrainConfig(remat="none"))
+    step = make_train_step(cfg, opt, tcfg=TrainConfig(remat="none"))
     data = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=16)
     it = make_batches(data)
     losses = []
@@ -157,7 +157,7 @@ def _tiny_setup():
     params = TM.init_params(0, cfg, device="cpu")
     opt = OptimizerConfig(lr=1e-3, warmup_steps=0)
     state = adamw_init(params, opt)
-    step = make_train_step(cfg, opt, TrainConfig(remat="none"))
+    step = make_train_step(cfg, opt, tcfg=TrainConfig(remat="none"))
     data = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=8)
     return params, state, step, data
 
@@ -266,7 +266,7 @@ def test_full_configs_match_published_sizes():
     """tests/test_models.py's published-size check for hubert-xlarge on
     the port's copy: the count from the meta-device init equals
     ``repro``'s and lies in its range (0.8-1.3 B)."""
-    cfg, shapes = TC.get("hubert-xlarge")
+    cfg, _, shapes = TC.get("hubert-xlarge")
     n = cfg.num_params()
     assert 0.8e9 <= n <= 1.3e9
     assert n == JC.get("hubert-xlarge")[0].num_params()

@@ -62,8 +62,8 @@ def test_graphed_step_matches_the_eager_step(fake_graphs, arch, remat):
     norm, every update and both moments within the bounds of
     tests/test_torch_train_b.py."""
     cfg, params, opt, tcfg = _setup(arch, remat)
-    eager = TT.make_train_step(cfg, opt, tcfg)
-    graphed = TT.jit_train_step(cfg, opt, tcfg)
+    eager = TT.make_train_step(cfg, opt, tcfg=tcfg)
+    graphed = TT.jit_train_step(cfg, opt, tcfg=tcfg)
     state = TO.adamw_init(params, opt)
     gp, gs = _clone(params), _clone(state)
     lr = float(TO.lr_schedule(opt, torch.tensor(1)))
@@ -112,7 +112,7 @@ def test_graphed_replay_matches_repro(fake_graphs, arch):
     with MESH:
         jp1, js1, jm = _jax_step(arch, "float32", None, JT.TrainConfig(**tkw),
                                  jo)(jp, js0, jax_batch(b))
-    step = TT.jit_train_step(ct, to, TT.TrainConfig(**tkw))
+    step = TT.jit_train_step(ct, to, tcfg=TT.TrainConfig(**tkw))
     gp = _clone(tp)
     gs = TO.adamw_init(gp, to)
     start = [x.clone() for x in tree_flatten((gp, gs))[0]]
@@ -144,7 +144,7 @@ def test_new_trees_cost_a_warm_up_and_a_capture(fake_graphs):
     """A restore hands the step new trees: one eager step, one capture,
     then replays, as after a hot swap in serving."""
     cfg, params, opt, tcfg = _setup("llama3.2-1b", "none", 1)
-    step = TT.jit_train_step(cfg, opt, tcfg)
+    step = TT.jit_train_step(cfg, opt, tcfg=tcfg)
     state = TO.adamw_init(params, opt)
     for i in range(3):
         params, state, _ = step(params, state, batch(cfg, i))
@@ -238,8 +238,8 @@ def test_graphed_step_moves_nothing_from_the_host(fake_graphs, host_made,
     params = TM.init_params(0, cfg, device="meta")
     opt = TO.OptimizerConfig()
     state = TO.adamw_init(params, opt)
-    step = TT.jit_train_step(cfg, opt, TT.TrainConfig(remat=remat,
-                                                      microbatches=2))
+    step = TT.jit_train_step(
+        cfg, opt, tcfg=TT.TrainConfig(remat=remat, microbatches=2))
     b = batch(cfg, 0)
     on_dev = TT._on(b, torch.device("meta"))     # what the wrapper does
     for _ in range(3):                      # warm-up, capture, replay
@@ -260,8 +260,8 @@ def test_eager_pure_step_leaves_its_inputs_alone():
     cfg, params, opt, tcfg = _setup("llama3.2-1b", "none", 1)
     state = TO.adamw_init(params, opt)
     before = _clone((params, state))
-    p1, s1, _ = TT.make_train_step(cfg, opt, tcfg)(params, state,
-                                                   batch(cfg, 0))
+    p1, s1, _ = TT.make_train_step(cfg, opt, tcfg=tcfg)(params, state,
+                                                        batch(cfg, 0))
     assert p1 is not params and s1 is not state
     for x, y in zip(tree_flatten(before)[0],
                     tree_flatten((params, state))[0]):
@@ -343,7 +343,7 @@ def test_restart_is_bit_exact_through_the_graph(fake_graphs, tmp_path):
 
     cfg = TC.get_smoke("llama3.2-1b")
     opt = TO.OptimizerConfig(lr=1e-3, warmup_steps=0)
-    step = TT.jit_train_step(cfg, opt, TT.TrainConfig(remat="none"))
+    step = TT.jit_train_step(cfg, opt, tcfg=TT.TrainConfig(remat="none"))
     data = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=8)
 
     def run(params, state, start, n):
@@ -394,6 +394,6 @@ def test_jit_step_keys_the_trees_by_identity():
     """The step's graph keys parameters and state by identity (donated)
     and the batch by shape."""
     cfg, params, opt, tcfg = _setup("llama3.2-1b", "none", 1)
-    step = TT.jit_train_step(cfg, opt, tcfg)
+    step = TT.jit_train_step(cfg, opt, tcfg=tcfg)
     assert isinstance(step.graph, S.GraphedStep)
     assert step.graph.donate_argnums == (0, 1)
