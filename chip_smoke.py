@@ -225,15 +225,15 @@ non-zero exit and no result line:
 10. families: every other registered decoder config at full width, one
    model at a time, each released before the next with
    ``memory_allocated`` back within one store (its page store or decode
-   caches) of the phase's start: ``rwkv6-7b`` (ssm) at 16 of 32 layers,
-   ``zamba2-2.7b`` (hybrid) at 30 of 54, ``phi3.5-moe`` at 16 of 32 and
+   caches) of the phase's start: ``rwkv6-7b`` (ssm) at 8 of 32 layers,
+   ``zamba2-2.7b`` (hybrid) at 18 of 54, ``phi3.5-moe`` at 8 of 32 and
    ``llama4-maverick`` at 2 of 48 (moe, bf16 parameters;
    ``FAMILY_HANDLER``) in handler mode as in phase 5 (hot swaps of a new
    final norm scale, K1-K4 launched, graphed handler steps, the B = 4
    decode step graphed and eager in turns, the engine graphed and then
    on the bare steps, two requests alone equal to the greedy loop); and
-   ``gemma-2b``, ``minicpm-2b`` (bf16) at 20 of 40 layers,
-   ``phi-3-vision-4.2b`` at 8 of 32 and ``granite-20b`` at 26 of 52
+   ``gemma-2b``, ``minicpm-2b`` (bf16) at 10 of 40 layers,
+   ``phi-3-vision-4.2b`` at 8 of 32 and ``granite-20b`` at 13 of 52
    (``FAMILY_SCHEDULER``) in graphed
    scheduler mode as in phase 6 (K1-K3, K5, K6 launched), their tokens
    teacher-forced within ``BF16_VS_F32_REL`` of the dense loop's best,
@@ -241,9 +241,10 @@ non-zero exit and no result line:
    timed at its tick shape beside SDPA and the byte bound;
 11. train: the training path (``repro_torch.training``: ``loss_fn``,
    autograd, AdamW, the data pipeline, checkpoints), which runs none of
-   the port's kernels (no launch counted in the phase): llama3.2-1b and
-   hubert-xlarge at full width and depth on train_4k's sequences of
-   4096, the global batch cut to ``TRAIN_BATCH`` in microbatches of 2
+   the port's kernels (no launch counted in the phase): llama3.2-1b at
+   full width and depth and hubert-xlarge at full width, 24 of 48 layers
+   (``TRAIN_CONFIGS``), on train_4k's sequences of
+   4096, the global batch cut to ``TRAIN_BATCH`` in microbatches of 1
    with every block recomputed: the step as one CUDA graph
    (``jit_train_step``, in place) and eager, ``TRAIN_TIMED_STEPS`` timed
    steps of each, the eager arm first (``train_run``: loss, gradient norm
@@ -259,21 +260,29 @@ non-zero exit and no result line:
    ``memory_allocated`` back within one train batch of the phase's
    start;
 12. mesh, the last phase (``mesh_phase``): the mesh layer over
-   ``torch.distributed`` on a world of one rank over NCCL, started from a
-   ``file://`` store in a temporary directory and torn down after:
-   llama3.2-1b's scheduler engine with ``mesh=make_local_mesh()`` and
-   ``MeshRules()`` and without a mesh, in turns, on the same requests
-   (tokens equal, K1/K2/K5/K6 launched as often); ``make_distributed_
-   revoke`` and ``make_sharded_revoke`` on a registry's 16 KB table with
-   1000 readers holding one lock (counts equal to K3's and numpy's, only
-   that lock's bias lane cleared), then the registry's revoke through
-   ``configure_mesh``; ``make_compressed_psum`` over every leaf of one
-   full-width train step's gradients (equal to the leaf functions,
-   exactly); phi3.5-moe's MoE layer at full width through ``moe_forward``
-   with the mesh, the capacity and the dropless bodies, against the
-   one-device layer on float32 activations (``MESH_MOE_REL``); the
-   scheduler twin's ``mesh2d`` at (1, 1, 1) and the device_bravo twin's
-   ``collective``; all-reduces, all-gathers and all-to-alls counted.
+   ``torch.distributed``, one rank a card over NCCL from a ``file://``
+   store (on this one card in the script's process; on a machine of N
+   cards one process a card, each running the same checks), torn down
+   after: llama3.2-1b's graphed meshed scheduler engine at (data, model)
+   = (2, N / 2) ((1, 1) on one card) against its bare steps in turns,
+   hot swaps on and then off (tokens teacher-forced within 0.05, K1/K2/
+   K5/K6 launched, warm-ups, captures, replays and the swaps' ticks the
+   same on every rank, the no-swap tokens equal); ``make_distributed_
+   revoke`` and ``make_sharded_revoke`` on ("data",) = N and ("pod",
+   "data") = (2, N / 2), a registry's 16 KB table with 1000 readers
+   holding one lock (counts equal to K3's and numpy's, only that lock's
+   bias lane cleared), then the registry's revoke through
+   ``configure_mesh``; ``make_compressed_psum`` over ("data",) = N on
+   every leaf of one full-width train step's gradients (exact); the
+   twins' ``mesh2d`` at (1, 1, 1) (one card) and ``collective``;
+   phi3.5-moe's MoE layer at full width with its 16 experts over "model"
+   = N, the capacity and the dropless bodies against the one-device layer
+   (on each shard's tokens for the capacity body) on float32 activations
+   (``MESH_MOE_REL``); phi3.5-moe's expert-parallel train step at full
+   width cut to one layer, at (1, N) and (2, N / 2), eager and then
+   graphed on the same batches from the same trees (the graph within
+   1e-5, losses finite, losses and sampled parameters equal on every
+   rank); all-reduces, all-gathers and all-to-alls counted.
 
 The random weights are the reference's distributions with the (tied)
 embedding scaled by ``EMBED_SCALE``.  Unscaled, the current token's own
@@ -294,6 +303,7 @@ import contextlib
 import functools
 import itertools
 import json
+import math
 import os
 import shutil
 import statistics
@@ -494,8 +504,10 @@ WRITER_KERNELS = ["fused_publish_multi", "fused_publish", "revocation_poll",
 # and quant: timing readings in turns); slo: replays of each arm
 ENGINE_KERNELS = ["fused_publish_multi", "fused_publish", "paged_attention",
                   "paged_chunk_attention"]
-TWIN_WINDOWS = {"obs": 5, "scheduler": 3, "prefill": 3, "quant": 3,
-                "slo": 3}
+# (slo and scheduler at 2 since the mesh phase's train step joined the
+# script: 49.2 and 42.3 s at 3 on a host whose script then took 1286.4 s)
+TWIN_WINDOWS = {"obs": 5, "scheduler": 2, "prefill": 3, "quant": 3,
+                "slo": 2}
 # the eviction run: the same scheduler phase on a store so small that
 # decode growth evicts (a request needs up to 6 pages of 16; wave 1's six
 # need about 27); at 12-20 pages the port's CPU run of the smoke config
@@ -503,8 +515,10 @@ TWIN_WINDOWS = {"obs": 5, "scheduler": 3, "prefill": 3, "quant": 3,
 EVICT_PAGES = 16
 # the graph_step phase: eager and graphed ticks timed in turns, windows of
 # ticks an arm, at 2 and 8 active rows; a replayed tick's float32 logits
-# against the eager tick's, relative to the largest logit
-GRAPH_WINDOWS = 5
+# against the eager tick's, relative to the largest logit (3 windows since
+# the mesh phase's train step joined the script: 78.5 s at 5 on a host
+# whose script then took 1286.4 s)
+GRAPH_WINDOWS = 3
 GRAPH_TICKS = 8
 GRAPH_ROWS = (2, 8)
 GRAPH_LOGITS_REL = 1e-5
@@ -536,12 +550,17 @@ SWAP_TREES_PEAK = 4.5
 # zamba2-2.7b at 30 of 54 layers (a multiple of its hybrid_attn_every, 6)
 # to keep the script inside its time with the locks and autotune phases;
 # phi-3-vision at 8 of 32 (51.5 s at 16 on an H100 80GB HBM3, 700 W) to
-# make room for the mesh phase
-FAMILY_HANDLER = (("rwkv6-7b", 16), ("zamba2-2.7b", 30),
-                  ("phi3.5-moe-42b-a6.6b", 16),
+# make room for the mesh phase.  Since the mesh phase's expert-parallel
+# train step joined the script, on hosts where it took 1265.8-1286.4 s
+# (the nvcc builds 83.6-87.1 s against 60.0 on PR 28's), minicpm-2b runs
+# 10 of 40 layers (60.2 s at 20), granite-20b 13 of 52 (55.9 s at 26),
+# rwkv6-7b 8 of 32 (36.7 s at 16), zamba2-2.7b 18 of 54 (39.2 s at 30)
+# and phi3.5-moe 8 of 32 (33.8 s at 16)
+FAMILY_HANDLER = (("rwkv6-7b", 8), ("zamba2-2.7b", 18),
+                  ("phi3.5-moe-42b-a6.6b", 8),
                   ("llama4-maverick-400b-a17b", 2))
-FAMILY_SCHEDULER = (("gemma-2b", None), ("minicpm-2b", 20),
-                    ("phi-3-vision-4.2b", 8), ("granite-20b", 26))
+FAMILY_SCHEDULER = (("gemma-2b", None), ("minicpm-2b", 10),
+                    ("phi-3-vision-4.2b", 8), ("granite-20b", 13))
 # the families' variety check: a greedy output that repeats one token
 # depends on neither cache nor attention, and a random deep model can have
 # such a fixed point for some prompts (on an H100 80GB HBM3, 700 W, at
@@ -551,13 +570,16 @@ FAMILY_SCHEDULER = (("gemma-2b", None), ("minicpm-2b", 20),
 # repeated ones are counted in the record
 FAMILY_VARIED = 0.5
 # phase 11, training (``train_phase``): train_4k's sequences of 4096 at
-# full width and depth, its global batch of 256 cut to 8 (the card holds
-# the float32 parameters, gradients, moments and one step's new trees of
-# llama3.2-1b, ~40 GB, beside the activations; 8 sequences keep the phase
-# near two minutes), in microbatches of 2 with every block recomputed
-TRAIN_CONFIGS = ("llama3.2-1b", "hubert-xlarge")
+# full width, its global batch of 256 cut to 4 (the card holds the float32
+# parameters, gradients, moments and one step's new trees of llama3.2-1b,
+# ~40 GB, beside the activations), in microbatches with every block
+# recomputed; (config, layers).  The batch was 8 and hubert-xlarge ran all
+# 48 layers until the mesh phase's expert-parallel train step joined the
+# script (hubert 199.0 s, llama3.2-1b 76.5-78.5 s, on H100 80GB HBM3 hosts
+# at 700 W whose script took 1265.8-1286.4 s)
+TRAIN_CONFIGS = (("llama3.2-1b", None), ("hubert-xlarge", 24))
 TRAIN_SEQ = 4096
-TRAIN_BATCH = 8
+TRAIN_BATCH = 4
 TRAIN_PUBLISHED_BATCH = 256
 TRAIN_MICROBATCHES = 4
 TRAIN_TIMED_STEPS = 2           # timed steps of each arm
@@ -584,7 +606,15 @@ QUICKSTART_STEPS = 60
 QUICKSTART_DROP = 0.5
 
 
+_T0 = time.monotonic()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries ``elapsed_s``, the
+    seconds since the script started, so a run shows where its time
+    went."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.monotonic() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -3640,8 +3670,9 @@ def _sampled(tree, idx) -> dict:
             for name, i in idx.items()}
 
 
-def train_run(arch, dev, seed) -> dict:
-    """One published config at full width and depth, trained on
+def train_run(arch, dev, seed, depth=None) -> dict:
+    """One published config at full width (cut to ``depth`` layers when
+    given), trained on
     ``_train_batches`` with ``TrainConfig(remat="full", microbatches=4)``
     and the default AdamW, through the graphed step (``jit_train_step``,
     which updates its trees in place) and the eager one
@@ -3682,12 +3713,14 @@ def train_run(arch, dev, seed) -> dict:
                                                  make_train_step)
 
     cfg = configs.get(arch)[0]
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     t0 = time.monotonic()
     params = M.init_params(seed, cfg, device=dev)
     if "embed" in params:
         params["embed"].mul_(EMBED_SCALE)
     torch.cuda.synchronize()
-    rec = _family_model_record(cfg, params, None, time.monotonic() - t0)
+    rec = _family_model_record(cfg, params, depth, time.monotonic() - t0)
     rec["embed_scale"] = EMBED_SCALE if "embed" in params else None
     opt = OptimizerConfig()
     tcfg = TrainConfig(remat="full", microbatches=TRAIN_MICROBATCHES)
@@ -3697,7 +3730,9 @@ def train_run(arch, dev, seed) -> dict:
                 "microbatches": tcfg.microbatches, "remat": tcfg.remat,
                 "optimizer": "AdamW, repro's defaults (lr 3e-4, warmup 100)",
                 "reduced": [f"global batch {TRAIN_PUBLISHED_BATCH} -> "
-                            f"{TRAIN_BATCH}"],
+                            f"{TRAIN_BATCH}"] + (
+                    [] if depth is None else
+                    [f"layers {rec['published_layers']} -> {depth}"]),
                 "order": "graph warm-up; eager arm; graph arm"})
     state = adamw_init(params, opt)
     eager = make_train_step(cfg, opt, tcfg=tcfg)
@@ -4021,11 +4056,11 @@ def train_phase(dev, seed, emit_model) -> dict:
     t0 = time.monotonic()
     K.reset_launch_counts()
     out = {"allocated_at_start": start, "models": []}
-    for arch in TRAIN_CONFIGS:
+    for arch, depth in TRAIN_CONFIGS:
         gc.collect()            # the last model's trees, before the next
         torch.cuda.empty_cache()
         t1 = time.monotonic()
-        rec = train_run(arch, dev, seed)
+        rec = train_run(arch, dev, seed, depth)
         rec["seconds"] = time.monotonic() - t1
         emit_model(rec)
         out["models"].append({k: rec[k] for k in (
@@ -4523,88 +4558,274 @@ def main(argv=None) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Phase 12, the last: the mesh layer (M12) on a world of one rank over NCCL
+# Phase 12, the last: the mesh layer (M12) on one rank a card over NCCL
 # ---------------------------------------------------------------------------
 
-MESH_ENGINE_ARMS = ("mesh", "plain", "mesh", "plain")
+# the meshed engine's runs, in order: (arm, swaps): a first graphed run
+# that takes the communicators' and kernels' first use, then the graphed
+# and the bare steps in turns, under swaps and without
+MESH_ENGINE_ARMS = (("warmup", True), ("graph", True), ("bare", True),
+                    ("graph", False), ("bare", False))
 MESH_KERNELS = ["fused_publish_multi", "fused_publish", "paged_attention",
                 "paged_chunk_attention"]
+MESH_SWAP_S = 0.15               # the meshed engines' hot-swap period
 MESH_HOLDERS = 1000              # readers holding one lock in the revokes
 MESH_TRAIN = dict(batch=1, seq=256)   # the gradient tree's train step
 MESH_MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 MESH_MOE_PREFILL = (4, 64)       # (B, S) through the capacity body
 MESH_MOE_DECODE = 8              # tokens through the dropless body
 MESH_MOE_REL = 1e-5
+# the expert-parallel train step (``_mesh_train``): phi3.5-moe at full
+# width cut to one of its 32 layers (a layer's float32 parameters are ~6.3
+# GB, its AdamW moments ~12.6 GB; the eager arm holds two trees at once),
+# one batch of 4 x 256 tokens a step, 3 steps an arm
+MESH_TRAIN_LAYERS = 1
+MESH_TRAIN_BATCH = (4, 256)
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_REL = 1e-5            # graph against eager
+MESH_TRAIN_SAMPLES = 4096        # elements of each leaf compared
+MESH_RANK_TIMEOUT_S = 900.0      # a rank process's deadline at N cards
+
+
+def _mesh_shapes(world: int) -> dict:
+    """Each check's mesh on a world of ``world`` ranks (one a card):
+    the engine at (data, model) = (2, world / 2), the revokes on
+    ("data",) = world and ("pod", "data") = (2, world / 2), the compressed
+    all-reduce over ("data",), phi3.5-moe's 16 experts over "model" =
+    world, and the train step at (1, world) and (2, world / 2); every one
+    at (1, 1) or (1,) on one card."""
+    half = (2, world // 2) if world > 1 else (1, 1)
+    return {"engine": (half, ("data", "model")),
+            "data": ((world,), ("data",)),
+            "pod_data": (half, ("pod", "data")),
+            "moe": ((1, world), ("data", "model")),
+            "train": [((1, world), ("data", "model"))]
+            + ([(half, ("data", "model"))] if world > 1 else [])}
 
 
 def mesh_phase(dev, seed) -> dict:
-    """Phase ``mesh``: ``repro``'s meshed paths (M12) on the card, on a
-    world of one rank over NCCL from a ``file://`` store in a temporary
-    directory, run last so that no CUDA graph of an earlier phase shares
-    the process with a communicator.  llama3.2-1b's scheduler engine with
-    ``mesh=make_local_mesh()`` and ``MeshRules()`` against the engine with
-    no mesh, in turns (tokens equal, K1/K2/K5/K6 launched as often); both
-    revokes on the 16 KB table with placed holders (counts equal to K3's
-    and numpy's, the lane cleared), then the registry's meshed revoke;
-    ``make_compressed_psum`` over the gradient tree of one full-width
-    train step (exactly ``decompress(compress(g))`` and its error, one
-    rank); phi3.5-moe's MoE layer at full width through ``moe_forward``
-    with the mesh, the capacity and the dropless bodies, against the
-    one-device layer on float32 activations (``MESH_MOE_REL``); the two
-    twins' mesh sections (``mesh2d`` at (1, 1, 1), ``collective``).  An
-    NCCL failure or any failed check raises."""
+    """Phase ``mesh``: ``repro``'s meshed paths (M12) on one rank a card
+    over NCCL, run last so that no CUDA graph of an earlier phase shares
+    the process with a communicator.  On one card the rank runs in this
+    process; on ``N = torch.cuda.device_count()`` cards (a four-card
+    machine) this process spawns one rank a card, each from the same
+    ``file://`` store, and every rank runs the same checks
+    (``_mesh_rank``) on the meshes of ``_mesh_shapes(N)``:
+    llama3.2-1b's graphed meshed scheduler engine against its bare steps
+    in turns, under hot swaps and without (``_mesh_engine``); both
+    revokes and the
+    registry's meshed revoke (``_mesh_revokes``); ``make_compressed_psum``
+    over a train step's gradients (``_mesh_compressed``); the twins' mesh
+    sections (``_mesh_twins``); phi3.5-moe's MoE layer with its experts
+    over "model" (``_mesh_moe``); the expert-parallel train step eager
+    and graphed (``_mesh_train``).  Then the checks across ranks: every
+    rank's tokens, graph stats, losses and sampled parameters equal.  An
+    NCCL failure, a rank that fails or outlives ``MESH_RANK_TIMEOUT_S``,
+    or any failed check raises."""
     import tempfile
 
+    import torch
+
+    t0 = time.monotonic()
+    world = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if world == 1:
+        with tempfile.TemporaryDirectory() as d:
+            recs = [_mesh_rank(dev, 0, 1, d, seed)]
+    else:
+        recs = _mesh_spawn(world, seed)
+    out = _mesh_across(recs)
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def _mesh_spawn(world: int, seed: int) -> list:
+    """One process a card, rank ``r`` on card ``r``, each running
+    ``_mesh_rank_main``; -> their records in rank order.  The kernels are
+    built (``build_all``) before, so the ranks load them.  Every process
+    is gone when this returns."""
+    import tempfile
+
+    code = ("import sys; sys.path[:0] = [{root!r}, {src!r}]; "
+            "import chip_smoke; chip_smoke._mesh_rank_main(*sys.argv[1:])"
+            ).format(root=ROOT, src=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory() as d:
+        procs = []
+        try:
+            for r in range(world):
+                log = open(os.path.join(d, f"rank{r}.log"), "w")
+                procs.append((subprocess.Popen(
+                    [sys.executable, "-c", code, str(r), str(world), d,
+                     str(seed)], stdout=log, stderr=subprocess.STDOUT),
+                    log))
+            deadline = time.monotonic() + MESH_RANK_TIMEOUT_S
+            paths = [os.path.join(d, f"rank{r}.json") for r in range(world)]
+            while not all(map(os.path.exists, paths)):
+                bad = [r for r, (p, _) in enumerate(procs)
+                       if p.poll() not in (None, 0)]
+                if bad or time.monotonic() > deadline:
+                    for p, _ in procs:
+                        p.kill()
+                    tails = {}
+                    for r, (p, log) in enumerate(procs):
+                        log.flush()
+                        with open(log.name) as f:
+                            tails[r] = f.read()[-3000:]
+                    raise AssertionError(
+                        f"mesh: rank(s) {bad or 'all'} failed or timed out "
+                        f"at {world} ranks: {json.dumps(tails)}")
+                time.sleep(1.0)
+            recs = []
+            for path in paths:
+                with open(path) as f:
+                    recs.append(json.load(f))
+            # the records are written: a rank still tearing its
+            # communicators down after a grace period is stopped
+            for p, _ in procs:
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+            return recs
+        finally:
+            for p, log in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                log.close()
+
+
+def _mesh_rank_main(rank, world, store_dir, seed) -> None:
+    """A rank process of ``_mesh_spawn``: card ``rank``, TF32 off as
+    ``main`` sets it; its record goes to ``store_dir/rank<r>.json``."""
+    import torch
+
+    rank, world, seed = int(rank), int(world), int(seed)
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec = _mesh_rank(dev, rank, world, store_dir, seed)
+    path = os.path.join(store_dir, f"rank{rank}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(rec, f)
+    os.replace(path + ".tmp", path)
+
+
+def _mesh_rank(dev, rank, world, store_dir, seed) -> dict:
+    """Every check of the phase (``_mesh_checks``) on this rank of a world
+    of ``world`` over NCCL started from ``store_dir``, torn down after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_world
+
+    backend = init_world(store_dir, rank, world, device=dev)
+    try:
+        if dev.type == "cuda" and backend != "nccl":
+            raise AssertionError(f"mesh: backend {backend}, not nccl")
+        return _mesh_checks(dev, seed)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_checks(dev, seed) -> dict:
+    """Every check of the phase on this rank of the running world, on the
+    meshes of ``_mesh_shapes``."""
     import torch
     import torch.distributed as dist
 
     from repro_torch.configs import llama3_2_1b
     from repro_torch.dist import sharding as DS
-    from repro_torch.launch.mesh import init_world, make_local_mesh
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import model as M
 
-    t0 = time.monotonic()
     cfg = llama3_2_1b.CONFIG
-    out = {}
-    with tempfile.TemporaryDirectory() as d:
-        backend = init_world(d, device=dev)
-        try:
-            if backend != "nccl":
-                raise AssertionError(f"mesh: backend {backend}, not nccl")
-            mesh = make_local_mesh(device=dev)
-            out["world"] = {"backend": backend, "ranks": 1,
-                            "mesh": dict(zip(mesh.mesh_dim_names,
-                                             mesh.shape)),
-                            "nccl": str(torch.cuda.nccl.version())}
-            params = M.init_params(seed, cfg, device=dev)
-            params["embed"].mul_(EMBED_SCALE)
-            DS.reset_collective_counts()
-            out["engine"] = _mesh_engine(cfg, params, dev, mesh, seed)
-            out["revokes"] = _mesh_revokes(dev, mesh)
-            out["compressed"] = _mesh_compressed(cfg, params, dev, mesh,
-                                                 seed)
-            out["twins"] = _mesh_twins(cfg, params, dev)
-            del params
-            torch.cuda.empty_cache()
-            out["moe"] = _mesh_moe(dev, mesh, seed)
-            out["collectives"] = DS.collective_counts()
-            torch.cuda.synchronize()
-        finally:
-            dist.destroy_process_group()
+    world = dist.get_world_size()
+    shapes = _mesh_shapes(world)
+    out = {"rank": dist.get_rank()}
+    mesh = make_mesh(*shapes["engine"], device=dev)
+    out["world"] = {"backend": dist.get_backend(), "ranks": world,
+                    "nccl": str(torch.cuda.nccl.version()),
+                    "meshes": {k: (list(map(list, v)) if k != "train"
+                                   else [list(map(list, s)) for s in v])
+                               for k, v in shapes.items()}}
+    params = M.init_params(seed, cfg, device=dev)
+    params["embed"].mul_(EMBED_SCALE)
+    DS.reset_collective_counts()
+    out["engine"] = _mesh_engine(cfg, params, dev, mesh, seed)
+    data = make_mesh(*shapes["data"], device=dev)
+    out["revokes"] = {
+        "data": _mesh_revokes(dev, data, ("data",)),
+        "pod_data": _mesh_revokes(dev, make_mesh(*shapes["pod_data"],
+                                                 device=dev),
+                                  ("pod", "data"))}
+    out["compressed"] = _mesh_compressed(cfg, params, dev, data, seed)
+    out["twins"] = _mesh_twins(cfg, params, dev)
+    del params
+    torch.cuda.empty_cache()
+    out["moe"] = _mesh_moe(dev, make_mesh(*shapes["moe"], device=dev),
+                           seed)
+    out["train"] = [_mesh_train(dev, make_mesh(*s, device=dev), seed)
+                    for s in shapes["train"]]
+    out["collectives"] = DS.collective_counts()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
     for kind in ("all_reduce", "all_gather", "all_to_all"):
         if not out["collectives"].get(kind):
             raise AssertionError(f"mesh: no {kind} ran: "
                                  f"{out['collectives']}")
-    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def _mesh_across(recs) -> dict:
+    """The checks across the ranks' records: each engine arm's tokens and
+    graph stats, each train step's losses and sampled parameters, the
+    same on every rank.  -> rank 0's record, each rank's collectives and
+    timings beside it."""
+    first = recs[0]
+    for r in recs[1:]:
+        for a, b in zip(first["engine"]["runs"], r["engine"]["runs"]):
+            for k in ("outputs", "steps"):
+                if a[k] != b[k]:
+                    raise AssertionError(
+                        f"mesh: the {a['arm']} engine's {k} differ between "
+                        f"rank 0 and rank {r['rank']}: {a[k]} / {b[k]}")
+        for a, b in zip(first["train"], r["train"]):
+            for k in ("losses", "samples"):
+                if a[k] != b[k]:
+                    raise AssertionError(
+                        f"mesh: the train step's {k} at {a['mesh']} differ "
+                        f"between rank 0 and rank {r['rank']}")
+    out = dict(first)
+    out["engine"] = dict(first["engine"])
+    out["engine"].pop("outputs", None)
+    for rec in out["engine"]["runs"]:
+        rec.pop("outputs", None)
+    out["train"] = [{k: v for k, v in t.items() if k != "samples"}
+                    for t in first["train"]]
+    out["ranks_equal"] = True
+    out["per_rank"] = [{"rank": r["rank"], "collectives": r["collectives"],
+                        "engine_tokens_per_s": [x["tokens_per_s"] for x in
+                                                r["engine"]["runs"]],
+                        "train_ms": [t["ms"] for t in r["train"]]}
+                       for r in recs]
     return out
 
 
 def _mesh_engine(cfg, params, dev, mesh, seed) -> dict:
-    """The scheduler engine with and without the mesh, in turns, on
-    ``run_scheduler``'s first wave (every request queued before the engine
-    starts, no swap and no compaction, so the ticks are the same)."""
+    """llama3.2-1b's scheduler engine on ``mesh`` with ``MeshRules()``,
+    its graphed steps and its bare ones (``smoke.eager_steps``), the runs
+    of ``MESH_ENGINE_ARMS`` on ``run_scheduler``'s first wave (every
+    request queued before the engine starts), under swaps of the final
+    norm every ``MESH_SWAP_S`` s (``_swap_final_norm``) or none.  Every
+    run's tokens are held to the dense loop, teacher-forced within
+    ``BF16_VS_F32_REL`` of its best at every step; the graphed runs
+    launch K1/K2/K5/K6, warm up, capture and replay, and under swaps land
+    at least one; without swaps the graphed tokens equal the bare ones."""
+    import dataclasses
+
     import torch
 
+    from repro_torch.benchmarks.smoke import eager_steps, hold_tokens
     from repro_torch.dist.sharding import MeshRules
     from repro_torch.kernels import ops as K
     from repro_torch.serving.engine import Request, ServingEngine
@@ -4612,10 +4833,12 @@ def _mesh_engine(cfg, params, dev, mesh, seed) -> dict:
 
     prompts = _sched_prompts(seed + 3, cfg.vocab)[0]
     runs = []
-    for arm in MESH_ENGINE_ARMS:
-        kw = {"mesh": mesh, "rules": MeshRules()} if arm == "mesh" else {}
+    for arm, swaps in MESH_ENGINE_ARMS:
         eng = ServingEngine(cfg, params, n_pages=SCHED_PAGES, device=dev,
-                            scheduler=SchedulerConfig(**SCHED), **kw)
+                            scheduler=SchedulerConfig(**SCHED), mesh=mesh,
+                            rules=MeshRules())
+        if arm == "bare":
+            eager_steps(eng)
         reqs = [Request(rid=i, prompt=p, max_new=16)
                 for i, p in enumerate(prompts)]
         for r in reqs:
@@ -4623,42 +4846,64 @@ def _mesh_engine(cfg, params, dev, mesh, seed) -> dict:
         torch.cuda.synchronize()
         K.reset_launch_counts()
         t = time.monotonic()
-        eng.start()
+        eng.start(swap_period_s=MESH_SWAP_S if swaps else 0.0,
+                  perturb=_swap_final_norm)
         try:
             for r in reqs:
-                if not r.done.wait(timeout=600):
-                    raise AssertionError(f"mesh: request {r.rid} timed out")
+                while not r.done.wait(timeout=1.0):
+                    eng.check_health()
+                    if time.monotonic() - t > 600:
+                        raise AssertionError(
+                            f"mesh: request {r.rid} timed out")
             wall = time.monotonic() - t
         finally:
             eng.stop()
         counts = K.launch_counts()
-        runs.append({"arm": arm, "wall_s": wall,
+        steps = {name: dataclasses.asdict(getattr(eng, f"_{name}_paged")
+                                          .stats)
+                 if arm != "bare" else None
+                 for name in ("decode", "prefill")}
+        for st in filter(None, steps.values()):
+            st.pop("capture_ms")             # host time, not the rank's own
+        runs.append({"arm": arm, "swaps": swaps, "wall_s": wall,
                      "tokens_per_s": 16 * len(reqs) / wall,
+                     "weight_swaps": eng.stats.weight_swaps,
                      "launches": {k: counts[k] for k in MESH_KERNELS},
+                     "steps": steps,
                      "outputs": [r.out.tolist() for r in reqs]})
-    first = runs[0]
-    for r in runs[1:]:
-        if r["outputs"] != first["outputs"]:
-            raise AssertionError(f"mesh: the {r['arm']} engine's tokens "
-                                 f"differ from the meshed engine's")
-        if r["launches"] != first["launches"]:
-            raise AssertionError(f"mesh: launches {r['launches']} against "
-                                 f"{first['launches']}")
-    # the plain versions (CPU tensors) count no launch
-    if dev.type == "cuda" and not all(first["launches"].values()):
-        raise AssertionError(f"mesh: a kernel did not launch: "
-                             f"{first['launches']}")
+    # every arm's tokens in one call, so a (prompt, tokens) pair that two
+    # arms share is forced once
+    hold = hold_tokens(cfg, params, dev, prompts * len(runs),
+                       [o for r in runs for o in r["outputs"]], 16,
+                       BF16_VS_F32_REL, max_seq=SCHED["max_seq"])
+    if not hold["ok"]:
+        raise AssertionError(f"mesh: the engines' tokens: {hold}")
+    for r in runs:
+        if r["arm"] == "bare":
+            continue
+        st = r["steps"]["decode"]
+        if dev.type == "cuda" and not (all(r["launches"].values())
+                                       and st["captures"] >= 1
+                                       and st["replays"] >= 1
+                                       and (r["weight_swaps"] >= 1)
+                                       == r["swaps"]):
+            raise AssertionError(f"mesh: the graphed engine: {r}")
+    still = [r["outputs"] for r in runs if not r["swaps"]]
+    if still[0] != still[1]:
+        raise AssertionError("mesh: without swaps the graphed engine's "
+                             "tokens differ from the bare steps'")
     return {"requests": len(prompts), "max_new": 16,
-            "tokens_equal": True, "launches_equal": True,
-            "launches": first["launches"],
-            "runs": [{k: v for k, v in r.items() if k != "outputs"}
-                     for r in runs],
-            "outputs": first["outputs"]}
+            "swap_period_s": MESH_SWAP_S,
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            "tokens_held": True, "near_tie_rel": BF16_VS_F32_REL,
+            "max_deficit_rel": hold["max_deficit_rel"],
+            "flips": sum(hold["flips"]), "runs": runs}
 
 
-def _mesh_revokes(dev, mesh) -> dict:
-    """Both revokes with ``MESH_HOLDERS`` readers holding one lock of a
-    registry (a 4096-slot, 16 KB table), then the registry's own revoke
+def _mesh_revokes(dev, mesh, axes) -> dict:
+    """Both revokes over ``axes`` with ``MESH_HOLDERS`` readers holding
+    one lock of a registry (a 4096-slot, 16 KB table, the same on every
+    rank, each rank scanning its rows), then the registry's own revoke
     through ``configure_mesh`` once they have released."""
     import numpy as np
     import torch
@@ -4676,11 +4921,15 @@ def _mesh_revokes(dev, mesh) -> dict:
     table = reg.table.cpu().numpy()
     want = int((table == h.lock_id).sum())
     k3 = int(K.revocation_poll(reg.table, h.lock_id))
-    dist_count = int(DB.make_distributed_revoke(mesh, "data")(reg.table, h))
+    axis = axes[0] if len(axes) == 1 else axes
+    dist_count = int(DB.make_distributed_revoke(mesh, axis)(reg.table, h))
     rb0 = reg.rbias.cpu().numpy()
-    rb, shard_count = RG.make_sharded_revoke(mesh, ("data",))(
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rb, shard_count = RG.make_sharded_revoke(mesh, axes)(
         reg.table, reg.rbias, h)
     rb = rb.cpu().numpy()
+    ms = (time.perf_counter() - t) * 1e3
     other = np.arange(rb0.size) != h.idx
     if not (dist_count == int(shard_count) == k3 == want == held > 0):
         raise AssertionError(f"mesh: revoke counts {dist_count}, "
@@ -4689,23 +4938,28 @@ def _mesh_revokes(dev, mesh) -> dict:
     if rb[h.idx] != 0 or not (rb[other] == rb0[other]).all():
         raise AssertionError("mesh: the sharded revoke's rbias")
     h.release(ids, granted)
-    reg.configure_mesh(mesh, ("data",))
+    reg.configure_mesh(mesh, axes)
     scans = h.revoke()
     lane = int(reg.rbias[h.idx])
     if lane != 0 or h.held() != 0:
         raise AssertionError(f"mesh: registry revoke left lane {lane}, "
                              f"held {h.held()}")
-    return {"table_slots": int(table.size), "holders": MESH_HOLDERS,
+    return {"axes": list(axes),
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            "table_slots": int(table.size), "holders": MESH_HOLDERS,
             "granted": held, "distributed_count": dist_count,
             "sharded_count": int(shard_count), "k3_count": k3,
             "numpy_count": want, "lane_cleared": True,
-            "registry_revoke_scans": scans}
+            "sharded_revoke_ms": ms, "registry_revoke_scans": scans}
 
 
 def _mesh_compressed(cfg, params, dev, mesh, seed) -> dict:
-    """``make_compressed_psum`` over every leaf of one train step's
-    gradients (``MESH_TRAIN``), each against the leaf functions."""
+    """``make_compressed_psum`` over ("data",) on every leaf of one train
+    step's gradients (``MESH_TRAIN``), each against the leaf functions:
+    every rank holds the same leaf (rank 0's, broadcast), so the mean of
+    the ranks' payloads is ``decompress(N q, scale, N) / N``."""
     import torch
+    import torch.distributed as dist
 
     from repro_torch.ft.checkpoint import tree_flatten
     from repro_torch.ft.compression import (compress_grads_int8,
@@ -4721,45 +4975,64 @@ def _mesh_compressed(cfg, params, dev, mesh, seed) -> dict:
     loss, grads = TT._make_compute_grads(cfg, TT.TrainConfig(remat="full"))(
         params, batch)
     fn = make_compressed_psum(mesh, ("data",))
+    n = mesh.shape[0]
+    group = mesh.get_group("data")
     leaves = tree_flatten(grads)[0]
-    n = 0
+    count, ms = 0, 0.0
     for leaf in leaves:
         err = 1e-3 * torch.randn(leaf.shape, generator=g, device=dev)
+        if n > 1:
+            dist.broadcast(leaf, dist.get_global_rank(group, 0),
+                           group=group)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
         mean, new_err = fn(leaf, err)
+        torch.cuda.synchronize()
+        ms += (time.perf_counter() - t) * 1e3
         q, scale, want_err = compress_grads_int8(leaf, err)
-        want = decompress_grads_int8(q.to(torch.int32), scale, 1)
+        want = decompress_grads_int8(q.to(torch.int32) * n, scale, n) / n
         if not (torch.equal(mean, want) and torch.equal(new_err, want_err)):
             raise AssertionError("mesh: compressed psum differs from the "
                                  "leaf functions")
-        n += leaf.numel()
-    return {"leaves": len(leaves), "elements": n, "loss": float(loss),
-            "exact": True}
+        count += leaf.numel()
+    return {"ranks": n, "leaves": len(leaves), "elements": count,
+            "loss": float(loss), "exact": True, "ms": ms}
 
 
 def _mesh_twins(cfg, params, dev) -> dict:
     """The twins' mesh sections: ``scheduler.bench_mesh2d`` at (1, 1, 1)
     (teacher-forced within ``BF16_VS_F32_REL``, as the twin's full-width
-    phase) and ``device_bravo.bench_collective``."""
+    phase), on one rank only (its mesh is (2, 2, 2) on 8), and
+    ``device_bravo.bench_collective`` on every rank (the 1D and 2D
+    revokes' scan through the collective, timed)."""
+    import torch.distributed as dist
+
     from repro_torch.benchmarks import device_bravo as DBB
     from repro_torch.benchmarks import scheduler as SB
     from repro_torch.benchmarks.smoke import FAILURES
 
     FAILURES.clear()
+    rec = {}
     with contextlib.redirect_stdout(sys.stderr):   # their [ok] lines
-        rec = {"mesh2d": SB.bench_mesh2d(cfg, params, dev, True, 8,
-                                         BF16_VS_F32_REL),
-               "collective": DBB.bench_collective(dev, 16)}
+        if dist.get_world_size() == 1:
+            rec["mesh2d"] = SB.bench_mesh2d(cfg, params, dev, True, 8,
+                                            BF16_VS_F32_REL)
+            rec["mesh2d"].pop("tokens")
+        rec["collective"] = DBB.bench_collective(dev, 16)
     if FAILURES:
         raise AssertionError(f"mesh: twin sections: {FAILURES}")
-    rec["mesh2d"].pop("tokens")
     return rec
 
 
 def _mesh_moe(dev, mesh, seed) -> dict:
     """One phi3.5-moe MoE layer at full width (its bf16 parameters),
-    float32 activations: the capacity body (the rules' layout) and the
-    dropless body through ``moe_forward`` with the mesh, against the
-    one-device layer, in turns."""
+    float32 activations, its experts over "model": the capacity body (the
+    rules' layout: tokens over the data axes and "model") and the dropless
+    body through ``moe_forward`` with the mesh, in turns with the
+    one-device layer.  The capacity body counts its capacity on each
+    shard's tokens, so its reference is the one-device layer on each
+    shard's block of tokens (the aux loss their mean); the dropless body's
+    is the one-device layer on every token."""
     import dataclasses
 
     import torch
@@ -4774,13 +5047,23 @@ def _mesh_moe(dev, mesh, seed) -> dict:
     g.manual_seed(seed)
     p = {k: v[0] for k, v in TT.init_moe(g, cfg, 1).items()}
     data_axes = rules.batch_axes(mesh_view(mesh))
+    shards = math.prod(mesh.shape)
     B, S = MESH_MOE_PREFILL
     x = torch.randn((B, S, cfg.d_model), generator=g, device=dev)
     xd = torch.randn((MESH_MOE_DECODE, 1, cfg.d_model), generator=g,
                      device=dev)
     out = {"arch": MESH_MOE_ARCH, "experts": cfg.moe_experts,
            "d_model": cfg.d_model, "d_ff": cfg.moe_d_ff or cfg.d_ff,
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
            "prefill_tokens": B * S, "decode_tokens": MESH_MOE_DECODE}
+
+    def per_shard(xin):
+        blocks = xin.reshape(shards, -1, 1, cfg.d_model)
+        ys, auxs = zip(*(TT.moe_forward(p, blk.transpose(0, 1), cfg)
+                         for blk in blocks))
+        return (torch.cat(ys, dim=1).reshape(xin.shape),
+                torch.stack(auxs).mean())
+
     for body, xin, kw in (
             ("capacity", x, dict(split_tokens_over_model=True,
                                  weight_resident=rules.moe_weight_resident)),
@@ -4793,8 +5076,10 @@ def _mesh_moe(dev, mesh, seed) -> dict:
             t = time.perf_counter()
             if arm == "mesh":
                 y, aux = TT.moe_forward(p, xin, cfg, mesh, data_axes, **kw)
+            elif decode:
+                y, aux = TT.moe_forward(p, xin, cfg, decode_tp=True)
             else:
-                y, aux = TT.moe_forward(p, xin, cfg, decode_tp=decode)
+                y, aux = per_shard(xin)
             torch.cuda.synchronize()
             times.setdefault(arm, []).append((time.perf_counter() - t) * 1e3)
             if arm == "mesh":
@@ -4810,6 +5095,102 @@ def _mesh_moe(dev, mesh, seed) -> dict:
         out[body] = {"max_abs_err": err, "max_abs": scale, "aux": am,
                      "aux_plain": ap, "ms": times}
     return out
+
+
+def _mesh_train(dev, mesh, seed) -> dict:
+    """The expert-parallel train step of phi3.5-moe at full width, cut to
+    ``MESH_TRAIN_LAYERS`` layer(s), float32 parameters, on ``mesh``
+    (expert-parallel where "model" is above 1): ``MESH_TRAIN_STEPS`` steps
+    of ``make_train_step`` from the seed's trees, then the same batches
+    through ``jit_train_step`` from the same trees made anew (its first
+    call eager, its second captured and replayed, the rest replayed).
+    Each step's loss is finite, the graph's loss and grad norm within
+    ``MESH_TRAIN_REL`` of eager's and its sampled parameters within
+    ``MESH_TRAIN_REL`` of the largest; every rank's losses and samples are
+    compared across ranks by ``_mesh_across``."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.dist.sharding import mesh_view
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as TO
+    from repro_torch.training import train_step as TS
+
+    cfg, rules, _ = configs.get(MESH_MOE_ARCH)
+    cfg = dataclasses.replace(cfg, n_layers=MESH_TRAIN_LAYERS,
+                              param_dtype=torch.float32)
+    opt = TO.OptimizerConfig()
+    tcfg = TS.TrainConfig(remat="full")
+    B, S = MESH_TRAIN_BATCH
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    batches = [{k: torch.randint(0, cfg.vocab, (B, S), generator=g,
+                                 device=dev, dtype=torch.int32)
+                for k in ("tokens", "labels")}
+               for _ in range(MESH_TRAIN_STEPS)]
+    view = mesh_view(mesh)
+    rec = {"arch": MESH_MOE_ARCH, "layers": MESH_TRAIN_LAYERS,
+           "of_layers": configs.get(MESH_MOE_ARCH)[0].n_layers,
+           "mesh": view.shape, "batch": [B, S],
+           "expert_parallel": view.shape.get("model", 1) > 1}
+
+    def trees():
+        params = M.init_params(seed, cfg, device=dev)
+        return params, TO.adamw_init(params, opt)
+
+    def arm(step):
+        params, state = trees()
+        idx = _update_samples(params, MESH_TRAIN_SAMPLES, seed)
+        rec["params"] = sum(x.numel() for x in M.leaves(params))
+        losses, norms, ms, samples = [], [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        for b in batches:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, state, m = step(params, state, b)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t) * 1e3)
+            norms.append(float(m["grad_norm"]))
+            samples.append(_sampled(params, idx))
+        peak = torch.cuda.max_memory_allocated()
+        del params, state, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        return losses, norms, ms, samples, peak
+
+    el, en, ems, es, epeak = arm(TS.make_train_step(cfg, opt, mesh, rules,
+                                                    tcfg=tcfg))
+    step = TS.jit_train_step(cfg, opt, mesh, rules, tcfg=tcfg)
+    gl, gn, gms, gs, gpeak = arm(step)
+    st = dataclasses.asdict(step.graph.stats)
+    step.graph.reset()
+    worst = 0.0
+    for e, c in zip(es, gs):
+        for n in e:
+            scale = float(e[n].abs().max()) or 1.0
+            worst = max(worst, float((c[n] - e[n]).abs().max()) / scale)
+    ok = (all(math.isfinite(x) for x in el + gl + en + gn)
+          and all(abs(a - b) <= MESH_TRAIN_REL * abs(a)
+                  for a, b in zip(el + en, gl + gn))
+          and worst <= MESH_TRAIN_REL
+          and (st["warmups"], st["captures"], st["replays"]) == (
+              1, 1, MESH_TRAIN_STEPS - 1))
+    rec.update({"losses": {"eager": el, "graph": gl},
+                "grad_norms": {"eager": en, "graph": gn},
+                "ms": {"eager": ems, "graph": gms},
+                "peak_allocated": {"eager": epeak, "graph": gpeak},
+                "graph_stats": {k: st[k] for k in (
+                    "warmups", "captures", "replays", "capture_ms")},
+                "graph_vs_eager_rel": worst,
+                "samples": {n: v.tolist() for n, v in gs[-1].items()},
+                "tolerance": MESH_TRAIN_REL})
+    if not ok:
+        shown = {k: v for k, v in rec.items() if k != "samples"}
+        raise AssertionError(f"mesh: the train step: {shown}")
+    return rec
 
 
 # ---------------------------------------------------------------------------

@@ -25,8 +25,7 @@ exit nonzero on a mismatch or a lost guarantee):
   card, gloo on the CPU), and ``(2, 2, 2)`` on a world of 8 ranks, where
   the data axes' product (4) divides ``max_slots`` and the paged steps
   shard their rows; every rank then runs this section with the same
-  requests.  That world runs on the CPU over gloo: on CUDA the engine
-  refuses a mesh of more than one rank (ROADMAP R16).
+  requests (over gloo on the CPU, over NCCL with one card a rank).
 * ``throughput`` (full mode): the handler engine and the scheduler engine
   at ``max_slots`` 1, 2, 4 and 8 (the admission sweep), on its graphed
   steps and on the bare ones, each run ``windows`` times in turns;

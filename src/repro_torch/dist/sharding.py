@@ -31,14 +31,21 @@ Collectives (``psum``, ``pmax``, ``pmean``, ``hierarchical_psum``,
 axis, as JAX's do inside ``shard_map``; they run on that axis's process
 group of the mesh that :func:`shard_map_compat` bound for the calling
 thread.  Each issues its collective even on an axis of size 1, so a world
-of one rank runs the same calls as a larger one.
+of one rank runs the same calls as a larger one.  ``psum``,
+``all_gather`` and ``all_to_all`` are differentiable where autograd
+records them (a ``torch.autograd.Function`` each, whose backward is the
+transpose ``jax.grad`` applies: ``psum``, ``psum_scatter``, the same
+all-to-all); with no gradient to record they are the bare calls.
 
 :func:`shard_map_compat` stands in for ``repro``'s of that name (JAX's
 ``shard_map``): every rank holds the global inputs, takes its block of
 each along the named dims, runs the body, and rebuilds each sharded
 output with ``all_gather`` over the dims' groups (a ``P()`` output is the
-rank's own and must agree across ranks).  Every rank must issue the same
-collectives in the same order, as SPMD programs do.
+rank's own and must agree across ranks); its backward is the transpose of
+``repro``'s ``shard_map_compat(check_vma=False)`` under ``jax.grad``, so
+every rank ends with the whole gradient of the global inputs.  Every rank
+must issue the same collectives in the same order, as SPMD programs do;
+the backward passes, which run the same graph on every rank, do too.
 """
 
 from __future__ import annotations
@@ -445,23 +452,113 @@ def axis_index(name: str) -> int:
     return int(_mesh().get_local_rank(name))
 
 
-def _reduce(x: torch.Tensor, axes, op) -> torch.Tensor:
-    mesh = _mesh()
-    out = x.clone()
+def _reduce_on(mesh: DeviceMesh, x: torch.Tensor, axes,
+               op) -> torch.Tensor:
+    out = x.clone(memory_format=torch.contiguous_format)
     for a in reversed(_axes(axes)):
         dist.all_reduce(out, op=op, group=mesh.get_group(a))
         _count("all_reduce")
     return out
 
 
+def _gather_on(mesh: DeviceMesh, x: torch.Tensor, axis: str,
+               dim: int) -> torch.Tensor:
+    g = mesh.get_group(axis)
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(g))]
+    dist.all_gather(parts, x.contiguous(), group=g)
+    _count("all_gather")
+    return torch.cat(parts, dim=dim)
+
+
+def _scatter_sum_on(mesh: DeviceMesh, x: torch.Tensor, axis: str,
+                    dim: int) -> torch.Tensor:
+    """``psum_scatter``: the sum over ``axis`` of ``x``, this rank's block
+    of it along ``dim`` (the transpose of the tiled all-gather)."""
+    g = mesh.get_group(axis)
+    n = dist.get_world_size(g)
+    src = x.movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    dist.reduce_scatter_tensor(out, src, group=g)
+    _count("reduce_scatter")
+    return out.movedim(0, dim)
+
+
+def _a2a_on(mesh: DeviceMesh, x: torch.Tensor, axis: str) -> torch.Tensor:
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=mesh.get_group(axis))
+    _count("all_to_all")
+    return out
+
+
+def _grad(x) -> bool:
+    """Whether autograd records a collective on ``x``: only then does it
+    go through its ``autograd.Function``."""
+    return torch.is_grad_enabled() and isinstance(x, torch.Tensor) \
+        and x.requires_grad
+
+
+class _Psum(torch.autograd.Function):
+    """``psum``; its transpose is ``psum`` again (JAX treats psum as psum
+    followed by a broadcast, so the cotangents of every rank sum)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _reduce_on(mesh, x, axes, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_on(ctx.mesh, g, ctx.axes, dist.ReduceOp.SUM), \
+            None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """Tiled ``all_gather``; its transpose is ``psum_scatter`` along the
+    same dim: each rank's block of the sum of every rank's cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _gather_on(mesh, x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_sum_on(ctx.mesh, g, ctx.axis, ctx.dim), \
+            None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """Tiled ``all_to_all`` along dim 0; its own transpose (split and
+    concatenation dims swapped, both 0 here)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _a2a_on(mesh, x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _a2a_on(ctx.mesh, g, ctx.axis), None, None
+
+
+def _reduce(x: torch.Tensor, axes, op) -> torch.Tensor:
+    return _reduce_on(_mesh(), x, axes, op)
+
+
 def psum(x: torch.Tensor, axes) -> torch.Tensor:
     """Sum over one axis or a tuple of axes, one ``all_reduce`` per axis,
-    innermost first (exact for integers; float sums round per stage)."""
+    innermost first (exact for integers; float sums round per stage).
+    Differentiable: the backward sums the cotangents over the same axes."""
+    if _grad(x):
+        return _Psum.apply(x, _mesh(), _axes(axes))
     return _reduce(x, axes, dist.ReduceOp.SUM)
 
 
 def pmax(x: torch.Tensor, axes) -> torch.Tensor:
-    return _reduce(x, axes, dist.ReduceOp.MAX)
+    """Max over the axes; not differentiated (no caller trains through
+    it)."""
+    return _reduce(x.detach(), axes, dist.ReduceOp.MAX)
 
 
 def pmean(x: torch.Tensor, axes) -> torch.Tensor:
@@ -486,26 +583,26 @@ def hierarchical_psum(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
 
 def all_gather(x: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
     """Tiled all-gather: the blocks of every rank on ``axis``,
-    concatenated along ``dim`` in coordinate order."""
-    g = _mesh().get_group(axis)
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(g))]
-    dist.all_gather(parts, x.contiguous(), group=g)
-    _count("all_gather")
-    return torch.cat(parts, dim=dim)
+    concatenated along ``dim`` in coordinate order.  Differentiable: the
+    backward is ``psum_scatter`` (``dist.reduce_scatter_tensor``) along
+    ``dim``."""
+    if _grad(x):
+        return _AllGather.apply(x, _mesh(), axis, dim)
+    return _gather_on(_mesh(), x, axis, dim)
 
 
 def all_to_all(x: torch.Tensor, axis: str, split_axis: int = 0,
                concat_axis: int = 0) -> torch.Tensor:
     """Tiled all-to-all over ``axis``: block ``j`` of ``x`` along
     ``split_axis`` goes to coordinate ``j``; the blocks received are
-    concatenated along ``concat_axis`` in source order."""
+    concatenated along ``concat_axis`` in source order.  Differentiable:
+    the backward is the same all-to-all of the cotangent."""
     if split_axis != 0 or concat_axis != 0:
         raise NotImplementedError("all_to_all splits and concatenates "
                                   "along dim 0")
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x.contiguous(), group=_mesh().get_group(axis))
-    _count("all_to_all")
-    return out
+    if _grad(x):
+        return _AllToAll.apply(x, _mesh(), axis)
+    return _a2a_on(_mesh(), x, axis)
 
 
 # ---------------------------------------------------------------------------
@@ -542,29 +639,100 @@ def shard_block(x, spec: P, mesh: DeviceMesh, coords=None):
     return x
 
 
-def _unshard(y: torch.Tensor, spec: P) -> torch.Tensor:
+def _unshard_on(mesh: DeviceMesh, y: torch.Tensor, spec: P) -> torch.Tensor:
     for i, e in enumerate(tuple(spec)):
         if e is None:
             continue
         for a in reversed(_axes(e)):
-            y = all_gather(y, a, dim=i)
+            y = _gather_on(mesh, y, a, i)
     return y
+
+
+def _unmentioned(mesh: DeviceMesh, spec: P) -> Tuple[str, ...]:
+    """The mesh axes ``spec`` names nowhere: a block is replicated along
+    them."""
+    named = {a for e in tuple(spec) if e is not None for a in _axes(e)}
+    return tuple(a for a in mesh.mesh_dim_names if a not in named)
+
+
+class _Block(torch.autograd.Function):
+    """A rank's block of a global input (:func:`shard_block`).  The
+    transpose ``jax.grad`` applies to a ``shard_map`` input with
+    ``check_vma=False``: the block's cotangent summed over the axes the
+    spec leaves out (every rank along them read the same block), then the
+    blocks assembled into the global cotangent, here on every rank (an
+    all-gather per named axis), since every rank holds the global value."""
+
+    @staticmethod
+    def forward(ctx, x, spec, mesh, coords):
+        ctx.spec, ctx.mesh = spec, mesh
+        return shard_block(x, spec, mesh, coords)
+
+    @staticmethod
+    def backward(ctx, g):
+        rest = _unmentioned(ctx.mesh, ctx.spec)
+        if rest:
+            g = _reduce_on(ctx.mesh, g, rest, dist.ReduceOp.SUM)
+        return _unshard_on(ctx.mesh, g, ctx.spec), None, None, None
+
+
+class _Unshard(torch.autograd.Function):
+    """A ``shard_map`` output rebuilt to the global value by all-gather
+    (``P()``: the rank's own, the same on every rank).  Its transpose with
+    ``check_vma=False``: the rank's block of the global cotangent divided
+    by the size of the axes the spec leaves out, whose ranks each return
+    a copy (``repro``'s aux loss, a ``pmean`` to ``P()``, gets 1/n a
+    rank)."""
+
+    @staticmethod
+    def forward(ctx, y, spec, mesh):
+        ctx.spec, ctx.mesh = spec, mesh
+        return _unshard_on(mesh, y, spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = math.prod(int(ctx.mesh.shape[ctx.mesh.mesh_dim_names.index(a)])
+                      for a in _unmentioned(ctx.mesh, ctx.spec))
+        g = shard_block(g, ctx.spec, ctx.mesh)
+        return (g / n if n != 1 else g), None, None
+
+
+def _block(x, spec: P, mesh: DeviceMesh, coords):
+    if _grad(x):
+        return _Block.apply(x, spec, mesh, coords)
+    return shard_block(x, spec, mesh, coords)
+
+
+def _unshard(y: torch.Tensor, spec: P, mesh: DeviceMesh) -> torch.Tensor:
+    if _grad(y):
+        return _Unshard.apply(y, spec, mesh)
+    return _unshard_on(mesh, y, spec)
 
 
 def shard_map_compat(f, mesh: DeviceMesh, in_specs, out_specs):
     """``f`` run on each rank's blocks of the global inputs, collectives
     bound to ``mesh``; outputs rebuilt to global by ``all_gather`` per
-    ``out_specs`` (a spec, or a tuple of specs for a tuple of outputs)."""
+    ``out_specs`` (a spec, or a tuple of specs for a tuple of outputs).
+
+    Differentiable as ``jax.grad`` differentiates ``repro``'s
+    ``shard_map_compat(check_vma=False)``: an input's cotangent is summed
+    over the axes its spec leaves out and assembled from the ranks'
+    blocks, an output's block of the global cotangent is divided by the
+    size of the axes its spec leaves out, and the collectives inside run
+    their transposes (``psum`` -> ``psum``, ``all_gather`` ->
+    ``psum_scatter``, ``all_to_all`` -> ``all_to_all``).  Every rank then
+    holds the whole gradient of the global inputs."""
 
     def run(*args):
         coords = mesh_coords(mesh)
-        local = [shard_block(a, s, mesh, coords)
+        local = [_block(a, s, mesh, coords)
                  for a, s in zip(args, in_specs)]
         with bound(mesh):
             out = f(*local)
             if isinstance(out_specs, P):
-                return _unshard(out, out_specs)
-            return tuple(_unshard(o, s) for o, s in zip(out, out_specs))
+                return _unshard(out, out_specs, mesh)
+            return tuple(_unshard(o, s, mesh)
+                         for o, s in zip(out, out_specs))
 
     return run
 

@@ -370,7 +370,12 @@ def _moe_local(x: torch.Tensor, router, wi, wg, wo, cfg: ModelConfig,
     buckets, and a second all-to-all brings the outputs back.
     ``weight_resident_axes``: the experts' d_ff is also sharded over those
     axes, so the received buckets are all-gathered over them, the partial
-    outputs summed, and each rank keeps its own rows."""
+    outputs summed, and each rank keeps its own rows.  Training
+    differentiates through all of it: the collectives' backwards
+    (``dist.sharding``) send each bucket's cotangent back through both
+    all-to-alls, the all-gather's as a ``psum_scatter`` and the partial
+    sum's as a ``psum``, with the capacity still counted on the local
+    tokens."""
     T, d = x.shape
     E, k = cfg.moe_experts, cfg.moe_top_k
     e_loc = E // n_model
@@ -526,10 +531,13 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, mesh=None,
     lays them out: tokens over ``data_axes`` (and "model" when
     ``split_tokens_over_model``), experts over "model", and with
     ``weight_resident`` (or ``decode_tp``) the experts' d_ff over the data
-    axes; the aux loss is the mean of the ranks'.  ``decode_tp`` on a mesh
-    where a data axis other than "data" is above 1 raises
-    ``NotImplementedError`` (ROADMAP R15).  ``mesh=None`` is one device,
-    where the flags change nothing."""
+    axes; the aux loss is the mean of the ranks'.  With gradients on (the
+    expert-parallel train step, ``repro``'s training layouts: tokens split
+    over "model", weights resident where the rules say so) the backward
+    runs through the same collectives and ``shard_map_compat``.
+    ``decode_tp`` on a mesh where a data axis other than "data" is above 1
+    raises ``NotImplementedError`` (ROADMAP R15).  ``mesh=None`` is one
+    device, where the flags change nothing."""
     B, S, d = x.shape
     h = rms_norm(x, p["ln"], cfg.norm_eps).reshape(B * S, d)
     if mesh is None:

@@ -65,12 +65,17 @@ rank with their collectives.  The ranks' collectives must come in one
 order, so a mesh of more than one rank serves in scheduler mode without
 the latency controller (both of which would let each rank's clock decide
 its own batches), and each tick starts with one all-reduce over a gloo
-group by which the ranks agree on how many queued requests to admit and
-whether to stop; every rank is given the same requests in the same order.
-A mesh of one rank (the card's smoke run) changes nothing else.  A mesh of
-more than one rank on CUDA is refused with ``NotImplementedError``: the
-rows' NCCL all-gathers of the paged steps sit inside the steps' CUDA
-graphs, and across cards such an engine hangs (ROADMAP R16).
+group by which the ranks agree on how many queued requests to admit,
+whether a staged hot swap is ready on every rank, and whether to stop;
+every rank is given the same requests (and swaps) in the same order.  A
+hot swap is staged on each rank and installed by the scheduler thread at
+the tick the ranks agree on, so every rank's parameter tree, and with it
+its graphs' key, changes on the same tick; revocation stays per rank
+(each rank's lease table is its own).  The paged steps' graphs hold the
+rows' collectives (NCCL on the card) and agree each call's warm-up,
+capture or replay over the same group (``steps.GraphedStep.decide``), so
+every rank warms up, captures and replays on the same ticks.  A mesh of
+one rank (the card's smoke run) changes nothing else.
 
 Not ported: ``repro``'s host-only mode (``device_leases=False``); every
 lock here mirrors its readers on the device.
@@ -447,13 +452,12 @@ class ServingEngine:
         # module docstring) over a host group
         self._host_group = None
         self._pending: collections.deque = collections.deque()
+        # a mesh of more than one rank: hot swaps wait here for the tick
+        # the ranks agree on (``_agree``)
+        self._staged: Optional[dict] = None
+        self._staged_mu = threading.Lock()
+        self._swap_serial = threading.Lock()
         if mesh is not None and math.prod(mesh.shape) > 1:
-            if self.device.type == "cuda":
-                raise NotImplementedError(
-                    "a mesh of more than one rank on CUDA: the paged "
-                    "steps' NCCL all-gathers inside their CUDA graphs hang "
-                    "across cards (ROADMAP R16); serve such a mesh on the "
-                    "CPU over gloo, or a mesh of one rank on the card")
             if scheduler is None or scheduler.controller is not None:
                 raise ValueError(
                     "a mesh of more than one rank serves in scheduler mode "
@@ -540,12 +544,14 @@ class ServingEngine:
         self._active = torch.zeros((ms,), dtype=torch.int32, device=dev)
         # one CUDA graph each on the card (``jit_step``), as ``repro`` jits
         # them; the page store is used in place, as it donates it
+        # on a mesh of more than one rank they agree each call's warm-up,
+        # capture or replay over the host group
         self._decode_paged = jit_step(
             make_decode_step(cfg, mesh, self.rules, paged=True),
-            donate_argnums=(1,))
+            donate_argnums=(1,), group=self._host_group)
         self._prefill_paged = jit_step(
             make_paged_prefill_step(cfg, mesh, self.rules),
-            donate_argnums=(1,))
+            donate_argnums=(1,), group=self._host_group)
         # copy-on-write of one page over the donated store, as ``repro``'s
         # jit_step; the page pair rides as device scalars, so one graph a
         # store serves every copy
@@ -1101,8 +1107,10 @@ class ServingEngine:
     def _agree(self) -> bool:
         """One round of the ranks' agreement: queue what has arrived, admit
         the number of requests every rank holds (all ranks are given the
-        same requests in the same order), stop once any rank stops.
-        -> whether to stop."""
+        same requests in the same order), install the staged hot swap
+        once every rank has staged one (all ranks are given the same
+        swaps in the same order), stop once any rank stops.  -> whether
+        to stop."""
         while True:
             try:
                 r = self.inq.get_nowait()
@@ -1110,18 +1118,37 @@ class ServingEngine:
                 break
             if r is not None:
                 self._pending.append(r)
-        t = torch.tensor([len(self._pending), -int(self._stop.is_set())],
-                         dtype=torch.int64)
+        t = torch.tensor([len(self._pending), -int(self._stop.is_set()),
+                          int(self._staged is not None)], dtype=torch.int64)
         dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self._host_group)
         for _ in range(int(t[0])):
             self._submit_slot(self._pending.popleft())
-        return bool(t[1] < 0)
+        if t[1] < 0:
+            return True
+        if t[2]:
+            with self._staged_mu:
+                slot = self._staged
+            try:
+                slot["ok"] = self._install(slot["params"], slot["retries"],
+                                           slot["backoff_s"])
+            finally:
+                with self._staged_mu:
+                    self._staged = None
+                slot["done"].set()
+        return False
 
     def _schedule_loop(self) -> None:
         if self._host_group is not None:
-            while not self._agree():
-                if not self._schedule_tick():
-                    self._stop.wait(self.ecfg.idle_poll_s)
+            try:
+                while not self._agree():
+                    if not self._schedule_tick():
+                        self._stop.wait(self.ecfg.idle_poll_s)
+            finally:
+                # a swap staged when the ranks stop is not installed
+                with self._staged_mu:
+                    slot, self._staged = self._staged, None
+                if slot is not None:
+                    slot["done"].set()
             return
         while not self._stop.is_set():
             if not self._schedule_tick():
@@ -1170,12 +1197,44 @@ class ServingEngine:
         drain and install ``new_params``.  On :class:`DrainTimeout`,
         degrade instead of crashing and retry with doubling backoff.
         Returns True once the swap lands; False if all retries drained
-        out (serving continues on the old weights)."""
+        out (serving continues on the old weights).  On a mesh of more
+        than one rank the swap is staged and lands at the tick every rank
+        agrees on (module docstring); False also if the ranks stop
+        first."""
         if (new_params is None) == (checkpoint is None):
             raise ValueError(
                 "hot_swap: pass exactly one of new_params / checkpoint")
         if checkpoint is not None:
             new_params = self.stage_checkpoint(*checkpoint)
+        if self._host_group is not None:
+            return self._stage_swap(new_params, retries, backoff_s)
+        return self._install(new_params, retries, backoff_s)
+
+    def _stage_swap(self, new_params, retries, backoff_s) -> bool:
+        """On a mesh of more than one rank: stage ``new_params`` for the
+        scheduler thread, which installs it at the tick every rank agrees
+        on (:meth:`_agree`), and wait for that.  -> the install's result;
+        False if the ranks stop first.  One swap is staged at a time."""
+        slot = {"params": new_params, "retries": retries,
+                "backoff_s": backoff_s, "done": threading.Event(),
+                "ok": False}
+        with self._swap_serial:
+            with self._staged_mu:
+                self._staged = slot
+            while not slot["done"].wait(self.ecfg.idle_poll_s):
+                if self._stop.is_set() and not any(
+                        t.name == "scheduler" and t.is_alive()
+                        for t in self._threads):
+                    with self._staged_mu:
+                        if self._staged is slot:
+                            self._staged = None
+                    break
+        return slot["ok"]
+
+    def _install(self, new_params, retries: Optional[int],
+                 backoff_s: Optional[float]) -> bool:
+        """The swap itself, with the bounded drain and its retries (see
+        :meth:`hot_swap`)."""
         ecfg = self.ecfg
         retries = ecfg.swap_retries if retries is None else retries
         backoff = ecfg.swap_backoff_s if backoff_s is None else backoff_s
@@ -1213,6 +1272,11 @@ class ServingEngine:
         ``stop()`` / ``check_health()``."""
         def body():
             try:
+                if self.device.type == "cuda":
+                    # CUDA's current device is each thread's own (device
+                    # 0 in a new thread): the engine's threads work on its
+                    # card, which on a mesh is this rank's
+                    torch.cuda.set_device(self.device)
                 target(*args)
             except BaseException as e:
                 if _TR.enabled:

@@ -22,11 +22,17 @@ Each maker takes ``repro``'s ``mesh`` and ``rules`` (``launch.mesh``,
 ``dist.sharding.MeshRules``); ``mesh=None`` is the one-device step.  A
 meshed step's collectives (NCCL on the card) enter the graph when it is
 captured; the first, eager call of a new key runs them first, which is
-the warm-up NCCL needs before a capture.
+the warm-up NCCL needs before a capture.  On a mesh of more than one rank
+the step is given a host group (``jit_step(..., group=)``, gloo) over
+which the ranks agree every call's warm-up, capture or replay, so that
+they take each call the same way: one rank's miss makes every rank miss,
+and a capture starts on every rank together, after a barrier, with no
+collective in flight.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import threading
@@ -34,6 +40,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..kernels import _build
 from ..kernels import ops as K
@@ -227,6 +234,14 @@ def capture_graph(fn: Callable, args: Sequence):
     return graph, out, dict(launches)
 
 
+def _on_device(dev: torch.device):
+    """``dev`` as the thread's current CUDA device for the block (a device
+    with no index: the thread's own, as it stands)."""
+    if dev.index is None:
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
 @dataclasses.dataclass
 class StepStats:
     """A graphed step's calls by kind: eager warm-ups (the first call with
@@ -251,36 +266,74 @@ class _Captured:
     launches: Dict[str, int]
 
 
+def agree(flags: Sequence[bool], group) -> Tuple[bool, ...]:
+    """Each flag true on every rank of ``group`` (one MIN all-reduce of
+    the flags on the host); ``group=None`` is one rank: the flags as
+    given."""
+    if group is None:
+        return tuple(bool(f) for f in flags)
+    t = torch.tensor([int(bool(f)) for f in flags], dtype=torch.int64)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
+    return tuple(bool(v) for v in t.tolist())
+
+
 class GraphedStep:
     """A step function as one CUDA graph; see :func:`jit_step`."""
 
-    def __init__(self, fn: Callable, donate_argnums: Sequence[int] = ()):
+    def __init__(self, fn: Callable, donate_argnums: Sequence[int] = (),
+                 group=None):
         functools.update_wrapper(self, fn)
         self.fn = fn
         self.donate_argnums = tuple(donate_argnums)
+        self.group = group
         self.stats = StepStats()
         self._captured: Optional[_Captured] = None
         self._warm: Optional[tuple] = None      # key of the last warm-up
         self._mu = threading.Lock()
 
+    def decide(self, key: tuple) -> str:
+        """How the call with ``key`` runs: ``"replay"`` (the graph's key),
+        ``"capture"`` (the last warm-up's key) or ``"warmup"`` (a new
+        key), and the state moved on to match.  A miss drops the graph:
+        its pool and its references to the old parameters go with it.
+        With a ``group``, every rank's call reaches the same decision: it
+        replays only if every rank's graph has its key, and captures only
+        if every rank warmed its key up on the call before; otherwise
+        every rank warms up (its own key).  Runs on any device, so the
+        CPU tests drive it."""
+        c = self._captured
+        hit, warm = agree((c is not None and c.key == key,
+                           self._warm == key), self.group)
+        if hit:
+            return "replay"
+        self._captured = None
+        if not warm:
+            self._warm = key
+            return "warmup"
+        self._warm = None
+        return "capture"
+
     def __call__(self, *args):
-        if step_device(args).type != "cuda":
+        dev = step_device(args)
+        if dev.type != "cuda":
             return self.fn(*args)
+        # CUDA's current device is the calling thread's own: the capture's
+        # stream, the replay's and the barrier's sync are the step's
+        # device's, whichever card the thread last set
+        with _on_device(dev):
+            return self._graphed(args)
+
+    def _graphed(self, args):
         key = step_key(args, self.donate_argnums)
         with self._mu:
-            c = self._captured
-            if c is None or c.key != key:
-                # a miss drops the graph first: its pool and its
-                # references to the old parameters go with it
-                self._captured = c = None
-                if self._warm != key:
-                    self._warm = key
-                    st = self.stats
-                    st.warmups += 1
-                    st.warmup_at.append(st.warmups + st.replays)
-                    return self.fn(*args)
-                self._warm = None
-                c = self._capture(key, args)
+            kind = self.decide(key)
+            if kind == "warmup":
+                st = self.stats
+                st.warmups += 1
+                st.warmup_at.append(st.warmups + st.replays)
+                return self.fn(*args)
+            c = self._capture(key, args) if kind == "capture" \
+                else self._captured
             for buf, x in zip(c.bufs, copied_leaves(args,
                                                     self.donate_argnums)):
                 buf.copy_(x)
@@ -291,8 +344,13 @@ class GraphedStep:
 
     def _capture(self, key: tuple, args: tuple) -> _Captured:
         """Capture the step on buffers of its own (it runs nothing and
-        counts nothing; the caller replays it)."""
+        counts nothing; the caller replays it).  With a ``group``, every
+        rank first finishes its device work and meets the others at a
+        barrier, so no collective is in flight when a capture begins."""
         t0 = time.perf_counter()
+        if self.group is not None:
+            torch.cuda.synchronize(step_device(args))
+            dist.barrier(group=self.group)
         bound, bufs = bind_inputs(args, self.donate_argnums)
         graph, static, launches = capture_graph(self.fn, bound)
         self._captured = _Captured(key, graph, bound, bufs,
@@ -312,7 +370,8 @@ class GraphedStep:
             self._captured = self._warm = None
 
 
-def jit_step(fn: Callable, donate_argnums: Sequence[int] = ()) -> GraphedStep:
+def jit_step(fn: Callable, donate_argnums: Sequence[int] = (),
+             group=None) -> GraphedStep:
     """``repro``'s ``jit_step`` for the port: ``fn`` with the same signature
     and results, as one CUDA graph on CUDA tensors.
 
@@ -335,8 +394,11 @@ def jit_step(fn: Callable, donate_argnums: Sequence[int] = ()) -> GraphedStep:
     kernel launches as any eager step does; the capture counts none, and
     each replay adds what the capture recorded, so
     ``kernels.ops.launch_counts`` goes on counting device launches.  On
-    CPU tensors ``fn`` runs eagerly."""
-    return GraphedStep(fn, donate_argnums)
+    CPU tensors ``fn`` runs eagerly.  ``group``: a host process group
+    (gloo) of the ranks of a meshed step, over which every call's
+    decision is agreed (:meth:`GraphedStep.decide`); every rank must then
+    call the step as often as the others."""
+    return GraphedStep(fn, donate_argnums, group)
 
 
 def in_place(step: Callable, arg: int, out: int) -> Callable:

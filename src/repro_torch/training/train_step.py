@@ -16,20 +16,32 @@ axis), so every rank applies ``repro``'s update: the microbatch's mean
 NLL over its labelled positions, and its MoE layers' capacity counted on
 each data shard's tokens with the mean of the shards' aux losses, as
 ``repro``'s ``shard_map`` counts and averages them.  Over a "model" axis
-larger than one the ranks replicate the dense work; an MoE config there
-is refused, since ``repro`` splits its tokens over "model" too
-(expert-parallel training waits for gradients through the all-to-alls,
-ROADMAP.md).  Executing ``param_specs``/``zero1_specs`` as sharded
-storage (tensor parallel, FSDP, ZeRO-1) is ROADMAP work too.
+larger than one the ranks replicate the dense work.
+
+An MoE config on a "model" axis larger than one trains expert-parallel,
+as ``repro`` does: every rank runs ``loss_fn`` with the mesh on the whole
+microbatch, so the dense parts run whole on every rank and each MoE layer
+dispatches its rank's tokens (over the data axes and "model") to the
+experts over "model" through the all-to-alls.  The gradients come back
+through the collectives' backwards (``dist.sharding.shard_map_compat``):
+a leaf every rank computed whole is reduced over no axis, the experts'
+blocks are assembled over "model" (and their d_ff blocks over the data
+axes where the weights are resident), the router's per-rank parts summed
+over every axis.  So every rank holds ``repro``'s gradient at the same
+mesh shape, with capacity and the aux loss counted per shard, and applies
+the same update.  Executing ``param_specs``/``zero1_specs`` as sharded
+storage (tensor parallel, FSDP, ZeRO-1) is ROADMAP work.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -85,16 +97,13 @@ def _device(params) -> torch.device:
     return tree_flatten(params)[0][0].device
 
 
-def _data_parallel(cfg: ModelConfig, mesh, rules: Optional[MeshRules]):
-    """-> (rules, data axes) of a meshed step; refuses what it cannot
-    hold to ``repro``'s value (see the module docstring)."""
+def _layout(cfg: ModelConfig, mesh, rules: Optional[MeshRules]):
+    """-> (rules, data axes, expert-parallel) of a meshed step (see the
+    module docstring)."""
     rules = rules if rules is not None else MeshRules()
     view = mesh_view(mesh)
-    if cfg.family == "moe" and view.shape.get("model", 1) > 1:
-        raise ValueError("a meshed train step of an MoE config runs on a "
-                         "\"model\" axis of 1: expert-parallel training "
-                         "waits for gradients through the all-to-alls")
-    return rules, rules.batch_axes(view)
+    ep = cfg.family == "moe" and view.shape.get("model", 1) > 1
+    return rules, rules.batch_axes(view), ep
 
 
 def _positions(batch: Dict[str, Any]):
@@ -118,14 +127,18 @@ def _make_compute_grads(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
     NLL, plus 1/D of the auxiliary term (``repro``'s MoE takes the mean of
     its shards' aux losses).  The shares' gradients and losses then sum
     over the data axes, one ``all_reduce`` per axis, so every rank holds
-    ``repro``'s value."""
+    ``repro``'s value.  Expert-parallel (an MoE config on a "model" axis
+    above 1): ``loss_fn`` runs with the mesh on the whole microbatch and
+    its gradients come back whole through the collectives' backwards, so
+    nothing is split or summed here."""
     policy = remat_policy_by_name(tcfg.remat)
+    ep = False
     if mesh is not None:
-        rules, axes = _data_parallel(cfg, mesh, rules)
+        rules, axes, ep = _layout(cfg, mesh, rules)
         n_data = data_shards(rules, mesh)
 
     def split(batch) -> bool:
-        return mesh is not None and batch_spec(
+        return mesh is not None and not ep and batch_spec(
             rules, mesh, tuple(batch["labels"].shape))[0] is not None
 
     def grad_fn(leaves, treedef, batch):
@@ -133,7 +146,9 @@ def _make_compute_grads(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
         local = local_batch(batch, rules, mesh) if split(batch) else batch
         total, m = M.loss_fn(tree_unflatten(treedef, ps), cfg, local,
                              remat_policy=policy,
-                             aux_weight=tcfg.aux_weight)
+                             aux_weight=tcfg.aux_weight,
+                             mesh=mesh if ep else None,
+                             rules=rules if ep else None)
         if local is not batch:
             total = m["loss"] * (_positions(local) / _positions(batch)) \
                 + (total - m["loss"]) / n_data
@@ -214,9 +229,16 @@ def jit_train_step(cfg: ModelConfig, opt: OptimizerConfig, mesh=None,
     on CPU tensors the step runs eagerly, in place.  ``.graph`` is the
     :class:`~repro_torch.serving.steps.GraphedStep` (its ``stats``,
     ``reset()``).  ``mesh``/``rules`` as :func:`make_train_step`'s; the
-    graph then holds the gradients' all-reduces, which the first, eager
-    call warms up."""
+    graph then holds the gradients' all-reduces (and, expert-parallel,
+    the MoE layers' all-to-alls and their backwards), which the first,
+    eager call warms up.  On a mesh of more than one rank the ranks agree
+    each call's warm-up, capture or replay over a gloo group made here
+    (``serving.steps.GraphedStep.decide``), so every rank must make the
+    step and call it alike."""
     compute_grads = _make_compute_grads(cfg, tcfg, mesh, rules)
+    group = None
+    if mesh is not None and math.prod(mesh_view(mesh).sizes) > 1:
+        group = dist.new_group(backend="gloo")
 
     def train_step_(params, opt_state, batch):
         l, grads = compute_grads(params, batch)
@@ -224,7 +246,7 @@ def jit_train_step(cfg: ModelConfig, opt: OptimizerConfig, mesh=None,
         return params, opt_state, {"loss": l, "grad_norm": gnorm,
                                    "step": opt_state["step"]}
 
-    graph = jit_step(train_step_, donate_argnums=(0, 1))
+    graph = jit_step(train_step_, donate_argnums=(0, 1), group=group)
 
     @functools.wraps(train_step_)
     def train_step(params, opt_state, batch):

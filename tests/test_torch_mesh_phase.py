@@ -1,0 +1,70 @@
+"""``chip_smoke.py``'s ``mesh`` phase, one set of checks for one rank and
+for several: ``_mesh_checks`` (what ``_mesh_rank`` runs once it has
+started the rank's world) on gloo worlds of 1 and 2 ranks at the smoke
+configs, the graphs on the CPU stand-in, then ``_mesh_across`` over the
+ranks' records.  Each rank runs the graphed meshed engine against its
+bare steps under swaps and without, both revokes, the compressed
+all-reduce, the twins' sections, phi3.5-moe's MoE layer with its experts
+over "model" and the train step at each of ``_mesh_shapes``' meshes
+(expert-parallel where "model" is above 1), eager and graphed; across
+ranks the tokens, graph stats, losses and sampled parameters must be
+equal.  On the card the same functions run over NCCL, one rank a card."""
+
+import os
+import sys
+
+import pytest
+
+import torch_mesh_cases as C
+
+sys.path.insert(0, os.path.dirname(C.SRC))
+import chip_smoke as CS  # noqa: E402
+
+
+@pytest.fixture(scope="module", params=(1, 2), ids=lambda w: f"{w}ranks")
+def phase(request):
+    world = request.param
+    recs = C.run_ranks("rank_mesh_phase", world)
+    return world, recs, CS._mesh_across(recs)
+
+
+def test_phase_checks_hold_across_ranks(phase):
+    world, recs, out = phase
+    assert out["ranks_equal"] and out["world"]["ranks"] == world
+    assert [r["rank"] for r in out["per_rank"]] == list(range(world))
+
+
+def test_phase_runs_its_meshes(phase):
+    world, _, out = phase
+    shapes = CS._mesh_shapes(world)
+    assert out["engine"]["mesh"] == dict(zip(shapes["engine"][1],
+                                            shapes["engine"][0]))
+    assert [t["mesh"] for t in out["train"]] == [
+        dict(zip(n, s)) for s, n in shapes["train"]]
+    assert [t["expert_parallel"] for t in out["train"]] == [
+        s[1] > 1 for s, _ in shapes["train"]]
+
+
+def test_phase_engine_graphs_swap_and_capture(phase):
+    """Every run under swaps landed some, none without; the graphed run
+    without swaps captured its decode step and replayed it."""
+    _, _, out = phase
+    runs = out["engine"]["runs"]
+    assert all((r["weight_swaps"] >= 1) == r["swaps"] for r in runs)
+    still = [r for r in runs if r["arm"] == "graph" and not r["swaps"]]
+    assert [r["steps"]["decode"]["captures"] for r in still] == [1]
+    assert still[0]["steps"]["decode"]["replays"] >= 1
+
+
+def test_phase_train_graph_equals_eager(phase):
+    _, _, out = phase
+    for t in out["train"]:
+        assert t["losses"]["graph"] == t["losses"]["eager"]
+        assert t["graph_stats"]["captures"] == 1
+
+
+def test_phase_issues_every_collective_kind(phase):
+    _, recs, _ = phase
+    for r in recs:
+        assert {"all_reduce", "all_gather", "all_to_all"} <= set(
+            r["collectives"])

@@ -248,6 +248,16 @@ def rank_collectives(rank, world, params_np):
     return out
 
 
+def _flat_np(tree, prefix=""):
+    """A nested dict of arrays as {dotted path: array}."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_np(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: np.asarray(tree)}
+
+
 def _flat(tree, prefix=""):
     if isinstance(tree, dict):
         out = {}
@@ -435,3 +445,334 @@ def rank_engine(rank, world, params_np):
                               "grad_norm": float(m["grad_norm"]),
                               "params": _flat(p1), "m": _flat(s1["m"])}
     return out
+
+
+# ---------------------------------------------------------------------------
+# Gradients through the collectives and the expert-parallel train step
+# (tests/test_torch_mesh_train.py)
+# ---------------------------------------------------------------------------
+
+GRAD_MESH = ((2, 2, 2), ("pod", "data", "model"))
+# (name, x's shape): the functions of :func:`grad_cases`, one a collective
+GRAD_CASES = (("psum", (8, 6)), ("all_gather", (8, 6)),
+              ("all_gather_dim1", (4, 8)), ("all_to_all", (16, 6)),
+              ("blocks", (8, 6)))
+# the expert-parallel step's meshes: world size -> (shape, names)
+EP_MESHES = {2: ((1, 2), ("data", "model")),
+             4: ((2, 2), ("data", "model")),
+             8: ((2, 2, 2), ("pod", "data", "model"))}
+EP_B, EP_S = 4, 8
+EP_AUX_WEIGHT = 0.01
+AUX_CT = 0.7                     # the loss's weight on a P() output
+
+
+def grad_inputs(seed=11):
+    """Each case's global x, the replicated w (6,) or (8,), and the
+    cotangent c of the output (the loss is sum(y * c))."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, shape in GRAD_CASES:
+        x = rng.normal(size=shape).astype(np.float32)
+        w = rng.normal(size=shape[1:]).astype(np.float32)
+        out[name] = {"x": x, "w": w}
+    return out
+
+
+def grad_case(name, lax, shard_map, P, mesh):
+    """The function of case ``name`` -> f(x, w) = (y, aux or None), built
+    from either package's collectives: ``lax`` holds ``psum``,
+    ``all_gather(x, axis, dim)``, ``all_to_all(x, axis)`` and ``pmean``;
+    ``shard_map(f, mesh, in_specs, out_specs)``."""
+    pd, pdm = ("pod", "data"), ("pod", "data", "model")
+    if name == "psum":
+        return shard_map(lambda x, w: lax.psum(x * w, "model"), mesh,
+                         (P(pd, None), P()), P(pd, None))
+    if name == "all_gather":
+        return shard_map(lambda x, w: lax.all_gather(x * w, "model", 0),
+                         mesh, (P(pdm, None), P()), P(pd, None))
+    if name == "all_gather_dim1":
+        return shard_map(lambda x, w: lax.all_gather(x * w[:2], "model", 1),
+                         mesh, (P("pod", ("data", "model")), P()),
+                         P("pod", "data"))
+    if name == "all_to_all":
+        return shard_map(lambda x, w: lax.all_to_all(x * w, "model"), mesh,
+                         (P(pdm, None), P()), P(pdm, None))
+    if name == "blocks":
+        def body(x, w):
+            y = lax.psum(x * w, ("pod", "model"))
+            return y, lax.pmean((x * x * w).sum(), pdm)
+        return shard_map(body, mesh, (P("data", None), P()),
+                         (P("data", None), P()))
+    raise KeyError(name)
+
+
+def rank_collective_grads(rank, world, inputs, cts):
+    """The gradients of sum(y * c) (+ AUX_CT * aux) of each case through
+    the port's collectives on the ``GRAD_MESH`` world."""
+    import types
+
+    from repro_torch.dist import sharding as DS
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(*GRAD_MESH, device="cpu")
+    lax = types.SimpleNamespace(psum=DS.psum, pmean=DS.pmean,
+                                all_gather=DS.all_gather,
+                                all_to_all=DS.all_to_all)
+    out = {}
+    DS.reset_collective_counts()
+    for name, _ in GRAD_CASES:
+        x = torch.from_numpy(inputs[name]["x"]).requires_grad_(True)
+        w = torch.from_numpy(inputs[name]["w"]).requires_grad_(True)
+        f = grad_case(name, lax, DS.shard_map_compat, DS.P, mesh)
+        y = f(x, w)
+        y, aux = y if isinstance(y, tuple) else (y, None)
+        loss = (y * torch.from_numpy(cts[name])).sum()
+        if aux is not None:
+            loss = loss + AUX_CT * aux
+        gx, gw = torch.autograd.grad(loss, (x, w))
+        out[name] = {"y": y.detach().numpy(), "gx": gx.numpy(),
+                     "gw": gw.numpy()}
+    out["counts"] = DS.collective_counts()
+    return out
+
+
+def ep_batch(vocab=512, seed=13):
+    rng = np.random.default_rng(seed)
+    return {k: rng.integers(0, vocab, (EP_B, EP_S)).astype(np.int32)
+            for k in ("tokens", "labels")}
+
+
+def rank_ep_train(rank, world, params, batch):
+    """The expert-parallel step on the ``EP_MESHES[world]`` mesh, each MoE
+    arch: the loss and gradients (``_make_compute_grads``) and one
+    ``make_train_step`` step, with ``TRAIN_OPT``."""
+    from repro_torch import configs as TC
+    from repro_torch.dist import sharding as DS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.training import optimizer as TO
+    from repro_torch.training import train_step as TT
+
+    mesh = make_mesh(*EP_MESHES[world], device="cpu")
+    tcfg = TT.TrainConfig(remat="full", aux_weight=EP_AUX_WEIGHT)
+    opt = TO.OptimizerConfig(**TRAIN_OPT)
+    b = {k: torch.from_numpy(v) for k, v in batch.items()}
+    out = {}
+    for arch in MOE_ARCHS:
+        cfg, rules = smoke_f32(arch), TC.get(arch)[1]
+        p = TM.from_jax_params(params[arch], cfg, device="cpu")
+        DS.reset_collective_counts()
+        loss, grads = TT._make_compute_grads(cfg, tcfg, mesh, rules)(p, b)
+        counts = DS.collective_counts()
+        step = TT.make_train_step(cfg, opt, mesh, rules, tcfg=tcfg)
+        p1, _, m = step(p, TO.adamw_init(p, opt), b)
+        out[arch] = {"loss": float(loss), "grads": _flat(grads),
+                     "step_loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "params": _flat(p1), "counts": counts}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Agreed graph decisions and agreed swaps (tests/test_torch_mesh_graph.py)
+# ---------------------------------------------------------------------------
+
+GRAPH_CALLS = 3                 # calls after the last swap
+GRAPH_SWAPS = 4
+# each world's engine mesh: world size -> (shape, names)
+SWAP_MESHES = {2: ((2, 1), ("data", "model")),
+               4: ((2, 2), ("data", "model"))}
+
+
+class FakeGraph:
+    """A captured call on the CPU (tests/test_torch_graph_step.py's
+    stand-in): :meth:`replay` runs the step again on the captured
+    arguments and writes its results into the captured results."""
+
+    def __init__(self, fn, args, out):
+        self.fn, self.args, self.out = fn, args, out
+
+    def replay(self):
+        from repro_torch.kernels import _build
+        from repro_torch.serving import steps as S
+
+        with _build.recording_launches():
+            new = self.fn(*self.args)
+        for dst, src in zip(S.flatten(self.out)[0], S.flatten(new)[0]):
+            if isinstance(dst, torch.Tensor) and dst is not src:
+                dst.copy_(src)
+
+
+def fake_graphs():
+    """Every graphed step takes its CUDA path on the CPU stand-in: the
+    capture runs the step (for its results' structure) and puts every
+    argument back, as a capture executes nothing."""
+    from repro_torch.kernels import _build
+    from repro_torch.serving import steps as S
+
+    def capture(fn, args):
+        tensors = [x for x in S.flatten(list(args))[0]
+                   if isinstance(x, torch.Tensor)]
+        saved = [x.clone() for x in tensors]
+        with _build.recording_launches() as launches:
+            out = fn(*args)
+        for x, v in zip(tensors, saved):
+            x.copy_(v)
+        return FakeGraph(fn, args, out), out, dict(launches)
+
+    S.capture_graph = capture
+    S.step_device = lambda args: torch.device("cuda")
+    torch.cuda.synchronize = lambda *a, **k: None
+
+
+def _kind(stats, before):
+    after = (stats.warmups, stats.captures, stats.replays)
+    return ("warmup" if after[0] > before[0] else
+            "capture" if after[1] > before[1] else "replay")
+
+
+def rank_graph_decisions(rank, world, seed):
+    """A ``GraphedStep`` with the world's gloo group, whose step sums its
+    input over the world (a collective, as the paged steps' all-gathers
+    are), called while this rank's own swap thread replaces the parameter
+    tree ``GRAPH_SWAPS`` times at its own random moments, and
+    ``GRAPH_CALLS`` times after.  -> each call's kind, the sums, the
+    stats."""
+    import random
+    import threading
+
+    import torch.distributed as dist
+
+    from repro_torch.serving import steps as S
+
+    fake_graphs()
+    group = dist.new_group(backend="gloo")
+
+    def fn(params, x):
+        y = params["w"] * x
+        dist.all_reduce(y)
+        return y
+
+    step = S.jit_step(fn, group=group)
+    holder = {"params": {"w": torch.ones(4)}}
+    rng = random.Random(seed * 100 + rank)
+    stop = threading.Event()
+
+    def swapper():
+        seen = 0
+        for i in range(GRAPH_SWAPS):
+            # at most one swap between two calls: each is seen on a call
+            # of its own
+            while True:
+                if stop.wait(rng.uniform(0.005, 0.05)):
+                    return
+                if len(kinds) > seen:
+                    break
+            seen = len(kinds)
+            holder["params"] = {"w": torch.full((4,), float(i + 2))}
+    kinds, sums = [], []
+    t = threading.Thread(target=swapper)
+    t.start()
+    x = torch.arange(4, dtype=torch.float32)
+
+    def call():
+        st = step.stats
+        before = (st.warmups, st.captures, st.replays)
+        sums.append(step(holder["params"], x).tolist())
+        kinds.append(_kind(st, before))
+        time.sleep(rng.uniform(0.0, 0.004))
+    # call until every rank's swaps are done (the ranks agree when), then
+    # GRAPH_CALLS more on the settled trees
+    while not S.agree((not t.is_alive(),), group)[0]:
+        call()
+    for _ in range(GRAPH_CALLS):
+        call()
+    stop.set()
+    t.join()
+    st = step.stats
+    return {"kinds": kinds, "sums": sums,
+            "stats": (st.warmups, st.captures, st.replays, st.warmup_at,
+                      st.capture_at)}
+
+
+def rank_engine_swaps(rank, world, seed):
+    """The meshed scheduler engine on :func:`engine_trace` with its steps
+    on the graph stand-in and this rank's updater swapping every
+    ``0.02 + 0.01 * rank`` s (so each rank stages its swaps at its own
+    moments).  -> the agreement round at which each swap landed, the
+    steps' stats, the tokens."""
+    from repro_torch.dist.sharding import MeshRules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    fake_graphs()
+    cfg = smoke_f32("llama3.2-1b")
+    params = TM.init_params(seed, cfg, device="cpu")
+    mesh = make_mesh(*SWAP_MESHES[world], device="cpu")
+    eng = ServingEngine(cfg, params, n_pages=128, device="cpu", mesh=mesh,
+                        rules=MeshRules(),
+                        scheduler=SchedulerConfig(**ENGINE_SCHED))
+    rounds, landed = [0], []
+    agree, install = eng._agree, eng._install
+
+    def counted():
+        rounds[0] += 1
+        return agree()
+
+    def installed(*a):
+        landed.append(rounds[0])
+        return install(*a)
+    eng._agree, eng._install = counted, installed
+    reqs = [Request(rid=i, prompt=p, max_new=ENGINE_TOKENS)
+            for i, p in enumerate(engine_trace())]
+    for r in reqs:
+        eng.submit(r)
+    eng.start(swap_period_s=0.02 + 0.01 * rank)
+    assert all(r.done.wait(timeout=120) for r in reqs)
+    eng.stop()
+
+    def stats(step):
+        st = step.stats
+        return (st.warmups, st.captures, st.replays, st.warmup_at,
+                st.capture_at)
+    return {"landed": landed, "swaps": eng.stats.weight_swaps,
+            "decode": stats(eng._decode_paged),
+            "prefill": stats(eng._prefill_paged),
+            "tokens": [list(map(int, r.out)) for r in reqs]}
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's mesh phase on gloo (tests/test_torch_mesh_phase.py)
+# ---------------------------------------------------------------------------
+
+
+def rank_mesh_phase(rank, world):
+    """``chip_smoke._mesh_checks`` on this gloo rank at the smoke configs
+    (float32), the graphs on the CPU stand-in and the card's counters
+    stubbed, the store, the revokes' holders, the train batch and the
+    swap period cut to the smoke size."""
+    import dataclasses
+
+    root = os.path.dirname(SRC)
+    sys.path.insert(0, root)
+    import chip_smoke as CS
+    from repro_torch import configs
+    from repro_torch.configs import llama3_2_1b
+
+    fake_graphs()
+    for name in ("empty_cache", "reset_peak_memory_stats"):
+        setattr(torch.cuda, name, lambda *a, **k: None)
+    torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    torch.cuda.nccl.version = lambda: (0, 0, 0)
+    llama3_2_1b.CONFIG = dataclasses.replace(
+        llama3_2_1b.SMOKE, param_dtype=torch.float32,
+        compute_dtype=torch.float32)
+    get = configs.get
+    configs.get = lambda arch: (configs.get_smoke(arch),) + tuple(
+        get(arch)[1:])
+    CS.SCHED_PAGES, CS.MESH_HOLDERS = 256, 100
+    CS.MESH_TRAIN_BATCH = (4, 16)
+    CS.MESH_SWAP_S = 0.03        # swaps land within the smoke engine's run
+    return CS._mesh_checks(torch.device("cpu"), 0)
