@@ -4585,6 +4585,32 @@ MESH_TRAIN_STEPS = 3
 MESH_TRAIN_REL = 1e-5            # graph against eager
 MESH_TRAIN_SAMPLES = 4096        # elements of each leaf compared
 MESH_RANK_TIMEOUT_S = 900.0      # a rank process's deadline at N cards
+# the sharded train step (``_mesh_sharded``).  One card: llama3.2-1b at
+# full width, 2 of its 16 layers, against the unsharded step bit for bit.
+# N cards: granite-20b at full width on (data, model) = (2, N / 2), on
+# train_4k's sequences (4 x 4096), 2 microbatches (each rank's microbatch
+# one sequence, as the train phase's); 2 of its 52 layers against the
+# unsharded step on each card at float32 and at bf16 compute, then 16
+# layers, whose unsharded train state (~106 GB) does not fit one card,
+# eager then graphed
+MESH_ONE_ARCH = "llama3.2-1b"
+MESH_ONE_LAYERS = 2
+MESH_ONE_BATCH = (2, 4096)
+MESH_SHARDED_ARCH = "granite-20b"
+MESH_SHARDED_CHECK_LAYERS = 2
+MESH_SHARDED_LAYERS = 16
+MESH_SHARDED_BATCH = (4, 4096)
+MESH_SHARDED_MICRO = 2
+MESH_SHARDED_STEPS = 3           # steps of each arm at 16 layers
+MESH_SHARDED_SAMPLES = 4096      # elements of each block compared
+# sharded against unsharded: the loss, the gradient norm, and each update
+# within lr * (1e-3 + grad_rel * max|g| / (|g| + eps)) (R14's bound), at
+# the full rate from step 1 (the tests' optimizer: at repro's warm-up
+# rate, 3e-6 at step 1, the bound falls under a float32 parameter's
+# rounding step)
+MESH_SHARDED_OPT = dict(lr=1e-3, warmup_steps=0)
+MESH_SHARDED_TOL = {"float32": {"loss_rel": 1e-5, "grad_rel": 1e-4},
+                    "bfloat16": {"loss_rel": 1e-3, "grad_rel": 1e-2}}
 
 
 def _mesh_shapes(world: int) -> dict:
@@ -4766,6 +4792,7 @@ def _mesh_checks(dev, seed) -> dict:
                            seed)
     out["train"] = [_mesh_train(dev, make_mesh(*s, device=dev), seed)
                     for s in shapes["train"]]
+    out["sharded"] = _mesh_sharded(dev, mesh, seed)
     out["collectives"] = DS.collective_counts()
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -4795,6 +4822,14 @@ def _mesh_across(recs) -> dict:
                     raise AssertionError(
                         f"mesh: the train step's {k} at {a['mesh']} differ "
                         f"between rank 0 and rank {r['rank']}")
+        for k in ("losses", "grad_norms"):
+            if "deep" not in first["sharded"]:
+                break
+            a, b = first["sharded"]["deep"][k], r["sharded"]["deep"][k]
+            if a != b:
+                raise AssertionError(
+                    f"mesh: the sharded step's {k} differ between rank 0 "
+                    f"and rank {r['rank']}: {a} / {b}")
     out = dict(first)
     out["engine"] = dict(first["engine"])
     out["engine"].pop("outputs", None)
@@ -4806,9 +4841,23 @@ def _mesh_across(recs) -> dict:
     out["per_rank"] = [{"rank": r["rank"], "collectives": r["collectives"],
                         "engine_tokens_per_s": [x["tokens_per_s"] for x in
                                                 r["engine"]["runs"]],
-                        "train_ms": [t["ms"] for t in r["train"]]}
+                        "train_ms": [t["ms"] for t in r["train"]],
+                        "sharded": _sharded_rank_summary(r["sharded"])}
                        for r in recs]
     return out
+
+
+def _sharded_rank_summary(rec) -> dict:
+    """A rank's own readings of the sharded step: its coordinates, stored
+    bytes, step times and peak memory."""
+    deep = rec.get("deep")
+    if deep is None:
+        return {"seconds": rec["seconds"]}
+    return {"coords": deep["coords"], "stored_bytes": deep["stored_bytes"],
+            "ms": deep["ms"], "capture_ms": deep["graph_stats"][
+                "capture_ms"], "peak_allocated": deep["peak_allocated"],
+            "checks_ms": {k: rec[k]["ms"] for k in ("check_float32",
+                                                    "check_bfloat16")}}
 
 
 def _mesh_engine(cfg, params, dev, mesh, seed) -> dict:
@@ -5190,6 +5239,336 @@ def _mesh_train(dev, mesh, seed) -> dict:
     if not ok:
         shown = {k: v for k, v in rec.items() if k != "samples"}
         raise AssertionError(f"mesh: the train step: {shown}")
+    return rec
+
+
+def _mesh_sharded(dev, mesh, seed) -> dict:
+    """The sharded train step (``make_train_step``/``jit_train_step`` with
+    ``sharded=True``: parameters by ``param_specs``, AdamW moments by
+    ``zero1_specs``) on the engine's (data, model) ``mesh``, whose
+    communicators are warm.  One card: ``_sharded_one_rank``.  N cards,
+    (2, N / 2): granite-20b at full width, ``_sharded_vs_unsharded`` at
+    float32 and at bf16 compute, then ``_sharded_deep``; the all-gathers,
+    reduce-scatters and all-reduces it issued are counted, and each kind
+    must be there.  The training path launches none of the port's
+    kernels."""
+    import torch
+
+    from repro_torch.dist import sharding as DS
+
+    t0 = time.monotonic()
+    before = DS.collective_counts()
+    if math.prod(DS.mesh_view(mesh).sizes) == 1:
+        out = _sharded_one_rank(dev, mesh, seed)
+    else:
+        out = {"arch": MESH_SHARDED_ARCH, "mesh": _mesh_shape(mesh)}
+        for dt in (torch.float32, torch.bfloat16):
+            out[f"check_{str(dt)[6:]}"] = _sharded_vs_unsharded(
+                dev, mesh, seed, dt)
+        out["deep"] = _sharded_deep(dev, mesh, seed)
+    after = DS.collective_counts()
+    out["collectives"] = {k: v - before.get(k, 0) for k, v in after.items()
+                          if v > before.get(k, 0)}
+    for kind in ("all_gather", "reduce_scatter", "all_reduce"):
+        if not out["collectives"].get(kind):
+            raise AssertionError(f"mesh: the sharded step issued no {kind}: "
+                                 f"{out['collectives']}")
+    out["kernels"] = ("none: the training path launches none of the "
+                      "port's kernels (PERF.md section 6)")
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def _mesh_shape(mesh) -> dict:
+    from repro_torch.dist.sharding import mesh_view
+    return mesh_view(mesh).shape
+
+
+def _sharded_setup(dev, mesh, seed, arch, layers, compute=None):
+    """(cfg, rules, opt, tcfg, specs, whole params, blocks, moments) of
+    a sharded step from the seed's whole float32 parameters (the same on
+    every card); the blocks are copies (``ft.elastic.reshard_tree``)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.ft.elastic import reshard_tree
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as TO
+    from repro_torch.training import train_step as TS
+
+    cfg, rules, _ = configs.get(arch)
+    cfg = dataclasses.replace(cfg, n_layers=layers, **(
+        {} if compute is None else {"compute_dtype": compute}))
+    opt = TO.OptimizerConfig(**MESH_SHARDED_OPT)
+    tcfg = TS.TrainConfig(remat="full", microbatches=MESH_SHARDED_MICRO)
+    pspecs, ospecs = TS.train_specs(cfg, rules, mesh)
+    params = M.init_params(seed, cfg, device=dev)
+    if "embed" in params:
+        params["embed"].mul_(EMBED_SCALE)
+    blocks = reshard_tree(params, params, rules, mesh, device=dev)
+    state = TO.sharded_adamw_init(M.init_params(0, cfg, device="meta"),
+                                  ospecs["m"], mesh, opt, dev)
+    return cfg, rules, opt, tcfg, (pspecs, ospecs), params, blocks, state
+
+
+def _token_batches(cfg, dev, seed, shape, n):
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return [{k: torch.randint(0, cfg.vocab, shape, generator=g, device=dev,
+                              dtype=torch.int32)
+             for k in ("tokens", "labels")} for _ in range(n)]
+
+
+def _timed_step(step, *args):
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = step(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def _sharded_one_rank(dev, mesh, seed) -> dict:
+    """llama3.2-1b at full width, ``MESH_ONE_LAYERS`` layers, on the (1,
+    1) ``mesh``: every block is the whole leaf, so the sharded step (its
+    collectives on one rank copy) equals the unsharded step bit for bit:
+    the loss, the gradient norm, every parameter and moment."""
+    import gc
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.dist.sharding import mesh_coords
+    from repro_torch.ft.checkpoint import tree_flatten
+    from repro_torch.training import optimizer as TO
+    from repro_torch.training import train_step as TS
+
+    cfg, rules, opt, tcfg, _, params, blocks, state = _sharded_setup(
+        dev, mesh, seed, MESH_ONE_ARCH, MESH_ONE_LAYERS)
+    b = _token_batches(cfg, dev, seed, MESH_ONE_BATCH, 1)[0]
+    (p1, s1, m1), sharded_ms = _timed_step(
+        TS.make_train_step(cfg, opt, mesh, rules, tcfg, sharded=True),
+        blocks, state, b)
+    (p2, s2, m2), plain_ms = _timed_step(
+        TS.make_train_step(cfg, opt, tcfg=tcfg), params,
+        TO.adamw_init(params, opt), b)
+    one, two = ({"params": p, "m": s["m"], "v": s["v"]}
+                for p, s in ((p1, s1), (p2, s2)))
+    differ = [n for n, x, y in zip(_dotted(one), tree_flatten(one)[0],
+                                   tree_flatten(two)[0])
+              if not torch.equal(x, y)]
+    rec = {"arch": MESH_ONE_ARCH, "layers": MESH_ONE_LAYERS,
+           "of_layers": configs.get(MESH_ONE_ARCH)[0].n_layers,
+           "mesh": _mesh_shape(mesh),
+           "coords": mesh_coords(mesh), "batch": list(MESH_ONE_BATCH),
+           "microbatches": tcfg.microbatches,
+           "loss": [float(m1["loss"]), float(m2["loss"])],
+           "grad_norm": [float(m1["grad_norm"]), float(m2["grad_norm"])],
+           "ms": {"sharded": sharded_ms, "unsharded": plain_ms},
+           "leaves_differ": differ}
+    del one, two, p1, s1, p2, s2, params, blocks, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    if differ or rec["loss"][0] != rec["loss"][1] \
+            or rec["grad_norm"][0] != rec["grad_norm"][1]:
+        raise AssertionError(f"mesh: the sharded step at one rank is not "
+                             f"the unsharded step bit for bit: {rec}")
+    return rec
+
+
+def _sharded_vs_unsharded(dev, mesh, seed, compute) -> dict:
+    """granite-20b at full width, ``MESH_SHARDED_CHECK_LAYERS`` layers,
+    float32 parameters at ``compute``: one sharded step on this rank's
+    blocks, then the unsharded step on the whole trees on this card, from
+    the same parameters and batch (``MESH_SHARDED_BATCH``).  The sharded
+    loss and gradient norm within ``MESH_SHARDED_TOL`` of the unsharded
+    ones, and ``MESH_SHARDED_SAMPLES`` sampled elements of each block's
+    update within R14's bound of the same elements of the unsharded
+    update (the rank's block of it)."""
+    import gc
+
+    import torch
+
+    from repro_torch.ft.elastic import reshard_tree
+    from repro_torch.training import optimizer as TO
+    from repro_torch.training import train_step as TS
+
+    name = str(compute)[6:]
+    tol = MESH_SHARDED_TOL[name]
+    cfg, rules, opt, tcfg, _, params, blocks, state = _sharded_setup(
+        dev, mesh, seed, MESH_SHARDED_ARCH, MESH_SHARDED_CHECK_LAYERS,
+        compute)
+    b = _token_batches(cfg, dev, seed, MESH_SHARDED_BATCH, 1)[0]
+    idx = _update_samples(blocks, MESH_SHARDED_SAMPLES, seed)
+    old = _sampled(blocks, idx)
+    torch.cuda.reset_peak_memory_stats()
+    (p1, s1, m1), sharded_ms = _timed_step(
+        TS.make_train_step(cfg, opt, mesh, rules, tcfg, sharded=True),
+        blocks, state, b)
+    sharded_peak = torch.cuda.max_memory_allocated()
+    new_sh = _sampled(p1, idx)
+    del p1, s1, blocks, state
+    gc.collect()
+    (p2, s2, m2), plain_ms = _timed_step(
+        TS.make_train_step(cfg, opt, tcfg=tcfg), params,
+        TO.adamw_init(params, opt), b)
+    new_un = _sampled(reshard_tree(p2, p2, rules, mesh, device=dev), idx)
+    m_un = _sampled(reshard_tree(s2["m"], p2, rules, mesh, device=dev), idx)
+    gmax = {n: float(_leaf(s2["m"], n).abs().max()) / (1 - opt.b1)
+            for n in idx}
+    lr = float(TO.lr_schedule(opt, s2["step"]))
+    worst = 0.0
+    for n in idx:
+        gr = m_un[n].abs() / (1 - opt.b1)
+        bound = lr * (1e-3 + tol["grad_rel"] * gmax[n] / (gr + opt.eps))
+        d = (new_sh[n] - old[n]) - (new_un[n] - old[n])
+        worst = max(worst, float((d.abs() / bound).max()))
+    loss, norm = ([float(m[k]) for m in (m1, m2)]
+                  for k in ("loss", "grad_norm"))
+    rec = {"layers": MESH_SHARDED_CHECK_LAYERS, "compute": name,
+           "batch": list(MESH_SHARDED_BATCH),
+           "microbatches": tcfg.microbatches, "loss": loss,
+           "grad_norm": norm, "max_update_err_over_bound": worst,
+           "ms": {"sharded": sharded_ms, "unsharded": plain_ms},
+           "peak_allocated_sharded": sharded_peak, "tolerance": tol}
+    del p2, s2, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok = (all(math.isfinite(x) for x in loss + norm)
+          and abs(loss[0] - loss[1]) <= tol["loss_rel"] * abs(loss[1])
+          and abs(norm[0] - norm[1]) <= tol["grad_rel"] * abs(norm[1])
+          and worst <= 1.0)
+    if not ok:
+        raise AssertionError(f"mesh: the sharded step at {name} differs "
+                             f"from the unsharded one: {rec}")
+    return rec
+
+
+def _sharded_deep(dev, mesh, seed) -> dict:
+    """granite-20b at full width, ``MESH_SHARDED_LAYERS`` of its 52
+    layers: ``MESH_SHARDED_STEPS`` steps of the sharded
+    ``make_train_step`` from the seed's blocks, then the same batches
+    through the sharded ``jit_train_step`` from the same blocks made anew
+    (its first call eager, its second captured and replayed, the rest
+    replayed).  Every loss finite, the graph's losses and norms within
+    ``MESH_TRAIN_REL`` of eager's and its sampled blocks within
+    ``MESH_TRAIN_REL`` of the largest; the trees each arm returns after
+    its last step hold blocks of the specs' shapes, and the bytes this
+    rank stores in them (its parameter and moment blocks) equal the
+    specs' count, against the whole state's; the peak
+    ``memory_allocated`` under the card's."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.dist.sharding import (block_shape, mesh_coords,
+                                           spec_leaves)
+    from repro_torch.ft.checkpoint import tree_flatten
+    from repro_torch.models import model as M
+    from repro_torch.training import train_step as TS
+
+    def trees():
+        *head, params, blocks, state = _sharded_setup(
+            dev, mesh, seed, MESH_SHARDED_ARCH, MESH_SHARDED_LAYERS)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        return head, blocks, state
+
+    (cfg, rules, opt, tcfg, (pspecs, ospecs)), blocks, state = trees()
+    batches = _token_batches(cfg, dev, seed + 1, MESH_SHARDED_BATCH,
+                             MESH_SHARDED_STEPS)
+    pshape = tree_flatten(M.init_params(0, cfg, device="meta"))[0]
+
+    del blocks, state
+
+    def nbytes(x):
+        return x.numel() * x.element_size()
+    want = {"params": [block_shape(p.shape, s, mesh) for p, s in
+                       zip(pshape, spec_leaves(pspecs))],
+            "moments": [block_shape(p.shape, s, mesh) for p, s in
+                        zip(pshape, spec_leaves(ospecs["m"]))]}
+    sd = opt.state_dtype.itemsize
+    spec_bytes = sum(math.prod(b) * p.element_size() for p, b in
+                     zip(pshape, want["params"])) + 2 * sum(
+        math.prod(b) * sd for b in want["moments"])
+    whole = sum(nbytes(p) for p in pshape)
+
+    def stored(blocks, state):
+        """The bytes of the blocks that a step returned, or None where a
+        block's shape is not its spec's."""
+        trees = [(tree_flatten(blocks)[0], want["params"])] + [
+            (tree_flatten(state[k])[0], want["moments"]) for k in ("m", "v")]
+        if any([tuple(x.shape) for x in got] != list(map(tuple, shapes))
+               for got, shapes in trees):
+            return None
+        return sum(nbytes(x) for got, _ in trees for x in got)
+    n = sum(p.numel() for p in pshape)
+    rec = {"arch": MESH_SHARDED_ARCH, "layers": MESH_SHARDED_LAYERS,
+           "of_layers": configs.get(MESH_SHARDED_ARCH)[0].n_layers,
+           "mesh": _mesh_shape(mesh), "coords": mesh_coords(mesh),
+           "batch": list(MESH_SHARDED_BATCH),
+           "microbatches": tcfg.microbatches, "params": n,
+           "spec_bytes": spec_bytes,
+           "whole_state_bytes": {"params_m_v": whole + 2 * n * sd,
+                                 "with_grads": 2 * whole + 2 * n * sd},
+           "card_bytes": torch.cuda.get_device_properties(dev).total_memory}
+
+    def arm(step):
+        _, blocks, state = trees()
+        idx = _update_samples(blocks, MESH_TRAIN_SAMPLES, seed)
+        losses, norms, ms, samples = [], [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        for b in batches:
+            (blocks, state, m), t = _timed_step(step, blocks, state, b)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            ms.append(t)
+            samples.append(_sampled(blocks, idx))
+        peak = torch.cuda.max_memory_allocated()
+        kept = stored(blocks, state)
+        del blocks, state, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        return losses, norms, ms, samples, peak, kept
+
+    el, en, ems, es, epeak, ekept = arm(
+        TS.make_train_step(cfg, opt, mesh, rules, tcfg, sharded=True))
+    step = TS.jit_train_step(cfg, opt, mesh, rules, tcfg, sharded=True)
+    gl, gn, gms, gs, gpeak, gkept = arm(step)
+    st = dataclasses.asdict(step.graph.stats)
+    step.graph.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = 0.0
+    for e, c in zip(es, gs):
+        for n in e:
+            scale = float(e[n].abs().max()) or 1.0
+            worst = max(worst, float((c[n] - e[n]).abs().max()) / scale)
+    rec.update({"losses": {"eager": el, "graph": gl},
+                "grad_norms": {"eager": en, "graph": gn},
+                "ms": {"eager": ems, "graph": gms},
+                "peak_allocated": {"eager": epeak, "graph": gpeak},
+                "stored_bytes": {"eager": ekept, "graph": gkept},
+                "graph_stats": {k: st[k] for k in (
+                    "warmups", "captures", "replays", "capture_ms")},
+                "graph_vs_eager_rel": worst, "tolerance": MESH_TRAIN_REL})
+    ok = (all(math.isfinite(x) for x in el + gl + en + gn)
+          and all(abs(a - b) <= MESH_TRAIN_REL * abs(a)
+                  for a, b in zip(el + en, gl + gn))
+          and worst <= MESH_TRAIN_REL
+          and (st["warmups"], st["captures"], st["replays"]) == (
+              1, 1, MESH_SHARDED_STEPS - 1)
+          and ekept == gkept == spec_bytes
+          and max(epeak, gpeak) < rec["card_bytes"])
+    if not ok:
+        raise AssertionError(f"mesh: the sharded step at "
+                             f"{MESH_SHARDED_LAYERS} layers: {rec}")
     return rec
 
 

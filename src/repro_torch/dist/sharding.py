@@ -21,10 +21,19 @@ functions of a mesh's axis names and sizes, so they take a
 
 ``constrain`` / ``constrain_layer_params``
     In ``repro`` these are layout hints to XLA's partitioner and change no
-    value.  The port executes the dense parts of a meshed model replicated
-    on every rank, so both are the identity here.  Executing
-    ``param_specs``/``zero1_specs`` as tensor-parallel, FSDP or ZeRO-1
-    storage is ROADMAP work.
+    value.  ``constrain`` is the identity here: the sharded train step
+    computes each activation in the layout its spec names already.
+    ``constrain_layer_params`` given one layer's spec tree is the FSDP
+    gather point of a sharded step (``training.train_step``'s
+    ``sharded=True``): the layer's blocks gathered over ``rules.fsdp`` just
+    before use, the "model" dims left local; without specs (whole leaves)
+    it is the identity.
+
+``spec_axes`` / ``block_shape`` / ``gather_leaf`` / ``unshard_tree``
+    Which mesh axes a leaf's spec shards it over (the rest replicate it),
+    a block's shape, the differentiable gather of a block over some of its
+    axes (its backward the reduce-scatter ``jax.grad`` applies to the same
+    gather), and the whole leaves of a tree of blocks.
 
 Collectives (``psum``, ``pmax``, ``pmean``, ``hierarchical_psum``,
 ``all_gather``, ``all_to_all``, ``axis_index``, ``axis_size``) name a mesh
@@ -65,7 +74,9 @@ __all__ = [
     "param_specs", "cache_specs", "zero1_specs", "batch_spec", "constrain",
     "constrain_layer_params", "axis_size", "axis_index", "psum", "pmax",
     "pmean", "hierarchical_psum", "all_gather", "all_to_all",
-    "shard_map_compat", "shard_block", "mesh_coords",
+    "shard_map_compat", "shard_block", "mesh_coords", "spec_axes",
+    "block_shape", "gather_leaf", "fsdp_axes", "unshard_tree",
+    "layer_specs", "spec_leaves",
 ]
 
 
@@ -194,7 +205,7 @@ def _divisible(spec: P, shape: Sequence[int], mesh: Mesh) -> P:
 
 
 # ---------------------------------------------------------------------------
-# Activation constraints: the identity (see the module docstring)
+# Activation constraints and the per-layer FSDP gather (module docstring)
 # ---------------------------------------------------------------------------
 
 
@@ -205,11 +216,36 @@ def constrain(x: torch.Tensor, rules: MeshRules, mesh: Optional[Mesh],
     return x
 
 
-def constrain_layer_params(lp: Any, rules: MeshRules,
-                           mesh: Optional[Mesh]) -> Any:
-    """``repro``'s re-assertion of one layer's storage sharding inside a
-    scan: the identity here, as :func:`constrain` is."""
-    return lp
+def fsdp_axes(rules: Optional[MeshRules], mesh: Mesh) -> Tuple[str, ...]:
+    """The mesh axis that a sharded step gathers its weights' blocks over
+    (``rules.fsdp``), as a tuple, empty when the mesh lacks it."""
+    fsdp = _resolve(rules or MeshRules(), mesh_view(mesh), "fsdp")
+    return (fsdp,) if fsdp else ()
+
+
+def constrain_layer_params(lp: Any, rules: MeshRules, mesh: Optional[Mesh],
+                           specs: Any = None) -> Any:
+    """One layer's weights as its block computes with them.  ``repro``
+    re-asserts the layer's storage sharding inside the scan, so that XLA
+    gathers one layer at a time over ``rules.fsdp``.  Given the layer's
+    ``specs`` (a sharded step's blocks, on a ``DeviceMesh``), each block is
+    gathered here over ``rules.fsdp`` (:func:`gather_leaf`, differentiable:
+    its backward reduce-scatters the gradient), and the dims over "model"
+    stay local.  Without specs (whole leaves) or with no FSDP axis on the
+    mesh, the identity."""
+    if specs is None or mesh is None or isinstance(mesh, ShapeMesh):
+        return lp
+    fsdp = fsdp_axes(rules, mesh)
+    if not fsdp:
+        return lp
+
+    def walk(node, spec):
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k]) for k, v in node.items()}
+        return gather_leaf(node, spec, fsdp)
+
+    with bound(mesh):
+        return walk(lp, specs)
 
 
 # ---------------------------------------------------------------------------
@@ -735,6 +771,67 @@ def shard_map_compat(f, mesh: DeviceMesh, in_specs, out_specs):
                          for o, s in zip(out, out_specs))
 
     return run
+
+
+# ---------------------------------------------------------------------------
+# Sharded storage: blocks of whole trees and back
+# ---------------------------------------------------------------------------
+
+
+def spec_axes(spec: P) -> Tuple[str, ...]:
+    """The mesh axes ``spec`` shards its leaf over, in dim order; a leaf
+    is replicated over every other axis of the mesh."""
+    return tuple(a for e in tuple(spec) if e is not None for a in _axes(e))
+
+
+def spec_leaves(specs: Any) -> list:
+    """The specs of a spec tree in leaf order (dicts by sorted key, as
+    ``ft.checkpoint.tree_flatten`` orders leaves; a spec is a tuple, which
+    that would open)."""
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in spec_leaves(specs[k])]
+    return [specs]
+
+
+def block_shape(shape: Sequence[int], spec: P, mesh: Mesh) -> Tuple[int, ...]:
+    """The shape of each rank's block of a leaf of ``shape``."""
+    view = mesh_view(mesh)
+    entries = tuple(spec) + (None,) * (len(shape) - len(tuple(spec)))
+    return tuple(d // _axis_size(view, e) for d, e in zip(shape, entries))
+
+
+def gather_leaf(x: torch.Tensor, spec: P, axes) -> torch.Tensor:
+    """This rank's block of a leaf gathered over ``axes``, one tiled
+    all-gather per axis along its dim, inside a bound mesh.  Differentiable: the backward is the
+    reduce-scatter that ``jax.grad`` applies to the same gather, so the
+    gradient comes back as this rank's block, summed over the gathering
+    ranks.  A dim is gathered when ``axes`` holds every axis of its
+    entry."""
+    for i, e in enumerate(tuple(spec)):
+        if e is None or not set(_axes(e)) <= set(axes):
+            continue
+        for a in reversed(_axes(e)):
+            x = all_gather(x, a, dim=i)
+    return x
+
+
+@torch.no_grad()
+def unshard_tree(tree: Any, specs: Any, mesh: DeviceMesh) -> Any:
+    """The whole leaves of a tree of blocks, rebuilt on every rank by
+    all-gathers over the axes each spec names (every rank must call it,
+    leaf by leaf in the same order); ``ft.elastic.reshard_tree`` cuts the
+    blocks of a whole tree."""
+    if isinstance(tree, dict):
+        return {k: unshard_tree(v, specs[k], mesh) for k, v in tree.items()}
+    return _unshard_on(mesh, tree, specs)
+
+
+def layer_specs(stacked: Any) -> Any:
+    """The specs of one layer of a layer stack: each stacked leaf's spec
+    without its leading (replicated) layer entry."""
+    if isinstance(stacked, dict):
+        return {k: layer_specs(v) for k, v in stacked.items()}
+    return P(*tuple(stacked)[1:])
 
 
 def local_batch(batch: Dict[str, Any], rules: MeshRules,

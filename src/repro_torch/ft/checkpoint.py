@@ -35,8 +35,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.factory import LockEnv
+from ..dist.sharding import spec_leaves, unshard_tree
 
 BF16 = "bfloat16"
 
@@ -149,15 +151,38 @@ def _tensor(a: np.ndarray, dtype: str) -> torch.Tensor:
 
 
 def save_checkpoint(directory: str | Path, step: int, tree: Any,
-                    max_shard_bytes: int = 1 << 28) -> Path:
+                    max_shard_bytes: int = 1 << 28, specs: Any = None,
+                    mesh=None) -> Path:
     """Write ``tree`` (tensors on any device, or numpy arrays) as step
     ``step``; leaves move to the host one at a time, so the host holds at
-    most one shard."""
+    most one shard.
+
+    With ``specs`` and ``mesh``, ``tree`` holds this rank's blocks (a
+    sharded train step's): every rank gathers each leaf whole in turn
+    (``dist.sharding.unshard_tree``) and rank 0 alone writes, so the files
+    are those of the whole tree, in ``repro``'s format.  Every rank must
+    call it, and returns once the checkpoint is committed."""
     d = Path(directory)
     tmp = d / f"step_{step:09d}.tmp"
     final = d / f"step_{step:09d}"
-    tmp.mkdir(parents=True, exist_ok=True)
     leaves, treedef = tree_flatten(tree)
+    if mesh is not None:
+        wholes = (unshard_tree(x, s, mesh)
+                  for x, s in zip(leaves, spec_leaves(specs)))
+        if dist.get_rank() == 0:
+            _write(tmp, final, step, wholes, treedef, max_shard_bytes)
+        else:
+            for _ in wholes:
+                pass
+        dist.barrier()
+        return final
+    _write(tmp, final, step, leaves, treedef, max_shard_bytes)
+    return final
+
+
+def _write(tmp: Path, final: Path, step: int, leaves, treedef,
+           max_shard_bytes: int) -> None:
+    tmp.mkdir(parents=True, exist_ok=True)
     manifest: Dict[str, Any] = {
         "step": step,
         "treedef": _describe(treedef),
@@ -192,7 +217,6 @@ def save_checkpoint(directory: str | Path, step: int, tree: Any,
     flush()
     (tmp / "manifest.json").write_text(json.dumps(manifest))
     os.replace(tmp, final)          # atomic commit
-    return final
 
 
 def read_manifest(directory: str | Path, step: int) -> Dict[str, Any]:

@@ -18,6 +18,18 @@ the ``shard_map`` sites (the paged attention of the dense stack, the MoE
 layers, with ``repro``'s flags) run per rank with explicit collectives;
 ``mesh=None`` is the one-device path, unchanged.
 
+With ``specs=`` besides (the ``param_specs`` tree; the dense, vlm and
+audio stacks, no cache) the parameters are this rank's blocks and the
+program is the one XLA partitions ``repro``'s into under those specs:
+the embedding is a masked lookup in the rank's vocab rows summed over
+"model", each layer gathers its blocks over ``rules.fsdp`` inside its
+recomputed block (``dist.sharding.constrain_layer_params``, so the
+recomputation gathers again) and runs tensor-parallel
+(``transformer.attn_forward``), the head's logits stay this rank's vocab
+columns, and :func:`loss_fn`'s cross-entropy combines the vocab shards
+with a ``pmax`` and ``psum`` over "model", so no rank holds whole
+logits.  The batch is then this rank's rows.
+
 Training recomputes as ``repro`` does: a stack given a ``remat_policy``
 (``training.train_step.remat_policy_by_name``: a callable ``policy(fn,
 *args)`` that returns ``fn(*args)`` and chooses what autograd keeps)
@@ -28,6 +40,7 @@ recompute their blocks fully whatever the policy names, as ``repro``'s
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -36,7 +49,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve
-from ..dist.sharding import MeshRules, mesh_view
+from ..dist.sharding import (MeshRules, axis_index, bound,
+                             constrain_layer_params, fsdp_axes, gather_leaf,
+                             layer_specs, mesh_view, pmax, psum,
+                             spec_axes)
 from .common import (ModelConfig, Params, ShapeOnly, dense_init, matmul,
                      rms_norm)
 from .ssm import CHUNK, init_mamba2, init_rwkv6, mamba2_block, rwkv6_block
@@ -197,19 +213,45 @@ def _data_axes(rules: Optional[MeshRules], mesh) -> Tuple[str, ...]:
     return (rules or MeshRules()).batch_axes(mesh_view(mesh))
 
 
+def _bound(mesh, specs):
+    """The mesh bound for a sharded computation's collectives (``specs``
+    given), else nothing."""
+    return contextlib.nullcontext() if specs is None else bound(mesh)
+
+
+def _lookup(table: torch.Tensor, spec, tokens: torch.Tensor,
+            rules, mesh) -> torch.Tensor:
+    """Rows of the embedding block for ``tokens``: gathered over
+    ``rules.fsdp``, and with the vocab over "model" a masked lookup in this
+    rank's rows (other tokens give zeros) summed over "model"."""
+    table = gather_leaf(table, spec, fsdp_axes(rules, mesh))
+    if "model" not in spec_axes(spec):
+        return table[tokens.long()]
+    n = table.shape[0]
+    t = tokens.long() - axis_index("model") * n
+    inside = (t >= 0) & (t < n)
+    rows = table[torch.clamp(t, 0, n - 1)]
+    return psum(torch.where(inside[..., None], rows, 0), "model")
+
+
 def embed_inputs(p: Params, cfg: ModelConfig,
                  batch: Dict[str, torch.Tensor],
                  rules: Optional[MeshRules] = None,
-                 mesh=None) -> torch.Tensor:
+                 mesh=None, specs=None) -> torch.Tensor:
     """[frontend embeddings | token embeddings] in the compute dtype, scaled
     by sqrt(d_model) rounded to that dtype.  ``audio``: the whole input is
     the frame embeddings ``batch["embeds"]`` (the stub frontend), not
     scaled.  ``rules``/``mesh``: ``repro``'s layout hint here is the
-    identity (``dist.sharding.constrain``)."""
+    identity (``dist.sharding.constrain``); with ``specs``, the lookup in
+    the sharded embedding (module docstring)."""
     cd = cfg.compute_dtype
     if cfg.family == "audio":
         return batch["embeds"].to(cd)
-    tok = p["embed"][batch["tokens"].long()].to(cd)
+    if specs is None:
+        tok = p["embed"][batch["tokens"].long()].to(cd)
+    else:
+        tok = _lookup(p["embed"], specs["embed"], batch["tokens"], rules,
+                      mesh).to(cd)
     if cfg.frontend_tokens and "embeds" in batch:
         x = torch.cat([batch["embeds"].to(cd), tok], dim=1)
     else:
@@ -219,29 +261,46 @@ def embed_inputs(p: Params, cfg: ModelConfig,
 
 
 def lm_logits(p: Params, cfg: ModelConfig, x: torch.Tensor,
-              rules: Optional[MeshRules] = None, mesh=None) -> torch.Tensor:
+              rules: Optional[MeshRules] = None, mesh=None,
+              specs=None) -> torch.Tensor:
+    """The head's logits.  With ``specs``: this rank's vocab columns, the
+    head (or the tied embedding's block, transposed) gathered over
+    ``rules.fsdp``."""
     x = rms_norm(x, p["final_ln"], cfg.norm_eps)
-    head = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    head = p[name]
+    if specs is not None:
+        head = gather_leaf(head, specs[name], fsdp_axes(rules, mesh))
+    head = head.T if cfg.tie_embeddings else head
     return matmul(x, head.to(x.dtype))
 
 
 def dense_stack(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 positions, caches=None, cache_len=None, make_caches=True,
                 pages=None, new_lens=None, remat_policy=None, mesh=None,
-                rules=None):
+                rules=None, specs=None):
     """Dense / audio / vlm stack: one block a layer.  -> (x, aux,
     caches).  With ``mesh``, paged attention shards its rows over the
-    rules' data axes."""
+    rules' data axes; with ``specs``, each block gathers its layer's
+    blocks over ``rules.fsdp`` and runs tensor-parallel (module
+    docstring)."""
     data_axes = _data_axes(rules, mesh)
+    ls = None if specs is None else layer_specs(specs["layers"])
     ks, vs = [], []
     for i, lp in enumerate(_unbind(p["layers"])):
         lc = _index(caches, i)
 
         def blk(x, lp=lp, lc=lc):
-            return block_forward(lp, x, cfg, positions=positions, cache=lc,
-                                 cache_len=cache_len, pages=pages,
-                                 new_lens=new_lens, mesh=mesh,
-                                 data_axes=data_axes)
+            # the recomputation runs in the backward pass, outside the
+            # caller's binding of the mesh
+            with _bound(mesh, ls):
+                lp = constrain_layer_params(lp, rules or MeshRules(), mesh,
+                                            ls)
+                return block_forward(lp, x, cfg, positions=positions,
+                                     cache=lc, cache_len=cache_len,
+                                     pages=pages, new_lens=new_lens,
+                                     mesh=mesh, data_axes=data_axes,
+                                     specs=ls)
         x, _, nc = _block(blk, x, remat_policy, lc)
         if caches is None and make_caches:
             ks.append(nc["k"])
@@ -364,6 +423,7 @@ def hybrid_stack(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions,
 
 _STACKS = {"dense": dense_stack, "audio": dense_stack, "vlm": dense_stack,
            "moe": moe_stack, "ssm": ssm_stack, "hybrid": hybrid_stack}
+_SHARDED_FAMILIES = ("dense", "vlm", "audio")
 
 
 def forward(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
@@ -373,7 +433,7 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             pages: Optional[torch.Tensor] = None,
             new_lens: Optional[torch.Tensor] = None,
             remat_policy=None, mesh=None,
-            rules: Optional[MeshRules] = None,
+            rules: Optional[MeshRules] = None, specs=None,
             ) -> Tuple[torch.Tensor, Any, Any]:
     """Full forward pass -> (logits, aux loss, caches).
 
@@ -381,7 +441,8 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     in :func:`init_caches`'s layout with a sequence dim of S (dense: the
     stacked K/V ``(L, B, S, KVH, hd)``) unless ``make_caches`` is False.
     With ``caches`` from :func:`init_caches` and a per-request
-    ``cache_len`` (B,): one decode step at position ``cache_len - 1``,
+    ``cache_len`` (B,), or a scalar one shared by every row (``repro``'s
+    uniform-length decode): one decode step at position ``cache_len - 1``,
     whose K/V is written into ``caches`` in place; recurrent state (RWKV,
     Mamba) comes back as new tensors, as ``repro`` returns it.
 
@@ -390,17 +451,27 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     from :func:`init_paged_caches` and ``pages`` the batch's (B, P) int32
     page-index matrix.  Column ``j`` sits at position ``cache_len - S + j``
     (right-aligned chunks; ``new_lens`` marks each row's valid tail;
-    padding columns take position 0).  ``remat_policy``, ``mesh`` and
-    ``rules`` (default ``MeshRules()``): see the module docstring."""
+    padding columns take position 0).  ``remat_policy``, ``mesh``,
+    ``rules`` (default ``MeshRules()``) and ``specs``: see the module
+    docstring; with ``specs`` the logits are this rank's vocab
+    columns."""
+    if specs is not None and (caches is not None
+                              or cfg.family not in _SHARDED_FAMILIES):
+        raise NotImplementedError(
+            f"sharded storage runs the dense, vlm and audio stacks without "
+            f"a cache (family={cfg.family}, cache="
+            f"{caches is not None})")
     if pages is not None and cfg.family not in _PAGED_FAMILIES:
         raise ValueError(f"paged decode supports dense attention caches "
                          f"only (family={cfg.family})")
     if pages is not None and caches is None:
         raise ValueError("paged forward needs the page store as caches")
-    x = embed_inputs(p, cfg, batch, rules, mesh)
+    x = embed_inputs(p, cfg, batch, rules, mesh, specs)
     S = x.shape[1]
     if cache_len is None:
         positions = torch.arange(S, device=x.device)[None]
+    elif cache_len.dim() == 0:
+        positions = (cache_len - 1).reshape(1, 1)
     else:
         positions = torch.clamp(
             cache_len[:, None] - S + torch.arange(S, device=x.device)[None],
@@ -408,28 +479,51 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     x, aux, new_caches = _STACKS[cfg.family](
         p, x, cfg, positions=positions, caches=caches, cache_len=cache_len,
         make_caches=make_caches, pages=pages, new_lens=new_lens,
-        remat_policy=remat_policy, mesh=mesh, rules=rules)
-    return lm_logits(p, cfg, x, rules, mesh), aux, new_caches
+        remat_policy=remat_policy, mesh=mesh, rules=rules, specs=specs)
+    return lm_logits(p, cfg, x, rules, mesh, specs), aux, new_caches
+
+
+def _nll(logits32: torch.Tensor, labels: torch.Tensor,
+         sharded: bool) -> torch.Tensor:
+    """log-sum-exp minus the gold logit.  ``sharded``: ``logits32`` holds
+    this rank's vocab columns; the shards' log-sum-exps combine through
+    their ``pmax`` and the ``psum`` of their exponentials over "model",
+    and the gold logit is the ``psum`` of the one rank's that holds it."""
+    lse = torch.logsumexp(logits32, dim=-1)
+    if not sharded:
+        return lse - torch.gather(logits32, -1, labels[..., None])[..., 0]
+    top = pmax(lse, "model")
+    lse = top + torch.log(psum(torch.exp(lse - top), "model"))
+    n = logits32.shape[-1]
+    t = labels - axis_index("model") * n
+    inside = (t >= 0) & (t < n)
+    gold = torch.gather(logits32, -1, torch.clamp(t, 0, n - 1)[..., None])
+    return lse - psum(torch.where(inside, gold[..., 0], 0.0), "model")
 
 
 def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             mesh=None, rules: Optional[MeshRules] = None,
-            remat_policy=None, aux_weight: float = 0.01
+            remat_policy=None, aux_weight: float = 0.01, specs=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The training loss -> (total, {"loss", "aux", "nll_mean"}): the
     mean over labelled positions (``batch["mask"]``, default all) of the
     float32 log-sum-exp minus the gold logit, plus ``aux_weight`` times
     the MoE load-balance loss.  Positions of a frontend prefix that the
-    labels do not cover carry no loss."""
-    logits, aux, _ = forward(p, cfg, batch, remat_policy=remat_policy,
-                             make_caches=False, mesh=mesh, rules=rules)
-    labels = batch["labels"].long()
-    logits32 = logits.float()
-    if logits32.shape[1] != labels.shape[1]:
-        logits32 = logits32[:, -labels.shape[1]:]
-    lse = torch.logsumexp(logits32, dim=-1)
-    gold = torch.gather(logits32, -1, labels[..., None])[..., 0]
-    nll = lse - gold
+    labels do not cover carry no loss.
+
+    With ``specs`` (on a ``DeviceMesh``): ``p`` holds this rank's blocks
+    and ``batch`` its rows, and the loss is the mean over those rows."""
+    with _bound(mesh, specs):
+        logits, aux, _ = forward(p, cfg, batch, remat_policy=remat_policy,
+                                 make_caches=False, mesh=mesh, rules=rules,
+                                 specs=specs)
+        labels = batch["labels"].long()
+        logits32 = logits.float()
+        if logits32.shape[1] != labels.shape[1]:
+            logits32 = logits32[:, -labels.shape[1]:]
+        nll = _nll(logits32, labels, specs is not None and "model" in
+                   spec_axes(specs["embed" if cfg.tie_embeddings
+                                   else "lm_head"]))
     mask = batch.get("mask")
     mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
     loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -17,6 +17,15 @@ wrappers run their kernel on the rank's rows when the data axes divide
 the batch, and the MoE layer dispatches its tokens to expert shards over
 "model" with two all-to-alls (capacity counted on each shard's own
 tokens) or, decoding, reduces the expert shards' partial outputs.
+
+Given their layer's spec tree (``specs``, from ``dist.sharding.
+param_specs``), :func:`attn_forward` and :func:`mlp_forward` compute on
+tensor-parallel blocks, as XLA's partitioner computes ``repro``'s layer
+under those specs: column-parallel ``wq``/``wk``/``wv``/``wi``/``wg``
+give this rank's heads and d_ff columns, and the row-parallel ``wo`` is
+followed by a ``psum`` over "model".  Where ``wk``/``wv`` are replicated
+(GQA or MQA with ``shard_kv_heads=False``), each local query head reads
+the K/V head of its GLOBAL index.
 """
 
 from __future__ import annotations
@@ -28,7 +37,7 @@ import torch
 
 from ..dist.sharding import (P, all_gather, all_to_all, axis_index,
                              axis_size, mesh_view, pmean, psum,
-                             shard_map_compat)
+                             shard_map_compat, spec_axes)
 from ..kernels import ops as K
 from ..kernels.quant import requant_scatter
 from .common import (ModelConfig, Params, act_fn, apply_rope, decode_attention,
@@ -245,6 +254,30 @@ def _paged_attn(q, k, v, cache, pages, cache_len, new_lens, mesh=None,
                                   nl, mesh, data_axes)
 
 
+def _over_model(spec) -> bool:
+    """Whether a leaf's spec shards it over "model"."""
+    return spec is not None and "model" in spec_axes(spec)
+
+
+def _local_kv(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+              h_loc: int):
+    """The replicated K/V heads that this rank's ``h_loc`` query heads
+    read: query head ``i`` is global head ``c * h_loc + i`` (``c`` the
+    rank's "model" coordinate) and reads K/V head ``(c * h_loc + i) //
+    g``, ``g = n_heads // n_kv_heads``.  -> (k, v) with the heads in the
+    grouping :func:`~.common.flash_attention` applies to ``h_loc`` query
+    heads: a contiguous run of K/V heads where the local heads cover whole
+    groups or lie in one group, else one K/V head a query head."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    first = axis_index("model") * h_loc
+    if h_loc % g == 0 or g % h_loc == 0:
+        n = max(h_loc // g, 1)
+        lo = first // g
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    idx = (first + torch.arange(h_loc, device=k.device)) // g
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                  positions: torch.Tensor,
                  cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -252,12 +285,21 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                  pages: Optional[torch.Tensor] = None,
                  new_lens: Optional[torch.Tensor] = None,
                  mesh=None, data_axes: Tuple[str, ...] = (),
+                 specs: Optional[Dict] = None,
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, d).  Without ``cache``: causal attention over the S
     positions; returns the new K/V as the cache.  With ``cache`` (decode,
-    S == 1, per-request ``cache_len`` of shape (B,)): writes the new K/V at
-    ``cache_len - 1`` of each row IN PLACE and attends to the first
-    ``cache_len`` positions; returns the same cache tensors.
+    S == 1): writes the new K/V at ``cache_len - 1`` IN PLACE and attends
+    to the first ``cache_len`` positions; returns the same cache tensors.
+    ``cache_len`` is per request, shape (B,), or a scalar shared by every
+    row (``repro``'s uniform-length branch, the dry-run serve-step
+    contract: one write at ``cache_len - 1``, clamped into the cache as
+    ``lax.dynamic_update_slice`` clamps it).
+
+    ``specs`` (the layer's attention specs; inside a bound mesh, no
+    cache): ``p`` holds this rank's tensor-parallel blocks (module
+    docstring), and the output is the ``psum`` over "model" of the local
+    heads' share when ``wq`` is sharded over it.
 
     Paged mode (``pages`` given): ``cache`` is one layer of the KV pool's
     page store ``{"k"/"v": (n_pages, page_size, KVH, hd)}`` shared by every
@@ -273,9 +315,14 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     each rank's rows of the batch when ``data_axes`` divide it."""
     B, S, _ = x.shape
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q = matmul(h, p["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
-    k = matmul(h, p["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.hd)
-    v = matmul(h, p["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    heads = p["wq"].shape[-1] // cfg.hd           # this rank's, if sharded
+    q = matmul(h, p["wq"]).reshape(B, S, heads, cfg.hd)
+    kv_heads = p["wk"].shape[-1] // cfg.hd
+    k = matmul(h, p["wk"]).reshape(B, S, kv_heads, cfg.hd)
+    v = matmul(h, p["wv"]).reshape(B, S, kv_heads, cfg.hd)
+    tp = specs is not None and _over_model(specs["wq"])
+    if tp and not _over_model(specs["wk"]):
+        k, v = _local_kv(k, v, cfg, heads)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -292,9 +339,17 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                             block_q=cfg.attn_block_q,
                             block_kv=cfg.attn_block_kv)
         new_cache = {"k": k, "v": v}
+    elif cache_len is None or cache_len.dim() > 1:
+        raise ValueError("decode needs a per-request (B,) or a scalar "
+                         "cache_len")
+    elif cache_len.dim() == 0:
+        kc, vc = cache["k"], cache["v"]
+        pos = torch.clamp(cache_len.long() - 1, 0, kc.shape[1] - 1)
+        kc.index_copy_(1, pos.reshape(1), k[:, :1].to(kc.dtype))
+        vc.index_copy_(1, pos.reshape(1), v[:, :1].to(vc.dtype))
+        o = decode_attention(q, kc, vc, cache_len.reshape(1).expand(B))
+        new_cache = cache
     else:
-        if cache_len is None or cache_len.dim() != 1:
-            raise ValueError("decode needs a per-request (B,) cache_len")
         kc, vc = cache["k"], cache["v"]
         rows = torch.arange(B, device=x.device)
         pos = (cache_len - 1).long()
@@ -302,16 +357,26 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         vc[rows, pos] = v[:, 0].to(vc.dtype)
         o = decode_attention(q, kc, vc, cache_len)
         new_cache = cache
-    out = matmul(o.reshape(B, S, cfg.q_dim), p["wo"])
+    out = matmul(o.reshape(B, S, heads * cfg.hd), p["wo"])
+    if tp:
+        out = psum(out, "model")
     return out.to(x.dtype), new_cache
 
 
-def mlp_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                specs: Optional[Dict] = None) -> torch.Tensor:
+    """The (gated) MLP.  ``specs`` (the layer's MLP specs, inside a bound
+    mesh): ``p`` holds this rank's blocks, and with ``wi`` sharded over
+    "model" the output is the ``psum`` of the local d_ff columns'
+    share."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     a = act_fn(cfg.act)(matmul(h, p["wi"]))
     if cfg.glu:
         a = a * matmul(h, p["wg"])
-    return matmul(a, p["wo"]).to(x.dtype)
+    out = matmul(a, p["wo"])
+    if specs is not None and _over_model(specs["wi"]):
+        out = psum(out, "model")
+    return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -568,16 +633,19 @@ def block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                   cache_len=None, pages=None, new_lens=None, mesh=None,
                   data_axes: Tuple[str, ...] = (),
                   split_tokens_over_model: bool = True,
-                  moe_weight_resident: bool = False):
+                  moe_weight_resident: bool = False, specs=None):
     """One block -> (x', aux loss, cache').  A dense block has no
     auxiliary loss, so it is the float 0.0; an MoE block (``is_moe``)
     decodes through the dropless body whenever ``cache_len`` is given, as
     ``repro``'s MoE stack chooses.  ``mesh`` and the flags after it: see
-    :func:`attn_forward` and :func:`moe_forward`."""
+    :func:`attn_forward` and :func:`moe_forward`; ``specs``, the layer's
+    spec tree of a dense block's tensor-parallel blocks."""
     a, new_cache = attn_forward(p["attn"], x, cfg, positions=positions,
                                 cache=cache, cache_len=cache_len,
                                 pages=pages, new_lens=new_lens, mesh=mesh,
-                                data_axes=tuple(data_axes or ()))
+                                data_axes=tuple(data_axes or ()),
+                                specs=None if specs is None
+                                else specs["attn"])
     x = x + a
     if is_moe:
         m, aux = moe_forward(p["moe"], x, cfg, mesh, tuple(data_axes or ()),
@@ -585,5 +653,6 @@ def block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                              decode_tp=cache_len is not None,
                              weight_resident=moe_weight_resident)
     else:
-        m, aux = mlp_forward(p["mlp"], x, cfg), 0.0
+        m, aux = mlp_forward(p["mlp"], x, cfg,
+                             None if specs is None else specs["mlp"]), 0.0
     return x + m, aux, new_cache

@@ -29,8 +29,26 @@ blocks are assembled over "model" (and their d_ff blocks over the data
 axes where the weights are resident), the router's per-rank parts summed
 over every axis.  So every rank holds ``repro``'s gradient at the same
 mesh shape, with capacity and the aux loss counted per shard, and applies
-the same update.  Executing ``param_specs``/``zero1_specs`` as sharded
-storage (tensor parallel, FSDP, ZeRO-1) is ROADMAP work.
+the same update.
+
+``sharded=True`` (a dense, vlm or audio config whose rules use flash
+attention without ``residual_seq``) executes the layout
+``launch/dryrun.py`` gives ``repro``'s jitted step: parameters by
+``param_specs``, the AdamW moments by ``zero1_specs`` with the step count
+replicated, the batch by its batch spec (:func:`train_specs`).  The step
+takes and returns this rank's blocks, and the collectives XLA's
+partitioner inserts for those specs run explicitly: each layer's blocks
+are gathered over ``rules.fsdp`` inside its recomputed block, attention
+and the MLP run tensor-parallel over "model", the embedding and the
+cross-entropy over vocab shards (``models.model``).  Each rank's loss is
+its rows' share, divided by the number of ranks that compute the same
+rows, so the ranks' losses sum to ``repro``'s; with every collective's
+backward its transpose, each block's gradient then comes back through
+the gathers' reduce-scatters, and is summed (``psum``) over the mesh axes
+its spec does not name, the ranks that hold copies of the block.  The
+update is ``optimizer.adamw_update`` given the specs.  Other families and
+layouts raise ``NotImplementedError`` naming what is missing; none falls
+back to whole weights.
 """
 
 from __future__ import annotations
@@ -45,8 +63,9 @@ import torch.distributed as dist
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..dist.sharding import (MeshRules, batch_spec, bound, data_shards,
-                             local_batch, mesh_view, psum)
+from ..dist.sharding import (MeshRules, P, batch_spec, bound, data_shards,
+                             local_batch, mesh_view, param_specs, psum,
+                             spec_axes, spec_leaves, zero1_specs)
 from ..ft.checkpoint import tree_flatten, tree_unflatten
 from ..models import model as M
 from ..models.common import ModelConfig
@@ -106,13 +125,24 @@ def _layout(cfg: ModelConfig, mesh, rules: Optional[MeshRules]):
     return rules, rules.batch_axes(view), ep
 
 
-def _positions(batch: Dict[str, Any]):
+def _positions(batch: Dict[str, Any]) -> torch.Tensor:
     """What ``loss_fn`` divides a batch's summed NLL by: its labelled
-    positions, at least 1."""
+    positions, at least 1, as a float32 tensor on the labels' device."""
     mask = batch.get("mask")
     if mask is None:
-        return float(max(batch["labels"].numel(), 1))
+        labels = batch["labels"]
+        return torch.full((), float(max(labels.numel(), 1)),
+                          device=labels.device)
     return torch.clamp(mask.float().sum(), min=1.0)
+
+
+def _share(total, m, local, batch, n: int):
+    """A rank's share of ``batch``'s loss from ``loss_fn`` on its rows
+    ``local``: their labelled positions' share of the mean NLL, plus 1/n
+    of the auxiliary term (``repro``'s MoE takes the mean of its shards'
+    aux losses), over ``n`` ranks splitting the rows."""
+    return m["loss"] * (_positions(local) / _positions(batch)) \
+        + (total - m["loss"]) / n
 
 
 def _make_compute_grads(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
@@ -150,8 +180,7 @@ def _make_compute_grads(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
                              mesh=mesh if ep else None,
                              rules=rules if ep else None)
         if local is not batch:
-            total = m["loss"] * (_positions(local) / _positions(batch)) \
-                + (total - m["loss"]) / n_data
+            total = _share(total, m, local, batch, n_data)
         gs = torch.autograd.grad(total, ps, allow_unused=True)
         return total.detach(), [torch.zeros_like(p) if g is None else g
                                 for p, g in zip(ps, gs)]
@@ -162,6 +191,16 @@ def _make_compute_grads(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
             return l, g
         with bound(mesh):
             return psum(l, axes), [psum(x, axes) for x in g]
+
+    return _accumulated(tcfg, grad_fn, reduced)
+
+
+def _accumulated(tcfg: TrainConfig, grad_fn, reduced):
+    """-> ``compute_grads(params, batch)``: ``grad_fn(leaves, treedef,
+    microbatch) -> (loss, gradients)`` over ``tcfg.microbatches``
+    microbatches, accumulated in ``accum_dtype`` in ``repro``'s order,
+    then ``reduced(microbatch, loss, gradients)`` across ranks, then the
+    mean."""
 
     def compute_grads(params, batch):
         leaves, treedef = tree_flatten(params)
@@ -187,9 +226,91 @@ def _make_compute_grads(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
     return compute_grads
 
 
+def train_specs(cfg: ModelConfig, rules: MeshRules, mesh):
+    """-> (parameter specs, optimizer-state specs) of the sharded step,
+    derived as ``repro``'s ``launch/dryrun.py`` derives them: the params
+    by ``param_specs``, ``{"m", "v"}`` by ``zero1_specs`` and ``"step"``
+    replicated.  Raises ``NotImplementedError`` naming each layout of
+    ``cfg``/``rules`` the step does not execute yet."""
+    missing = []
+    if cfg.family not in M._SHARDED_FAMILIES:
+        missing.append(f"the {cfg.family} stack's dense leaves")
+    if rules.attn_impl != "flash":
+        missing.append(f"{rules.attn_impl} attention")
+    if rules.residual_seq:
+        missing.append("residual_seq (the sequence-sharded residual)")
+    pshape = M.init_params(0, cfg, device="meta")
+    pspecs = param_specs(pshape, rules, mesh)
+    if not missing:
+        n = mesh_view(mesh).shape.get("model", 1)
+        attn = pspecs["layers"]["attn"]
+        for leaf, heads in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads)):
+            if "model" in spec_axes(attn[leaf]) and heads % n:
+                missing.append(f"{leaf} split inside a head ({heads} "
+                               f"heads over model={n})")
+    if missing:
+        raise NotImplementedError(
+            f"sharded=True for {cfg.name}: {'; '.join(missing)} "
+            f"(ROADMAP Queue 1)")
+    mspecs = zero1_specs(pspecs, pshape, mesh)
+    return pspecs, {"m": mspecs, "v": mspecs, "step": P()}
+
+
+def _make_sharded_grads(cfg: ModelConfig, tcfg: TrainConfig, mesh,
+                        rules: MeshRules, pspecs):
+    """-> ``compute_grads(blocks, batch) -> (loss, gradient blocks)`` of
+    the sharded step (module docstring); ``batch`` is the global batch on
+    the blocks' device, each microbatch split over the batch spec's
+    axes."""
+    policy = remat_policy_by_name(tcfg.remat)
+    view = mesh_view(mesh)
+    world = math.prod(view.sizes)
+    rest = [tuple(a for a in view.axis_names if a not in spec_axes(s))
+            for s in spec_leaves(pspecs)]
+
+    def split(mb):
+        """The mesh axes that split the microbatch's rows."""
+        return spec_axes(P(batch_spec(rules, mesh,
+                                      tuple(mb["labels"].shape))[0]))
+
+    def grad_fn(leaves, treedef, mb):
+        ps = [p.detach().requires_grad_(True) for p in leaves]
+        n = math.prod(view.shape[a] for a in split(mb))
+        copies = world // n
+        local = local_batch(mb, rules, mesh)
+        total, m = M.loss_fn(tree_unflatten(treedef, ps), cfg, local,
+                             mesh=mesh, rules=rules, remat_policy=policy,
+                             aux_weight=tcfg.aux_weight, specs=pspecs)
+        total = _share(total, m, local, mb, n)
+        gs = torch.autograd.grad(total / copies if copies > 1 else total,
+                                 ps, allow_unused=True)
+        return total.detach(), [torch.zeros_like(p) if g is None else g
+                                for p, g in zip(ps, gs)]
+
+    def reduced(mb, l, g):
+        """The rows' shares summed over the axes that split them; each
+        gradient block over the axes its spec does not name."""
+        axes = split(mb)
+        with bound(mesh):
+            return (psum(l, axes) if axes else l,
+                    [psum(x, r) if r else x for x, r in zip(g, rest)])
+
+    return _accumulated(tcfg, grad_fn, reduced)
+
+
+def _grads(cfg, tcfg, mesh, rules, sharded: bool):
+    """-> (the sharded step's specs or None, its ``compute_grads``)."""
+    if not sharded:
+        return None, _make_compute_grads(cfg, tcfg, mesh, rules)
+    rules = rules if rules is not None else MeshRules()
+    specs = train_specs(cfg, rules, mesh)
+    return specs, _make_sharded_grads(cfg, tcfg, mesh, rules, specs[0])
+
+
 def make_train_step(cfg: ModelConfig, opt: OptimizerConfig, mesh=None,
                     rules: Optional[MeshRules] = None,
-                    tcfg: TrainConfig = TrainConfig()):
+                    tcfg: TrainConfig = TrainConfig(),
+                    sharded: bool = False):
     """Returns ``train_step(params, opt_state, batch) -> (params', state',
     metrics)``.  ``batch`` holds ``labels`` and ``tokens`` (or the audio
     family's ``embeds``), as tensors or numpy arrays; they move to the
@@ -197,13 +318,15 @@ def make_train_step(cfg: ModelConfig, opt: OptimizerConfig, mesh=None,
     auxiliary term), averaged over microbatches, as in ``repro``.  The
     step is pure and eager: the trees it is given stay as they were.
     ``mesh``/``rules``: data parallel over the rules' data axes, every
-    rank given the global batch and the same trees (module docstring)."""
-    compute_grads = _make_compute_grads(cfg, tcfg, mesh, rules)
+    rank given the global batch and the same trees (module docstring).
+    ``sharded=True`` (a ``DeviceMesh``): the trees are this rank's blocks
+    under :func:`train_specs`, and so are the new ones."""
+    specs, compute_grads = _grads(cfg, tcfg, mesh, rules, sharded)
 
     def train_step(params, opt_state, batch):
         l, grads = compute_grads(params, _on(batch, _device(params)))
-        new_params, new_state, gnorm = adamw_update(params, grads, opt_state,
-                                                    opt)
+        new_params, new_state, gnorm = adamw_update(
+            params, grads, opt_state, opt, specs, mesh)
         metrics = {"loss": l, "grad_norm": gnorm, "step": new_state["step"]}
         return new_params, new_state, metrics
 
@@ -212,7 +335,8 @@ def make_train_step(cfg: ModelConfig, opt: OptimizerConfig, mesh=None,
 
 def jit_train_step(cfg: ModelConfig, opt: OptimizerConfig, mesh=None,
                    rules: Optional[MeshRules] = None,
-                   tcfg: TrainConfig = TrainConfig()):
+                   tcfg: TrainConfig = TrainConfig(),
+                   sharded: bool = False):
     """:func:`make_train_step`'s step as ``repro``'s call sites run it,
     under ``jax.jit`` with the trees donated: on the card one CUDA graph
     (``serving.steps.jit_step``) that writes the new parameters and
@@ -234,15 +358,17 @@ def jit_train_step(cfg: ModelConfig, opt: OptimizerConfig, mesh=None,
     eager call warms up.  On a mesh of more than one rank the ranks agree
     each call's warm-up, capture or replay over a gloo group made here
     (``serving.steps.GraphedStep.decide``), so every rank must make the
-    step and call it alike."""
-    compute_grads = _make_compute_grads(cfg, tcfg, mesh, rules)
+    step and call it alike.  ``sharded=True``: on this rank's blocks, as
+    :func:`make_train_step`'s, updated in place (the ZeRO-1 slices'
+    all-gathers inside the graph)."""
+    specs, compute_grads = _grads(cfg, tcfg, mesh, rules, sharded)
     group = None
     if mesh is not None and math.prod(mesh_view(mesh).sizes) > 1:
         group = dist.new_group(backend="gloo")
 
     def train_step_(params, opt_state, batch):
         l, grads = compute_grads(params, batch)
-        gnorm = adamw_update_(params, grads, opt_state, opt)
+        gnorm = adamw_update_(params, grads, opt_state, opt, specs, mesh)
         return params, opt_state, {"loss": l, "grad_norm": gnorm,
                                    "step": opt_state["step"]}
 

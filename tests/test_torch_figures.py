@@ -6,6 +6,7 @@ run CLI's quick ``--only fig2`` prints and writes what the reference's
 does.  Times are virtual time on the modelled 72-CPU X5-2."""
 
 import dataclasses
+import itertools
 import json
 import os
 import pathlib
@@ -18,8 +19,10 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 from benchmarks import figures as RF  # noqa: E402
+from repro.core import table as RT  # noqa: E402
 from repro_torch.benchmarks import common as TC  # noqa: E402
 from repro_torch.benchmarks import figures as TF  # noqa: E402
+from repro_torch.core import table as TT  # noqa: E402
 
 BUDGET = 100_000      # virtual ns
 
@@ -56,6 +59,15 @@ CASES = {
                     dict(budget_ns=BUDGET)),
     "metis_ba": ("metis_analogue", ("ba", 4, 0.02), dict(budget_ns=BUDGET)),
 }
+
+
+@pytest.fixture(autouse=True)
+def _fresh_lock_ids(monkeypatch):
+    """Each package numbers its locks from one process-wide counter, and a
+    BRAVO lock's reader slots hash its number: start both counters at 1 so
+    that the twins build the same locks whatever ran earlier."""
+    monkeypatch.setattr(RT, "_lock_ids", itertools.count(1))
+    monkeypatch.setattr(TT, "_lock_ids", itertools.count(1))
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -6,9 +6,12 @@ ranks' records.  Each rank runs the graphed meshed engine against its
 bare steps under swaps and without, both revokes, the compressed
 all-reduce, the twins' sections, phi3.5-moe's MoE layer with its experts
 over "model" and the train step at each of ``_mesh_shapes``' meshes
-(expert-parallel where "model" is above 1), eager and graphed; across
-ranks the tokens, graph stats, losses and sampled parameters must be
-equal.  On the card the same functions run over NCCL, one rank a card."""
+(expert-parallel where "model" is above 1), eager and graphed, and the
+sharded train step (one rank: bit for bit the unsharded step; two: at
+(data, model) = (2, 1) against the unsharded step at float32 and bf16
+compute, then eager and graphed at more layers); across ranks the
+tokens, graph stats, losses and sampled parameters must be equal.  On
+the card the same functions run over NCCL, one rank a card."""
 
 import os
 import sys
@@ -68,3 +71,28 @@ def test_phase_issues_every_collective_kind(phase):
     for r in recs:
         assert {"all_reduce", "all_gather", "all_to_all"} <= set(
             r["collectives"])
+
+
+def test_phase_sharded_step(phase):
+    """One rank: the sharded step's every leaf equals the unsharded
+    step's.  More: the checks against the unsharded step ran at both
+    precisions, the graphed deep arm equals the eager one, and the trees
+    each arm returns after its last step hold the bytes the rank's specs
+    give it, less than the whole state."""
+    world, recs, _ = phase
+    for r in recs:
+        sh = r["sharded"]
+        if world == 1:
+            assert sh["leaves_differ"] == []
+            assert sh["loss"][0] == sh["loss"][1]
+            continue
+        assert sh["mesh"] == {"data": 2, "model": world // 2}
+        for k in ("check_float32", "check_bfloat16"):
+            assert sh[k]["max_update_err_over_bound"] <= 1.0
+        deep = sh["deep"]
+        assert deep["losses"]["graph"] == deep["losses"]["eager"]
+        kept = deep["stored_bytes"]
+        assert kept["eager"] == kept["graph"] == deep["spec_bytes"] \
+            < deep["whole_state_bytes"]["params_m_v"]
+        assert {"all_gather", "reduce_scatter", "all_reduce"} <= set(
+            sh["collectives"])

@@ -6,6 +6,7 @@ denied counter hold; the untraced run's tokens equal ``repro``'s dense
 decode loop.  The direct p50 delta's sanity band is wall-clock noise on a
 loaded host, the card's to judge, and stays out of these tests."""
 
+import itertools
 import json
 
 import jax
@@ -18,6 +19,9 @@ from repro.models import model as JM
 from repro_torch import configs as TC
 from repro_torch.benchmarks import obs as OBS
 from repro_torch.benchmarks import smoke as SM
+from repro_torch.core import table as TT
+from repro_torch.core.registry import BravoRegistry
+from repro_torch.kernels.ref import hashed_requests
 from repro_torch.models import model as TM
 from test_torch_scheduler_bench import repro_dense_tokens
 
@@ -32,6 +36,15 @@ def models():
     jp = JM.init_params(jax.random.PRNGKey(0), cj)
     tp = TM.from_jax_params(jax.tree.map(np.asarray, jp), ct, device="cpu")
     return cj, ct, jp, tp
+
+
+@pytest.fixture(autouse=True)
+def _fresh_lock_ids(monkeypatch):
+    """The traced registry pair's lock takes the next number of a
+    process-wide counter, and its 16 readers' slots hash that number: start
+    the counter at 1 so that the pair's slots do not depend on how many
+    locks ran earlier in this process."""
+    monkeypatch.setattr(TT, "_lock_ids", itertools.count(1))
 
 
 def _deterministic(failures):
@@ -79,6 +92,27 @@ def test_zero_sync_leaves_the_global_tracer_off():
     rec = OBS.bench_zero_sync(CPU)
     assert SM.FAILURES == [] and rec["publishes"] == 1
     assert not OBS.TRACER.enabled
+
+
+@pytest.mark.parametrize("lock_id", [1, 39])
+def test_zero_sync_denies_exactly_the_slot_collisions(monkeypatch, lock_id):
+    """A denied publish is BRAVO's collision path: two readers whose ids
+    hash to one slot under the lock's number, the second taking the slow
+    path.  Lock number 39 is the first under which two of the pair's 16
+    reader ids share a slot; number 1 gives 16 distinct slots."""
+    monkeypatch.setattr(TT, "_lock_ids", itertools.count(lock_id))
+    SM.FAILURES.clear()
+    rec = OBS.bench_zero_sync(CPU)
+    reg = BravoRegistry(device=CPU)
+    monkeypatch.setattr(TT, "_lock_ids", itertools.count(lock_id))
+    h = reg.alloc("collisions")
+    _, _, slots = hashed_requests(reg.table, reg.lock_vals,
+                                  torch.tensor(h.idx),
+                                  torch.arange(16, dtype=torch.int32))
+    collisions = 16 - len(set(slots.flatten().tolist()))
+    assert collisions == (lock_id == 39)
+    assert rec["denied_publishes"] == collisions and rec["publishes"] == 1
+    SM.FAILURES.clear()
 
 
 def test_cli_smoke_on_the_cpu(tmp_path):

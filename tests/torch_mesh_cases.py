@@ -15,6 +15,7 @@ device ``r`` of the JAX mesh of the same shape sit at the same
 coordinates (both lay ranks out row-major).
 """
 
+import importlib
 import os
 import pickle
 import subprocess
@@ -51,7 +52,13 @@ def _rank_main(rank, world, store_dir, fn_name, args, out_dir):
 
     init_world(store_dir, rank, world, device="cpu", timeout_s=120.0)
     try:
-        res = globals()[fn_name](rank, world, *args)
+        if ":" in fn_name:          # a rank function of another module
+            mod, name = fn_name.split(":")
+            sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+            fn = getattr(importlib.import_module(mod), name)
+        else:
+            fn = globals()[fn_name]
+        res = fn(rank, world, *args)
         with open(os.path.join(out_dir, f"{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
     finally:
@@ -60,8 +67,9 @@ def _rank_main(rank, world, store_dir, fn_name, args, out_dir):
 
 def run_ranks(fn_name, world, *args, timeout=RANKS_TIMEOUT_S):
     """``fn_name(rank, world, *args)`` on every rank of a new gloo world
-    of ``world``; -> the ranks' results, in rank order.  A rank that
-    raises fails the call with its traceback; one that outlives
+    of ``world`` (a function of this module, or ``"module:function"`` of
+    another module in tests/); -> the ranks' results, in rank order.  A
+    rank that raises fails the call with its traceback; one that outlives
     ``timeout`` is killed and the call raises ``TimeoutError``."""
     with tempfile.TemporaryDirectory() as d:
         _spawn(_rank_main, world, (world, os.path.join(d, "store"), fn_name,
@@ -751,8 +759,8 @@ def rank_engine_swaps(rank, world, seed):
 def rank_mesh_phase(rank, world):
     """``chip_smoke._mesh_checks`` on this gloo rank at the smoke configs
     (float32), the graphs on the CPU stand-in and the card's counters
-    stubbed, the store, the revokes' holders, the train batch and the
-    swap period cut to the smoke size."""
+    stubbed, the store, the revokes' holders, the train batches, the
+    sharded step's depth and the swap period cut to the smoke size."""
     import dataclasses
 
     root = os.path.dirname(SRC)
@@ -766,6 +774,8 @@ def rank_mesh_phase(rank, world):
         setattr(torch.cuda, name, lambda *a, **k: None)
     torch.cuda.max_memory_allocated = lambda *a, **k: 0
     torch.cuda.nccl.version = lambda: (0, 0, 0)
+    torch.cuda.get_device_properties = lambda *a, **k: type(
+        "Props", (), {"total_memory": 1 << 40})()
     llama3_2_1b.CONFIG = dataclasses.replace(
         llama3_2_1b.SMOKE, param_dtype=torch.float32,
         compute_dtype=torch.float32)
@@ -774,5 +784,7 @@ def rank_mesh_phase(rank, world):
         get(arch)[1:])
     CS.SCHED_PAGES, CS.MESH_HOLDERS = 256, 100
     CS.MESH_TRAIN_BATCH = (4, 16)
+    CS.MESH_ONE_BATCH, CS.MESH_SHARDED_BATCH = (2, 16), (4, 16)
+    CS.MESH_SHARDED_LAYERS = 4
     CS.MESH_SWAP_S = 0.03        # swaps land within the smoke engine's run
     return CS._mesh_checks(torch.device("cpu"), 0)
