@@ -310,6 +310,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
@@ -504,10 +505,11 @@ WRITER_KERNELS = ["fused_publish_multi", "fused_publish", "revocation_poll",
 # and quant: timing readings in turns); slo: replays of each arm
 ENGINE_KERNELS = ["fused_publish_multi", "fused_publish", "paged_attention",
                   "paged_chunk_attention"]
-# (slo and scheduler at 2 since the mesh phase's train step joined the
-# script: 49.2 and 42.3 s at 3 on a host whose script then took 1286.4 s)
+# (scheduler at 2 since the mesh phase's train step joined the script:
+# 42.3 s at 3 on a host whose script then took 1286.4 s; slo at 3, since a
+# median of 2 replays is their mean and one slow replay moves the band)
 TWIN_WINDOWS = {"obs": 5, "scheduler": 2, "prefill": 3, "quant": 3,
-                "slo": 2}
+                "slo": 3}
 # the eviction run: the same scheduler phase on a store so small that
 # decode growth evicts (a request needs up to 6 pages of 16; wave 1's six
 # need about 27); at 12-20 pages the port's CPU run of the smoke config
@@ -517,8 +519,9 @@ EVICT_PAGES = 16
 # ticks an arm, at 2 and 8 active rows; a replayed tick's float32 logits
 # against the eager tick's, relative to the largest logit (3 windows since
 # the mesh phase's train step joined the script: 78.5 s at 5 on a host
-# whose script then took 1286.4 s)
-GRAPH_WINDOWS = 3
+# whose script then took 1286.4 s; 2 since the slo phase's third replay,
+# which it pays for: 74.1 s at 3 on a host whose script took 1053.1 s)
+GRAPH_WINDOWS = 2
 GRAPH_TICKS = 8
 GRAPH_ROWS = (2, 8)
 GRAPH_LOGITS_REL = 1e-5
@@ -4695,7 +4698,7 @@ def _mesh_spawn(world: int, seed: int) -> list:
                     for r, (p, log) in enumerate(procs):
                         log.flush()
                         with open(log.name) as f:
-                            tails[r] = f.read()[-3000:]
+                            tails[r] = f.read()[-6000:]
                     raise AssertionError(
                         f"mesh: rank(s) {bad or 'all'} failed or timed out "
                         f"at {world} ranks: {json.dumps(tails)}")
@@ -4730,7 +4733,15 @@ def _mesh_rank_main(rank, world, store_dir, seed) -> None:
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rec = _mesh_rank(dev, rank, world, store_dir, seed)
+    try:
+        rec = _mesh_rank(dev, rank, world, store_dir, seed)
+    except BaseException:
+        # the peers may wait in a collective for this rank: exit at once,
+        # so that ``_mesh_spawn`` sees a dead rank and stops the others
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
     path = os.path.join(store_dir, f"rank{rank}.json")
     with open(path + ".tmp", "w") as f:
         json.dump(rec, f)
@@ -4748,9 +4759,15 @@ def _mesh_rank(dev, rank, world, store_dir, seed) -> dict:
     try:
         if dev.type == "cuda" and backend != "nccl":
             raise AssertionError(f"mesh: backend {backend}, not nccl")
-        return _mesh_checks(dev, seed)
-    finally:
-        dist.destroy_process_group()
+        rec = _mesh_checks(dev, seed)
+    except BaseException:
+        # tearing the process group down waits for the peers' collectives:
+        # a failed rank of several leaves it to its process's exit
+        if world == 1:
+            dist.destroy_process_group()
+        raise
+    dist.destroy_process_group()
+    return rec
 
 
 def _mesh_checks(dev, seed) -> dict:
@@ -4793,6 +4810,7 @@ def _mesh_checks(dev, seed) -> dict:
     out["train"] = [_mesh_train(dev, make_mesh(*s, device=dev), seed)
                     for s in shapes["train"]]
     out["sharded"] = _mesh_sharded(dev, mesh, seed)
+    out["sharded_serve"] = _mesh_sharded_serve(dev, mesh, seed)
     out["collectives"] = DS.collective_counts()
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -4830,6 +4848,17 @@ def _mesh_across(recs) -> dict:
                 raise AssertionError(
                     f"mesh: the sharded step's {k} differ between rank 0 "
                     f"and rank {r['rank']}: {a} / {b}")
+    rows = {}                      # decode_32k's tokens by data coordinate
+    for r in recs:
+        full = r["sharded_serve"].get("decode_32k")
+        if full is None:
+            continue
+        rank, tokens = rows.setdefault(full["coords"]["data"],
+                                       (r["rank"], full["tokens"]))
+        if tokens != full["tokens"]:
+            raise AssertionError(
+                f"mesh: decode_32k's tokens differ between ranks {rank} and "
+                f"{r['rank']}, which share their rows")
     out = dict(first)
     out["engine"] = dict(first["engine"])
     out["engine"].pop("outputs", None)
@@ -4842,8 +4871,15 @@ def _mesh_across(recs) -> dict:
                         "engine_tokens_per_s": [x["tokens_per_s"] for x in
                                                 r["engine"]["runs"]],
                         "train_ms": [t["ms"] for t in r["train"]],
-                        "sharded": _sharded_rank_summary(r["sharded"])}
+                        "sharded": _sharded_rank_summary(r["sharded"]),
+                        "sharded_serve": _serve_rank_summary(
+                            r["sharded_serve"])}
                        for r in recs]
+    out["sharded_serve"] = dict(first["sharded_serve"])
+    if "decode_32k" in out["sharded_serve"]:
+        out["sharded_serve"]["decode_32k"] = {
+            k: v for k, v in first["sharded_serve"]["decode_32k"].items()
+            if k != "tokens"}
     return out
 
 
@@ -4858,6 +4894,25 @@ def _sharded_rank_summary(rec) -> dict:
                 "capture_ms"], "peak_allocated": deep["peak_allocated"],
             "checks_ms": {k: rec[k]["ms"] for k in ("check_float32",
                                                     "check_bfloat16")}}
+
+
+def _serve_rank_summary(rec) -> dict:
+    """A rank's own readings of the sharded serving steps: decode_32k's
+    coordinates, stored cache bytes, step times and peaks, and
+    prefill_32k's ms and peak."""
+    full, long = rec.get("decode_32k"), rec.get("prefill_32k")
+    if full is None:
+        return {"seconds": rec["seconds"]}
+    return {"coords": full["coords"],
+            "stored_cache_bytes": full["stored_cache_bytes"],
+            "decode_ms": full["ms"], "decode_event_ms": full["event_ms"],
+            "capture_ms": full["graph_stats"]["capture_ms"],
+            "decode_peak_allocated": full["peak_allocated"],
+            "prefill_32k_ms": long["ms"],
+            "prefill_32k_peak_allocated": long["peak_allocated"],
+            "seconds": {k: rec[k]["seconds"] for k in (
+                "check_float32", "check_bfloat16", "decode_32k",
+                "prefill_32k")}}
 
 
 def _mesh_engine(cfg, params, dev, mesh, seed) -> dict:
@@ -5569,6 +5624,531 @@ def _sharded_deep(dev, mesh, seed) -> dict:
     if not ok:
         raise AssertionError(f"mesh: the sharded step at "
                              f"{MESH_SHARDED_LAYERS} layers: {rec}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# The sharded serving steps (``_mesh_sharded_serve``): the dry run's
+# prefill and decode steps per rank (``serving.steps.serve_specs``)
+# ---------------------------------------------------------------------------
+
+# One card, (1, 1): llama3.2-1b at full width, 2 of its 16 layers, a
+# (2, 1024) prompt and 3 decode steps of 2 rows against a 2048-position
+# cache, against the unsharded steps bit for bit, eager and graphed.  N
+# cards, (2, N / 2): llama3.2-1b at full width and depth, (a) against the
+# unsharded steps on each card at float32 and bf16 compute (a 4 x 2048
+# prompt; 4 rows decoding 4 steps against a 32768-position cache ending
+# full), (b) decode_32k's whole shape (128 rows, 32768 positions; a
+# 34.4 GB cache block a rank), eager then graphed, (c) prefill_32k's
+# sequence with its batch cut from 32 to 4
+MESH_SERVE_ARCH = "llama3.2-1b"
+MESH_SERVE_ONE = {"layers": 2, "prefill": (2, 1024), "rows": 2,
+                  "cache": 2048, "steps": 3}
+MESH_SERVE_CHECK = {"prefill": (4, 2048), "rows": 4, "cache": 32768,
+                    "steps": 4}
+MESH_SERVE_DECODE = {"rows": 128, "cache": 32768, "steps": 3}
+MESH_SERVE_PREFILL = (4, 32768)
+# sharded against unsharded, relative to the largest unsharded value: at
+# float32 compute 1e-5 with tokens equal; at bf16 R12's rule, each token
+# equal or a near-tie of the unsharded logits
+MESH_SERVE_TOL = {"float32": 1e-5, "bfloat16": BF16_VS_F32_REL}
+
+
+def _mesh_sharded_serve(dev, mesh, seed) -> dict:
+    """The sharded prefill and decode steps (``make_prefill_step``/
+    ``make_decode_step`` with ``sharded=True``: the dry run's layouts
+    from ``serve_specs``) on the engine's (data, model) ``mesh``.  One
+    card: ``_serve_one_rank``.  N cards: ``_serve_vs_unsharded`` at
+    float32 and at bf16 compute, ``_serve_decode_full`` and
+    ``_serve_prefill_long``.  The collectives are counted by kind, and the
+    path launches none of the port's kernels (its attention is plain
+    PyTorch, as ``repro``'s is plain ``jnp``): every K1-K10 count stays
+    0."""
+    import torch
+
+    from repro_torch.dist import sharding as DS
+    from repro_torch.kernels import ops as K
+
+    t0 = time.monotonic()
+    before, k0 = DS.collective_counts(), K.launch_counts()
+    if math.prod(DS.mesh_view(mesh).sizes) == 1:
+        out = _serve_one_rank(dev, mesh, seed)
+    else:
+        out = {"arch": MESH_SERVE_ARCH, "mesh": _mesh_shape(mesh)}
+        for dt in (torch.float32, torch.bfloat16):
+            t = time.monotonic()
+            rec = _serve_vs_unsharded(dev, mesh, seed, dt)
+            rec["seconds"] = time.monotonic() - t
+            out[f"check_{str(dt)[6:]}"] = rec
+        for name, fn in (("decode_32k", _serve_decode_full),
+                         ("prefill_32k", _serve_prefill_long)):
+            t = time.monotonic()
+            out[name] = fn(dev, mesh, seed)
+            out[name]["seconds"] = time.monotonic() - t
+    after, k1 = DS.collective_counts(), K.launch_counts()
+    out["collectives"] = {k: v - before.get(k, 0) for k, v in after.items()
+                          if v > before.get(k, 0)}
+    out["kernel_launches"] = {k: v - k0.get(k, 0) for k, v in k1.items()}
+    if any(out["kernel_launches"].values()):
+        raise AssertionError(f"mesh: the sharded serving path launched a "
+                             f"kernel: {out['kernel_launches']}")
+    for kind in ("all_gather", "all_reduce"):
+        if not out["collectives"].get(kind):
+            raise AssertionError(f"mesh: the sharded serving steps issued no "
+                                 f"{kind}: {out['collectives']}")
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def _serve_setup(dev, seed, layers=None, compute=None):
+    """(cfg, rules, whole parameters) of llama3.2-1b from the seed, the
+    same on every card (the embedding scaled as ``main`` scales it)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import model as M
+
+    cfg, rules, _ = configs.get(MESH_SERVE_ARCH)
+    cfg = dataclasses.replace(cfg, **({} if layers is None else
+                                      {"n_layers": layers}),
+                              **({} if compute is None else
+                                 {"compute_dtype": compute}))
+    params = M.init_params(seed, cfg, device=dev)
+    params["embed"].mul_(EMBED_SCALE)
+    return cfg, rules, params
+
+
+def _seeded_fill(tree, seed) -> None:
+    """Every leaf of a cache tree drawn anew, in place, from the seed."""
+    import torch
+
+    g = torch.Generator(device=next(iter(tree.values())).device)
+    g.manual_seed(seed)
+    for k in sorted(tree):
+        tree[k].normal_(generator=g)
+
+
+def _seeded_cache(cfg, rows, seq, dev, seed) -> dict:
+    from repro_torch.models import model as M
+
+    caches = M.init_caches(cfg, rows, seq, device=dev)
+    _seeded_fill(caches, seed)
+    return caches
+
+
+def _decode_inputs(cfg, dev, seed, rows, cache, steps):
+    """Each step's seeded input tokens (rows, 1) and its scalar cache_len,
+    the last step's the whole cache."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 7)
+    return [(torch.randint(0, cfg.vocab, (rows, 1), generator=g, device=dev,
+                           dtype=torch.int32),
+             torch.tensor(cache - steps + 1 + i, dtype=torch.int32,
+                          device=dev)) for i in range(steps)]
+
+
+def _rows_of(x, spec, mesh):
+    from repro_torch.dist import sharding as DS
+
+    return DS.shard_block(x, DS.P(tuple(spec)[0]), mesh)
+
+
+def _evented(step, *args):
+    """``step(*args)`` -> (its result, host ms to a synchronize, CUDA-event
+    ms on the current stream)."""
+    import torch
+
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t = time.perf_counter()
+    a.record()
+    out = step(*args)
+    b.record()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3, a.elapsed_time(b)
+
+
+def _serve_one_rank(dev, mesh, seed) -> dict:
+    """``MESH_SERVE_ONE`` on the (1, 1) ``mesh``: every block is the whole
+    leaf and the cache's sequence one slice, so the sharded steps equal
+    the unsharded ones bit for bit: the prefill's logits and caches, each
+    decode step's tokens, logits and caches.  Then both sharded steps
+    through ``jit_mesh_step`` (the prefill warmed up, captured and
+    replayed; the decode step with its cache donated, from the same cache
+    drawn anew), bit-equal to the eager ones."""
+    import gc
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.ft.elastic import reshard_tree
+    from repro_torch.serving import steps as ST
+
+    one = MESH_SERVE_ONE
+    cfg, rules, params = _serve_setup(dev, seed, one["layers"])
+    b, p = one["prefill"]
+    rows, seq, steps = one["rows"], one["cache"], one["steps"]
+    batch = {"tokens": _token_batches(cfg, dev, seed, (b, p), 1)[0]["tokens"]}
+    differ = []
+
+    def same(name, x, y):
+        if not torch.equal(x, y):
+            differ.append(name)
+
+    blocks = reshard_tree(params, params, rules, mesh, device=dev)
+    pre = ST.make_prefill_step(cfg, mesh, rules, sharded=True, shape=(b, p))
+    (l1, c1), sharded_ms = _timed_step(pre, blocks, batch)
+    (l2, c2), plain_ms = _timed_step(ST.make_prefill_step(cfg), params,
+                                     batch)
+    same("prefill.logits", l1, l2)
+    for k in c1:
+        same(f"prefill.caches.{k}", c1[k], c2[k])
+    graph = ST.jit_mesh_step(ST.make_prefill_step(
+        cfg, mesh, rules, sharded=True, shape=(b, p)), mesh)
+    for i in range(3):
+        lg, cg = graph(blocks, batch)
+        same(f"prefill.graph{i}.logits", lg, l1)
+        for k in cg:
+            same(f"prefill.graph{i}.caches.{k}", cg[k], c1[k])
+    pstats = (graph.stats.warmups, graph.stats.captures, graph.stats.replays)
+    del blocks, c1, c2, graph
+    dblocks = reshard_tree(params, params, rules, mesh, decode=True,
+                           device=dev)
+    dec = ST.make_decode_step(cfg, mesh, rules, sharded=True,
+                              shape=(rows, seq))
+    plain = ST.make_decode_step(cfg)
+    inputs = _decode_inputs(cfg, dev, seed, rows, seq, steps)
+    whole = _seeded_cache(cfg, rows, seq, dev, seed)
+    blk = _seeded_cache(cfg, rows, seq, dev, seed)
+    eager = []
+    for i, (tok, n) in enumerate(inputs):
+        t1, g1, whole = plain(params, whole, tok, n)
+        t2, g2, blk = dec(dblocks, blk, tok, n)
+        same(f"decode{i}.token", t2, t1)
+        same(f"decode{i}.logits", g2, g1)
+        eager.append((t2, g2))
+    for k in blk:
+        same(f"decode.caches.{k}", blk[k], whole[k])
+    graph = ST.jit_mesh_step(ST.make_decode_step(
+        cfg, mesh, rules, sharded=True, shape=(rows, seq)), mesh,
+        donate_argnums=(1,))
+    _seeded_fill(blk, seed)
+    for i, (tok, n) in enumerate(inputs):
+        t3, g3, out = graph(dblocks, blk, tok, n)
+        same(f"decode.graph{i}.token", t3, eager[i][0])
+        same(f"decode.graph{i}.logits", g3, eager[i][1])
+        if out is not blk:
+            differ.append(f"decode.graph{i}: not in place")
+    for k in blk:
+        same(f"decode.graph.caches.{k}", blk[k], whole[k])
+    dstats = (graph.stats.warmups, graph.stats.captures, graph.stats.replays)
+    rec = {"arch": MESH_SERVE_ARCH, "layers": one["layers"],
+           "of_layers": configs.get(MESH_SERVE_ARCH)[0].n_layers,
+           "mesh": _mesh_shape(mesh), "prefill": [b, p],
+           "decode": {"rows": rows, "cache": seq,
+                      "cache_len": [int(n) for _, n in inputs]},
+           "ms": {"prefill_sharded": sharded_ms,
+                  "prefill_unsharded": plain_ms},
+           "graph_stats": {"prefill": pstats, "decode": dstats},
+           "differ": differ}
+    del params, dblocks, whole, blk, graph, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    if differ or pstats != (1, 1, 2) or dstats != (1, 1, steps - 1):
+        raise AssertionError(f"mesh: the sharded serving steps at one rank "
+                             f"are not the unsharded steps bit for bit: "
+                             f"{rec}")
+    return rec
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over the largest |want|, in float64."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def _serve_vs_unsharded(dev, mesh, seed, compute) -> dict:
+    """``MESH_SERVE_CHECK`` at ``compute``: llama3.2-1b at full width and
+    depth, float32 parameters.  The sharded prefill on this rank's blocks
+    and rows against the unsharded prefill of the whole batch on this
+    card: the logits rows and the cache blocks (this rank's block of the
+    unsharded caches) within ``MESH_SERVE_TOL`` of the largest.  Then the
+    decode steps against a seeded cache whose last step fills it, the
+    same inputs given to both (teacher-forced): each step's tokens (equal
+    at float32; equal or a near-tie of the unsharded logits at bf16,
+    R12) and logits rows within the tolerance, and the cache blocks after
+    the last step."""
+    import gc
+
+    import torch
+
+    from repro_torch.dist import sharding as DS
+    from repro_torch.ft.elastic import reshard_tree
+    from repro_torch.serving import steps as ST
+
+    name = str(compute)[6:]
+    tol = MESH_SERVE_TOL[name]
+    chk = MESH_SERVE_CHECK
+    cfg, rules, params = _serve_setup(dev, seed, None, compute)
+    b, p = chk["prefill"]
+    tokens = _token_batches(cfg, dev, seed, (b, p), 1)[0]["tokens"]
+    pre = ST.make_prefill_step(cfg, mesh, rules, sharded=True, shape=(b, p))
+    specs = pre.specs
+    blocks = reshard_tree(params, params, rules, mesh, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    (l1, c1), sharded_ms = _timed_step(
+        pre, blocks, {"tokens": _rows_of(tokens, specs["batch"]["tokens"],
+                                         mesh)})
+    peak = torch.cuda.max_memory_allocated()
+    del blocks
+    (l2, c2), plain_ms = _timed_step(ST.make_prefill_step(cfg), params,
+                                     {"tokens": tokens})
+    errs = {"prefill_logits": _rel_err(
+        l1, _rows_of(l2, specs["batch"]["tokens"], mesh))}
+    for k in c1:
+        errs[f"prefill_{k}"] = _rel_err(
+            c1[k], DS.shard_block(c2[k], specs["caches"][k], mesh))
+    del l1, l2, c1, c2
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows, seq, steps = chk["rows"], chk["cache"], chk["steps"]
+    dec = ST.make_decode_step(cfg, mesh, rules, sharded=True,
+                              shape=(rows, seq))
+    dspecs = dec.specs
+    dblocks = reshard_tree(params, params, rules, mesh, decode=True,
+                           device=dev)
+    plain = ST.make_decode_step(cfg)
+    whole = _seeded_cache(cfg, rows, seq, dev, seed)
+    blk = {k: DS.shard_block(v, dspecs["caches"][k], mesh).clone()
+           for k, v in whole.items()}
+    tokens_ok, ms = [], {"sharded": [], "unsharded": []}
+    errs["decode_logits"] = 0.0
+    for tok, n in _decode_inputs(cfg, dev, seed, rows, seq, steps):
+        (t1, g1, whole), u = _timed_step(plain, params, whole, tok, n)
+        (t2, g2, blk), s = _timed_step(
+            dec, dblocks, blk, _rows_of(tok, dspecs["token"], mesh), n)
+        ms["unsharded"].append(u)
+        ms["sharded"].append(s)
+        want = _rows_of(g1, dspecs["token"], mesh).float()
+        errs["decode_logits"] = max(errs["decode_logits"],
+                                    _rel_err(g2, want))
+        mine = torch.gather(want, 1, t2.long())[:, 0]
+        near = mine >= want.max(dim=1).values - tol * float(
+            want.abs().max())
+        same = t2[:, 0] == _rows_of(t1, dspecs["token"], mesh)[:, 0]
+        tokens_ok.append(bool(same.all()) if name == "float32"
+                         else bool((same | near).all()))
+    for k in blk:
+        want = DS.shard_block(whole[k], dspecs["caches"][k], mesh)
+        errs[f"decode_{k}"] = _rel_err(blk[k], want)
+        errs[f"decode_{k}_rounding"] = _over_rounding(blk[k], want, tol)
+    rec = {"compute": name, "layers": cfg.n_layers, "prefill": [b, p],
+           "decode": {"rows": rows, "cache": seq, "steps": steps},
+           "rel_err": errs, "tokens_ok": tokens_ok, "tolerance": tol,
+           "ms": {"prefill_sharded": sharded_ms,
+                  "prefill_unsharded": plain_ms, "decode": ms},
+           "prefill_peak_allocated": peak}
+    del params, dblocks, whole, blk
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the bf16 caches at float32 compute: a written K/V is a float32 value
+    # within ``tol`` of the largest rounded to bf16 on both sides, so the
+    # two differ by at most that plus one bf16 step of the value
+    # (``_over_rounding``); at bf16 compute, ``tol`` of the largest
+    limits = {}
+    for k in errs:
+        if k.endswith("_rounding"):
+            limits[k] = 1.0 if name == "float32" else math.inf
+        elif name == "float32" and k in ("decode_k", "decode_v"):
+            limits[k] = math.inf              # held by the rounding bound
+        else:
+            limits[k] = tol
+    rec["limits"] = limits
+    if not all(tokens_ok) or not all(math.isfinite(e) and e <= limits[k]
+                                     for k, e in errs.items()):
+        raise AssertionError(f"mesh: the sharded serving steps at {name} "
+                             f"differ from the unsharded ones: {rec}")
+    return rec
+
+
+def _over_rounding(got, want, rel) -> float:
+    """max over the elements of two bf16 tensors of |got - want| over
+    one bf16 step of |want| plus ``rel`` of the largest |want|: at most
+    1 where both are roundings of float32 values within ``rel`` of the
+    largest."""
+    import torch
+
+    got, want = got.float(), want.float()
+    mag = want.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    bound = step + rel * float(want.abs().max())
+    return float(((got - want).abs() / bound).max())
+
+
+def _cache_bytes(caches) -> int:
+    return sum(x.numel() * x.element_size() for x in caches.values())
+
+
+def _serve_decode_full(dev, mesh, seed) -> dict:
+    """decode_32k's whole shape (``MESH_SERVE_DECODE``): llama3.2-1b at
+    full width and depth, this rank's bf16 cache block (34,359,738,368
+    bytes at (2, 2)) drawn on the card from the seed and its coordinates.
+    ``steps`` decode steps eager, then the same from the same cache drawn
+    anew through ``jit_mesh_step`` (the cache donated: a warm-up, a
+    capture that replays, a replay), the last step's ``cache_len`` the
+    whole cache.  Each step's host and CUDA-event ms, the capture's ms,
+    the peak ``memory_allocated``, the bytes the cache blocks hold
+    against the specs' count, the collectives by kind.  The graph equals
+    eager bit for bit: tokens, logits, and the cache entries at the
+    written positions; every logit finite."""
+    import gc
+
+    import torch
+
+    from repro_torch.dist import sharding as DS
+    from repro_torch.ft.elastic import reshard_tree
+    from repro_torch.models import model as M
+    from repro_torch.serving import steps as ST
+
+    cfg, rules, params = _serve_setup(dev, seed)
+    d = MESH_SERVE_DECODE
+    rows, seq, steps = d["rows"], d["cache"], d["steps"]
+    dblocks = reshard_tree(params, params, rules, mesh, decode=True,
+                           device=dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dec = ST.make_decode_step(cfg, mesh, rules, sharded=True,
+                              shape=(rows, seq))
+    specs = dec.specs
+    whole = M.init_caches(cfg, rows, seq, device="meta")
+    cut = DS.block_shape(tuple(whole["k"].shape), specs["caches"]["k"], mesh)
+    spec_bytes = 2 * math.prod(cut) * whole["k"].element_size()
+    coords = DS.mesh_coords(mesh)
+    fill = seed * 1000 + coords.get("data", 0) * 10 + coords.get("model", 0)
+    caches = {k: torch.empty(cut, dtype=whole[k].dtype, device=dev)
+              for k in ("k", "v")}
+    inputs = [(_rows_of(t, specs["token"], mesh), n)
+              for t, n in _decode_inputs(cfg, dev, seed, rows, seq, steps)]
+    # the written positions in this rank's slice of the sequence
+    sl = specs["caches"]["k"][2]
+    lo = 0
+    for a in () if sl is None else (sl,) if isinstance(sl, str) else sl:
+        lo = lo * DS.mesh_view(mesh).shape[a] + coords[a]
+    lo *= cut[2]
+    mine = [int(n) - 1 - lo for _, n in inputs
+            if lo <= int(n) - 1 < lo + cut[2]]
+
+    def arm(step):
+        _seeded_fill(caches, fill)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        outs, host, event = [], [], []
+        for tok, n in inputs:
+            (t, g, out), h, e = _evented(step, dblocks, caches, tok, n)
+            if out is not caches:
+                raise AssertionError("mesh: the decode step did not "
+                                     "return its cache blocks")
+            outs.append((t.clone(), g.clone()))
+            host.append(h)
+            event.append(e)
+        written = {k: caches[k][:, :, mine].clone() for k in caches}
+        return outs, host, event, torch.cuda.max_memory_allocated(), written
+
+    before = DS.collective_counts()
+    e_outs, e_host, e_event, e_peak, e_written = arm(dec)
+    counts = {k: v - before.get(k, 0) for k, v in
+              DS.collective_counts().items() if v > before.get(k, 0)}
+    graph = ST.jit_mesh_step(ST.make_decode_step(
+        cfg, mesh, rules, sharded=True, shape=(rows, seq)), mesh,
+        donate_argnums=(1,))
+    g_outs, g_host, g_event, g_peak, g_written = arm(graph)
+    st = graph.stats
+    stats = {"warmups": st.warmups, "captures": st.captures,
+             "replays": st.replays, "capture_ms": list(st.capture_ms)}
+    equal = all(torch.equal(a, b) for x, y in zip(e_outs, g_outs)
+                for a, b in zip(x, y)) and all(
+        torch.equal(e_written[k], g_written[k]) for k in caches)
+    finite = all(bool(torch.isfinite(g).all()) for _, g in e_outs)
+    rec = {"arch": MESH_SERVE_ARCH, "layers": cfg.n_layers,
+           "mesh": _mesh_shape(mesh), "coords": coords, "rows": rows,
+           "cache": seq, "cache_len": [int(n) for _, n in inputs],
+           "block": list(cut), "stored_cache_bytes": _cache_bytes(caches),
+           "spec_cache_bytes": spec_bytes,
+           "whole_cache_bytes": 2 * math.prod(whole["k"].shape)
+           * whole["k"].element_size(),
+           "tokens": [t[:, 0].tolist() for t, _ in g_outs],
+           "ms": {"eager": e_host, "graph": g_host},
+           "event_ms": {"eager": e_event, "graph": g_event},
+           "peak_allocated": {"eager": e_peak, "graph": g_peak},
+           "graph_stats": stats, "collectives": counts,
+           "written_positions": mine, "graph_equals_eager": equal,
+           "finite": finite,
+           "card_bytes": torch.cuda.get_device_properties(dev).total_memory}
+    del dblocks, caches, graph, e_outs, g_outs, e_written, g_written
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (equal and finite and rec["stored_cache_bytes"] == spec_bytes
+            and (st.warmups, st.captures, st.replays) == (1, 1, steps - 1)):
+        raise AssertionError(f"mesh: decode_32k's sharded step: {rec}")
+    return rec
+
+
+def _serve_prefill_long(dev, mesh, seed) -> dict:
+    """prefill_32k's sequence (``MESH_SERVE_PREFILL``, the batch cut from
+    32 to 4): the sharded prefill of llama3.2-1b at full width and depth
+    on this rank's rows, eager.  Its ms, the peak ``memory_allocated``,
+    the cache blocks' bytes against the specs' count, finite logits
+    rows over the whole vocab."""
+    import gc
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.dist import sharding as DS
+    from repro_torch.ft.elastic import reshard_tree
+    from repro_torch.models import model as M
+    from repro_torch.serving import steps as ST
+
+    cfg, rules, params = _serve_setup(dev, seed)
+    b, s = MESH_SERVE_PREFILL
+    blocks = reshard_tree(params, params, rules, mesh, device=dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    pre = ST.make_prefill_step(cfg, mesh, rules, sharded=True, shape=(b, s))
+    specs = pre.specs
+    tokens = _token_batches(cfg, dev, seed, (b, s), 1)[0]["tokens"]
+    local = {"tokens": _rows_of(tokens, specs["batch"]["tokens"], mesh)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (logits, caches), ms = _timed_step(pre, blocks, local)
+    peak = torch.cuda.max_memory_allocated()
+    # the new K/V come in the promoted dtype of the activations and the
+    # weights, as in ``repro``
+    whole = M.init_caches(cfg, b, s, device="meta", dtype=torch.promote_types(
+        cfg.compute_dtype, cfg.param_dtype))
+    spec_bytes = sum(math.prod(DS.block_shape(tuple(x.shape),
+                                              specs["caches"][k], mesh))
+                     * x.element_size() for k, x in whole.items())
+    rec = {"arch": MESH_SERVE_ARCH, "layers": cfg.n_layers,
+           "mesh": _mesh_shape(mesh), "batch": [b, s],
+           "of_batch": configs.SHAPES["prefill_32k"].global_batch,
+           "rows": list(local["tokens"].shape), "ms": ms,
+           "peak_allocated": peak, "logits": list(logits.shape),
+           "stored_cache_bytes": _cache_bytes(caches),
+           "spec_cache_bytes": spec_bytes,
+           "finite": bool(torch.isfinite(logits).all())}
+    del blocks, logits, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (rec["finite"] and rec["stored_cache_bytes"] == spec_bytes
+            and rec["logits"] == [b // DS.data_shards(rules, mesh),
+                                  cfg.vocab]):
+        raise AssertionError(f"mesh: prefill_32k's sharded step: {rec}")
     return rec
 
 

@@ -248,6 +248,39 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return o.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, cache_len: torch.Tensor,
+                             offset: int = 0
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """:func:`decode_attention` over one slice of a cache's sequence, left
+    unnormalised so that the slices combine: the slice holds positions
+    ``offset .. offset + S - 1`` of the whole cache.
+
+    q: (B, 1, H, hd); caches: (B, S, KVH, hd); cache_len: (B,) valid
+    lengths of the WHOLE cache.  -> float32 ``(o, m, l)``: per query head
+    (B, KVH, g, ...) the row max ``m`` of the scaled scores over the
+    slice's valid positions, ``l`` the sum of their ``exp(s - m)`` and
+    ``o`` the sum of ``exp(s - m) v``.  A row with no valid position in
+    the slice gives ``m = -inf`` and exactly zero ``l`` and ``o``.  The
+    softmax over the whole cache is ``sum_i exp(m_i - M) o_i / sum_i
+    exp(m_i - M) l_i`` with ``M = max_i m_i``."""
+    B, S, KVH, hd = k_cache.shape
+    H = q.shape[2]
+    g = H // KVH
+    scale = 1.0 / math.sqrt(hd)
+    qh = q[:, 0].reshape(B, KVH, g, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qh.float(), k_cache.float()) * scale
+    pos = offset + torch.arange(S, device=q.device)
+    mask = (pos[None, :] < cache_len[:, None])[:, None, None, :]
+    s = torch.where(mask, s, -math.inf)
+    m = s.amax(dim=-1)
+    # an empty row's max is -inf: subtract 0 there, so exp(-inf) = 0
+    p = torch.exp(s - torch.where(m == -math.inf, 0.0, m)[..., None])
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return o, m, p.sum(dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------

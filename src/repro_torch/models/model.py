@@ -19,8 +19,8 @@ layers, with ``repro``'s flags) run per rank with explicit collectives;
 ``mesh=None`` is the one-device path, unchanged.
 
 With ``specs=`` besides (the ``param_specs`` tree; the dense, vlm and
-audio stacks, no cache) the parameters are this rank's blocks and the
-program is the one XLA partitions ``repro``'s into under those specs:
+audio stacks) the parameters are this rank's blocks and the program is
+the one XLA partitions ``repro``'s into under those specs:
 the embedding is a masked lookup in the rank's vocab rows summed over
 "model", each layer gathers its blocks over ``rules.fsdp`` inside its
 recomputed block (``dist.sharding.constrain_layer_params``, so the
@@ -28,7 +28,12 @@ recomputation gathers again) and runs tensor-parallel
 (``transformer.attn_forward``), the head's logits stay this rank's vocab
 columns, and :func:`loss_fn`'s cross-entropy combines the vocab shards
 with a ``pmax`` and ``psum`` over "model", so no rank holds whole
-logits.  The batch is then this rank's rows.
+logits.  The batch is then this rank's rows.  With ``cspecs=`` (the
+caches' ``cache_specs``) the K/V caches are this rank's blocks too: its
+rows and its slice of the sequence, every K/V head; a prefill returns
+them in that layout and a decode step attends over them
+(``transformer.attn_forward``), as the sharded serving steps
+(``serving.steps.serve_specs``) run them.
 
 Training recomputes as ``repro`` does: a stack given a ``remat_policy``
 (``training.train_step.remat_policy_by_name``: a callable ``policy(fn,
@@ -278,14 +283,15 @@ def lm_logits(p: Params, cfg: ModelConfig, x: torch.Tensor,
 def dense_stack(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 positions, caches=None, cache_len=None, make_caches=True,
                 pages=None, new_lens=None, remat_policy=None, mesh=None,
-                rules=None, specs=None):
+                rules=None, specs=None, cspecs=None):
     """Dense / audio / vlm stack: one block a layer.  -> (x, aux,
     caches).  With ``mesh``, paged attention shards its rows over the
     rules' data axes; with ``specs``, each block gathers its layer's
     blocks over ``rules.fsdp`` and runs tensor-parallel (module
-    docstring)."""
+    docstring), its K/V cache this rank's blocks under ``cspecs``."""
     data_axes = _data_axes(rules, mesh)
     ls = None if specs is None else layer_specs(specs["layers"])
+    cs = None if cspecs is None else layer_specs(cspecs)["k"]
     ks, vs = [], []
     for i, lp in enumerate(_unbind(p["layers"])):
         lc = _index(caches, i)
@@ -300,7 +306,7 @@ def dense_stack(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                                      cache=lc, cache_len=cache_len,
                                      pages=pages, new_lens=new_lens,
                                      mesh=mesh, data_axes=data_axes,
-                                     specs=ls)
+                                     specs=ls, cache_spec=cs)
         x, _, nc = _block(blk, x, remat_policy, lc)
         if caches is None and make_caches:
             ks.append(nc["k"])
@@ -426,6 +432,34 @@ _STACKS = {"dense": dense_stack, "audio": dense_stack, "vlm": dense_stack,
 _SHARDED_FAMILIES = ("dense", "vlm", "audio")
 
 
+def refuse_layouts(what: str, cfg: ModelConfig, rules: MeshRules, mesh,
+                   pspecs=None) -> None:
+    """Raise ``NotImplementedError`` naming each layout of ``cfg``/
+    ``rules`` that the sharded steps (``training.train_step.
+    train_specs``, ``serving.steps.serve_specs``) and a :func:`forward`
+    under ``specs`` do not execute yet (ROADMAP Queue 1): another stack
+    than the dense ones, ``seqshard`` attention, the sequence-sharded
+    residual, and (given the parameter specs) ``wq``/``wk`` split inside
+    a head over "model"."""
+    missing = []
+    if cfg.family not in _SHARDED_FAMILIES:
+        missing.append(f"the {cfg.family} stack's dense leaves")
+    if rules.attn_impl != "flash":
+        missing.append(f"{rules.attn_impl} attention")
+    if rules.residual_seq:
+        missing.append("residual_seq (the sequence-sharded residual)")
+    attn = (pspecs or {}).get("layers", {}).get("attn")
+    if not missing and attn is not None:
+        n = mesh_view(mesh).shape.get("model", 1)
+        for leaf, heads in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads)):
+            if "model" in spec_axes(attn[leaf]) and heads % n:
+                missing.append(f"{leaf} split inside a head ({heads} "
+                               f"heads over model={n})")
+    if missing:
+        raise NotImplementedError(f"{what} for {cfg.name}: "
+                                  f"{'; '.join(missing)} (ROADMAP Queue 1)")
+
+
 def forward(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             caches: Optional[Dict[str, Any]] = None,
             cache_len: Optional[torch.Tensor] = None,
@@ -433,7 +467,8 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             pages: Optional[torch.Tensor] = None,
             new_lens: Optional[torch.Tensor] = None,
             remat_policy=None, mesh=None,
-            rules: Optional[MeshRules] = None, specs=None,
+            rules: Optional[MeshRules] = None, specs=None, cspecs=None,
+            last_only: bool = False,
             ) -> Tuple[torch.Tensor, Any, Any]:
     """Full forward pass -> (logits, aux loss, caches).
 
@@ -453,14 +488,20 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     (right-aligned chunks; ``new_lens`` marks each row's valid tail;
     padding columns take position 0).  ``remat_policy``, ``mesh``,
     ``rules`` (default ``MeshRules()``) and ``specs``: see the module
-    docstring; with ``specs`` the logits are this rank's vocab
-    columns."""
-    if specs is not None and (caches is not None
-                              or cfg.family not in _SHARDED_FAMILIES):
-        raise NotImplementedError(
-            f"sharded storage runs the dense, vlm and audio stacks without "
-            f"a cache (family={cfg.family}, cache="
-            f"{caches is not None})")
+    docstring; with ``specs`` the logits are this rank's vocab columns.
+    ``cspecs`` (with ``specs``; the dense and vlm stacks): the K/V
+    caches' specs (``dist.sharding.cache_specs``); ``caches`` are then
+    this rank's blocks of them (its rows, its slice of the sequence, every
+    K/V head) and a decode step runs on them, or, without ``caches``, the
+    new caches come back as this rank's blocks under them.  A layout the
+    sharded path does not execute raises ``NotImplementedError`` naming it
+    (:func:`refuse_layouts`).  ``last_only``: the logits of the last
+    position only, ``(B, 1, V)``, the head computed on that position."""
+    if specs is not None:
+        refuse_layouts("a forward under specs", cfg, rules or MeshRules(),
+                       mesh, specs)
+        if caches is not None and cspecs is None:
+            raise ValueError("a cache under specs needs its specs (cspecs)")
     if pages is not None and cfg.family not in _PAGED_FAMILIES:
         raise ValueError(f"paged decode supports dense attention caches "
                          f"only (family={cfg.family})")
@@ -479,7 +520,10 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     x, aux, new_caches = _STACKS[cfg.family](
         p, x, cfg, positions=positions, caches=caches, cache_len=cache_len,
         make_caches=make_caches, pages=pages, new_lens=new_lens,
-        remat_policy=remat_policy, mesh=mesh, rules=rules, specs=specs)
+        remat_policy=remat_policy, mesh=mesh, rules=rules, specs=specs,
+        cspecs=cspecs)
+    if last_only:
+        x = x[:, -1:]
     return lm_logits(p, cfg, x, rules, mesh, specs), aux, new_caches
 
 

@@ -36,12 +36,13 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..dist.sharding import (P, all_gather, all_to_all, axis_index,
-                             axis_size, mesh_view, pmean, psum,
+                             axis_size, mesh_view, pmax, pmean, psum,
                              shard_map_compat, spec_axes)
 from ..kernels import ops as K
 from ..kernels.quant import requant_scatter
 from .common import (ModelConfig, Params, act_fn, apply_rope, decode_attention,
-                     dense_init, flash_attention, matmul, rms_norm)
+                     decode_attention_partial, dense_init, flash_attention,
+                     matmul, rms_norm)
 
 
 def init_attn(gen: torch.Generator, cfg: ModelConfig, n: int) -> Params:
@@ -278,6 +279,122 @@ def _local_kv(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
+def _seq_axes(cache_spec) -> Tuple[str, ...]:
+    """The mesh axes of a layer's cache spec ``(B, S, KVH, hd)`` that
+    split its sequence, outermost first."""
+    e = tuple(cache_spec)[1]
+    if e is None:
+        return ()
+    return (e,) if isinstance(e, str) else tuple(e)
+
+
+def _seq_slice(axes: Tuple[str, ...]) -> Tuple[int, int]:
+    """-> (this rank's slice of a sequence split over ``axes``, the number
+    of slices), in ``dist.sharding.shard_block``'s order."""
+    idx, n = 0, 1
+    for a in axes:
+        idx = idx * axis_size(a) + axis_index(a)
+        n *= axis_size(a)
+    return idx, n
+
+
+def _narrow_seq(x: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+    idx, n = _seq_slice(axes)
+    size = x.shape[1] // n
+    return x.narrow(1, idx * size, size)
+
+
+def _cache_block(x: torch.Tensor, cache_spec, kv_tp: bool) -> torch.Tensor:
+    """The new K (or V) ``(B, S, heads, hd)`` of a sharded prefill as this
+    rank's cache block under ``cache_spec``: its slice of the sequence,
+    every K/V head.  Heads replicated over "model": a local slice.  Heads
+    split over "model" (``kv_tp``): the slice over the sequence axes
+    outside "model" is local, then an all-to-all over "model" trades the
+    rank's heads of every model slice for every rank's heads of its
+    own."""
+    axes = _seq_axes(cache_spec)
+    if not kv_tp:
+        return _narrow_seq(x, axes).contiguous()
+    if "model" not in axes:
+        return _narrow_seq(all_gather(x, "model", dim=2), axes).contiguous()
+    x = _narrow_seq(x, axes[:-1])               # "model" is innermost
+    B, S, h, hd = x.shape
+    n = axis_size("model")
+    x = x.reshape(B, n, S // n, h, hd).transpose(0, 1).contiguous()
+    x = all_to_all(x, "model")                  # (source rank, B, S/n, h, hd)
+    return x.permute(1, 2, 0, 3, 4).reshape(B, S // n, n * h, hd)
+
+
+def _write_token(c: torch.Tensor, new: torch.Tensor, cache_len, lo: int,
+                 whole: int) -> None:
+    """Write the new token's K (or V) ``(B, KVH, hd)`` into this rank's
+    slice ``c`` ``(B, S_loc, KVH, hd)`` of a cache of ``whole`` positions
+    whose slice starts at position ``lo``, in place and with no host
+    sync: only the slice that holds the position writes it (the other
+    slices write back what they hold).  A scalar ``cache_len`` writes at
+    ``cache_len - 1`` clamped into the cache, as ``lax.
+    dynamic_update_slice`` clamps it; a per-request (B,) one row by row
+    at ``cache_len - 1``, a negative position counted from the end and
+    one past the cache dropped, as ``repro``'s indexed set does."""
+    n_loc = c.shape[1]
+    new = new.to(c.dtype)
+    if cache_len.dim() == 0:
+        pos = torch.clamp(cache_len.long() - 1, 0, whole - 1)
+        loc = torch.clamp(pos - lo, 0, n_loc - 1).reshape(1)
+        own = (pos >= lo) & (pos < lo + n_loc)
+        c.index_copy_(1, loc, torch.where(own, new[:, None],
+                                          c.index_select(1, loc)))
+        return
+    pos = cache_len.long() - 1
+    pos = torch.where(pos < 0, pos + whole, pos)
+    own = ((pos >= lo) & (pos < lo + n_loc))[:, None, None]
+    loc = torch.clamp(pos - lo, 0, n_loc - 1)
+    rows = torch.arange(c.shape[0], device=c.device)
+    c[rows, loc] = torch.where(own, new, c[rows, loc])
+
+
+def _decode_sharded(q, k, v, cache, cache_len, cache_spec, cfg: ModelConfig,
+                    tp: bool, kv_tp: bool) -> torch.Tensor:
+    """One decode token against this rank's cache block ``(B, S_loc, KVH,
+    hd)`` (its rows, its slice of the sequence, every K/V head), q/k/v
+    this rank's heads.  The query heads (and, ``kv_tp``, the new K/V
+    heads) are gathered over "model"; the slice that holds the new
+    position writes its K/V (:func:`_write_token`); each rank attends over
+    its slice (:func:`~.common.decode_attention_partial`) and the
+    partials combine over the sequence axes with a ``pmax`` of the row
+    maxes and a ``psum`` of the rescaled sums and outputs.  A cache whose
+    sequence is not split attends through ``decode_attention`` as the
+    unsharded step does.  -> the attention output of this rank's heads
+    ``(B, 1, h_loc, hd)``."""
+    h_loc = q.shape[2]
+    if tp:
+        q = all_gather(q, "model", dim=2)
+    if kv_tp:
+        k = all_gather(k, "model", dim=2)
+        v = all_gather(v, "model", dim=2)
+    kc, vc = cache["k"], cache["v"]
+    B, n_loc = kc.shape[:2]
+    axes = _seq_axes(cache_spec)
+    idx, n = _seq_slice(axes)
+    lo = idx * n_loc
+    for c, new in ((kc, k), (vc, v)):
+        _write_token(c, new[:, 0], cache_len, lo, n * n_loc)
+    lens = cache_len.reshape(1).expand(B) if cache_len.dim() == 0 \
+        else cache_len
+    if n == 1:
+        o = decode_attention(q, kc, vc, lens)
+    else:
+        o, m, l = decode_attention_partial(q, kc, vc, lens, lo)
+        top = pmax(m, axes)
+        w = torch.where(m == -math.inf, 0.0, torch.exp(m - top))
+        s = psum(torch.cat([o * w[..., None], (l * w)[..., None]], dim=-1),
+                 axes)
+        o = (s[..., :-1] / s[..., -1:]).reshape(B, 1, -1, cfg.hd).to(q.dtype)
+    if tp:
+        o = o.narrow(2, axis_index("model") * h_loc, h_loc)
+    return o
+
+
 def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                  positions: torch.Tensor,
                  cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -285,7 +402,7 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                  pages: Optional[torch.Tensor] = None,
                  new_lens: Optional[torch.Tensor] = None,
                  mesh=None, data_axes: Tuple[str, ...] = (),
-                 specs: Optional[Dict] = None,
+                 specs: Optional[Dict] = None, cache_spec=None,
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, d).  Without ``cache``: causal attention over the S
     positions; returns the new K/V as the cache.  With ``cache`` (decode,
@@ -296,10 +413,16 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     contract: one write at ``cache_len - 1``, clamped into the cache as
     ``lax.dynamic_update_slice`` clamps it).
 
-    ``specs`` (the layer's attention specs; inside a bound mesh, no
-    cache): ``p`` holds this rank's tensor-parallel blocks (module
-    docstring), and the output is the ``psum`` over "model" of the local
-    heads' share when ``wq`` is sharded over it.
+    ``specs`` (the layer's attention specs; inside a bound mesh): ``p``
+    holds this rank's tensor-parallel blocks (module docstring), and the
+    output is the ``psum`` over "model" of the local heads' share when
+    ``wq`` is sharded over it.  ``cache_spec`` (with ``specs``: the spec
+    of the layer's K/V cache ``(B, S, KVH, hd)`` from ``dist.sharding.
+    cache_specs``) shards the cache: without ``cache``, the new K/V come
+    back as this rank's blocks under it (:func:`_cache_block`); with
+    ``cache``, the cache tensors are this rank's blocks, its rows and its
+    slice of the sequence with every K/V head, and the decode step runs
+    on them (:func:`_decode_sharded`).
 
     Paged mode (``pages`` given): ``cache`` is one layer of the KV pool's
     page store ``{"k"/"v": (n_pages, page_size, KVH, hd)}`` shared by every
@@ -321,12 +444,20 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     k = matmul(h, p["wk"]).reshape(B, S, kv_heads, cfg.hd)
     v = matmul(h, p["wv"]).reshape(B, S, kv_heads, cfg.hd)
     tp = specs is not None and _over_model(specs["wq"])
-    if tp and not _over_model(specs["wk"]):
-        k, v = _local_kv(k, v, cfg, heads)
+    kv_tp = specs is not None and _over_model(specs["wk"])
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    if pages is not None:
+    k_all, v_all = k, v
+    if tp and not kv_tp:
+        k, v = _local_kv(k, v, cfg, heads)
+    if cache is not None and cache_spec is not None:
+        if pages is not None:
+            raise ValueError("a sharded cache is a dense cache, not pages")
+        o = _decode_sharded(q, k_all, v_all, cache, cache_len, cache_spec,
+                            cfg, tp, kv_tp)
+        new_cache = cache
+    elif pages is not None:
         if cache_len is None or cache_len.dim() != 1:
             raise ValueError("paged attention needs a per-request (B,) "
                              "cache_len")
@@ -338,7 +469,11 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         o = flash_attention(q, k, v, causal=cfg.causal,
                             block_q=cfg.attn_block_q,
                             block_kv=cfg.attn_block_kv)
-        new_cache = {"k": k, "v": v}
+        if cache_spec is None:
+            new_cache = {"k": k_all, "v": v_all}
+        else:
+            new_cache = {"k": _cache_block(k_all, cache_spec, kv_tp),
+                         "v": _cache_block(v_all, cache_spec, kv_tp)}
     elif cache_len is None or cache_len.dim() > 1:
         raise ValueError("decode needs a per-request (B,) or a scalar "
                          "cache_len")
@@ -633,19 +768,21 @@ def block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                   cache_len=None, pages=None, new_lens=None, mesh=None,
                   data_axes: Tuple[str, ...] = (),
                   split_tokens_over_model: bool = True,
-                  moe_weight_resident: bool = False, specs=None):
+                  moe_weight_resident: bool = False, specs=None,
+                  cache_spec=None):
     """One block -> (x', aux loss, cache').  A dense block has no
     auxiliary loss, so it is the float 0.0; an MoE block (``is_moe``)
     decodes through the dropless body whenever ``cache_len`` is given, as
     ``repro``'s MoE stack chooses.  ``mesh`` and the flags after it: see
     :func:`attn_forward` and :func:`moe_forward`; ``specs``, the layer's
-    spec tree of a dense block's tensor-parallel blocks."""
+    spec tree of a dense block's tensor-parallel blocks, and
+    ``cache_spec``, its K/V cache's spec (:func:`attn_forward`)."""
     a, new_cache = attn_forward(p["attn"], x, cfg, positions=positions,
                                 cache=cache, cache_len=cache_len,
                                 pages=pages, new_lens=new_lens, mesh=mesh,
                                 data_axes=tuple(data_axes or ()),
                                 specs=None if specs is None
-                                else specs["attn"])
+                                else specs["attn"], cache_spec=cache_spec)
     x = x + a
     if is_moe:
         m, aux = moe_forward(p["moe"], x, cfg, mesh, tuple(data_axes or ()),

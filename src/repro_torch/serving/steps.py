@@ -5,6 +5,10 @@ program of a step as ``repro``'s ``jax.jit`` does.
   populated caches.
 * decode: one new token per request against a per-request cache
   (``models.model.init_caches``), greedy.
+* sharded (``sharded=True``, :func:`serve_specs`): ``repro``'s dry-run
+  prefill and decode steps per rank over ``torch.distributed``, each
+  rank taking and returning only its blocks (FSDP prefill, tensor-
+  parallel decode over a cache whose sequence is split over "model").
 * paged variants (the scheduler's data plane): the KV cache is the pool's
   page store (``models.model.init_paged_caches``), addressed by each
   request's (B, P) page-index vector; decode attends through the kernel
@@ -35,6 +39,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import math
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -42,6 +47,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from ..dist.sharding import (MeshRules, P, all_gather, axis_index, batch_spec,
+                             bound, cache_specs, mesh_view, param_specs,
+                             spec_axes)
 from ..kernels import _build
 from ..kernels import ops as K
 from ..models import model as M
@@ -401,6 +409,21 @@ def jit_step(fn: Callable, donate_argnums: Sequence[int] = (),
     return GraphedStep(fn, donate_argnums, group)
 
 
+def jit_mesh_step(step: Callable, mesh=None,
+                  donate_argnums: Sequence[int] = ()) -> GraphedStep:
+    """:func:`jit_step` of a step on ``mesh``: on a mesh of more than one
+    rank, the ranks agree each call's warm-up, capture or replay over a
+    gloo group made here (:meth:`GraphedStep.decide`), so every rank must
+    make the step and call it alike.  The train step
+    (``training.train_step.jit_train_step``) and the sharded serving
+    steps (the decode step with its cache donated, ``donate_argnums=(1,)``,
+    as ``repro``'s dry run donates it) run through it."""
+    group = None
+    if mesh is not None and math.prod(mesh_view(mesh).sizes) > 1:
+        group = dist.new_group(backend="gloo")
+    return jit_step(step, donate_argnums=donate_argnums, group=group)
+
+
 def in_place(step: Callable, arg: int, out: int) -> Callable:
     """``step`` with result ``out`` written into argument ``arg`` (a tree of
     the same structure, shapes and dtypes) and that argument returned in
@@ -427,16 +450,145 @@ def in_place(step: Callable, arg: int, out: int) -> Callable:
     return functools.wraps(step)(run)
 
 
-def make_prefill_step(cfg: ModelConfig, mesh=None, rules=None):
+# ---------------------------------------------------------------------------
+# The dense prefill and decode steps, whole or sharded
+# ---------------------------------------------------------------------------
+
+
+def serve_specs(cfg: ModelConfig, rules, mesh, kind: str, batch: int,
+                seq: int) -> Dict[str, Any]:
+    """The specs of a sharded serving step of ``kind`` (``"prefill"`` or
+    ``"decode"``) at a global ``batch`` of rows and ``seq`` positions (the
+    prompt's length, or the decode cache's), derived as ``repro``'s
+    ``launch/dryrun.py`` derives them (the serving counterpart of
+    ``training.train_step.train_specs``):
+
+    * ``"params"``: ``param_specs`` (prefill: FSDP over ``rules.fsdp``,
+      tensor parallel over "model"; decode: ``decode=True``, FSDP off);
+    * ``"caches"``: ``cache_specs`` with the sequence over ``("data",
+      "model")`` at ``batch == 1`` and over ``("model",)`` otherwise (the
+      decode step's input, and the prefill's output; None for the
+      encoder-only ``audio`` family, whose prefill makes no cache);
+    * prefill: ``"batch"``, each input's spec by name (``"tokens"``, and
+      the vlm's and audio's ``"embeds"``), its rows over the data axes as
+      ``dryrun.batch_shardings`` lays them out;
+    * decode: ``"token"``, the (B, 1) tokens' rows over the data axes,
+      and ``"cache_len"``, the replicated scalar ``P()`` (a per-request
+      (B,) ``cache_len`` takes the token's rows).
+
+    Raises ``NotImplementedError`` naming each layout the steps do not
+    execute yet (``models.model.refuse_layouts``), and for an ``audio``
+    decode ``repro``'s ``ValueError``."""
+    if kind not in ("prefill", "decode"):
+        raise ValueError(f"kind must be 'prefill' or 'decode', got {kind!r}")
+    if kind == "decode" and cfg.family == "audio":
+        raise ValueError("encoder-only arch has no decode step")
+    decode = kind == "decode"
+    pspecs = param_specs(M.init_params(0, cfg, device="meta"), rules, mesh,
+                         decode=decode)
+    M.refuse_layouts("sharded=True", cfg, rules, mesh, pspecs)
+    cspecs = None
+    if cfg.family != "audio":
+        seq_axes = ("data", "model") if batch == 1 else ("model",)
+        cspecs = cache_specs(M.init_caches(cfg, batch, seq, device="meta"),
+                             rules, mesh, seq_axes=seq_axes)
+    out = {"params": pspecs, "caches": cspecs}
+    rows = batch_spec(rules, mesh, (batch, 1))
+    if decode:
+        out.update(token=rows, cache_len=P())
+        return out
+    names = ("embeds",) if cfg.family == "audio" else \
+        ("tokens", "embeds") if cfg.frontend_tokens else ("tokens",)
+    out["batch"] = {n: P(*tuple(rows), None) if n == "embeds" else rows
+                    for n in names}
+    return out
+
+
+def _vocab_sharded(cfg: ModelConfig, pspecs) -> bool:
+    """Whether the head's logits come out as vocab shards over "model"."""
+    vocab = tuple(pspecs["embed"])[0] if cfg.tie_embeddings \
+        else tuple(pspecs["lm_head"])[1]
+    return "model" in spec_axes(P(vocab))
+
+
+def sharded_argmax(logits: torch.Tensor) -> torch.Tensor:
+    """Greedy argmax over the vocab shards of ``logits`` ``(B, V_loc)``
+    (this rank's columns, in "model" coordinate order), inside a bound
+    mesh: each rank's max and its global index, all-gathered over
+    "model" as (value, index) pairs in float32 (exact for a vocab under
+    2**24), and the first global index among equal maxima wins, as
+    ``jnp.argmax`` picks.  -> (B,) int32, the same on every rank."""
+    v_loc = logits.shape[-1]
+    idx = torch.argmax(logits, dim=-1)
+    val = torch.gather(logits, -1, idx[:, None])[:, 0].float()
+    glob = (idx + axis_index("model") * v_loc).float()
+    pairs = all_gather(torch.stack([val, glob], dim=-1)[None], "model",
+                       dim=0)                              # (n, B, 2)
+    first = torch.argmax(pairs[..., 0], dim=0)             # first max rank
+    return torch.gather(pairs[..., 1], 0, first[None])[0].to(torch.int32)
+
+
+def make_prefill_step(cfg: ModelConfig, mesh=None, rules=None,
+                      sharded: bool = False,
+                      shape: Optional[Tuple[int, int]] = None):
+    """prefill(params, batch) -> (last-position logits (B, V), caches).
+
+    The head runs on the last position only (``M.forward(...,
+    last_only=True)``): ``repro`` keeps ``logits[:, -1]`` of the whole
+    sequence's, the same logits up to the product's rounding order, and
+    at 32k positions the whole sequence's would not fit a card.
+
+    ``sharded=True`` (a ``DeviceMesh``, ``shape`` the global ``(batch,
+    prompt length)``): the step of :func:`serve_specs`' ``"prefill"``
+    specs, per rank.  ``params`` are this rank's blocks (each layer's
+    gathered over ``rules.fsdp`` as it runs and freed after, with no
+    autograd), ``batch`` this rank's rows; -> this rank's rows of the
+    logits over the whole vocab (all-gathered over "model") and its
+    cache blocks in the ``"caches"`` specs (the sequence over "model",
+    every K/V head: the decode step's input as it is; None for
+    ``audio``)."""
+    if sharded:
+        return _sharded_prefill(cfg, mesh, rules, shape)
+
     def prefill(params, batch):
         logits, _, caches = M.forward(params, cfg, batch, mesh=mesh,
-                                      rules=rules)
+                                      rules=rules, last_only=True)
         return logits[:, -1], caches
     return prefill
 
 
+def _specs_at(cfg, mesh, rules, kind, shape):
+    if shape is None:
+        raise ValueError("a sharded step needs its global shape=(batch, "
+                         "seq): its specs depend on what divides them")
+    rules = rules if rules is not None else MeshRules()
+    return rules, serve_specs(cfg, rules, mesh, kind, *shape)
+
+
+def _sharded_prefill(cfg, mesh, rules, shape):
+    rules, specs = _specs_at(cfg, mesh, rules, "prefill", shape)
+    pspecs, cspecs = specs["params"], specs["caches"]
+    gather = _vocab_sharded(cfg, pspecs)
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        with bound(mesh):
+            logits, _, caches = M.forward(
+                params, cfg, batch, mesh=mesh, rules=rules, specs=pspecs,
+                cspecs=cspecs, make_caches=cspecs is not None,
+                last_only=True)
+            logits = logits[:, -1]
+            if gather:
+                logits = all_gather(logits, "model", dim=-1)
+        return logits, caches
+    prefill.specs = specs
+    return prefill
+
+
 def make_decode_step(cfg: ModelConfig, mesh=None, rules=None,
-                     sample: str = "greedy", paged: bool = False):
+                     sample: str = "greedy", paged: bool = False,
+                     sharded: bool = False,
+                     shape: Optional[Tuple[int, int]] = None):
     """decode_step(params, caches, token, cache_len[, pages]) ->
     (next_token (B, 1) int32, logits (B, V), caches).
 
@@ -447,11 +599,25 @@ def make_decode_step(cfg: ModelConfig, mesh=None, rules=None,
     page-index matrix as ``pages`` (-1 = unused lane; a row with
     ``cache_len == 0`` is inactive, writes nothing and emits token 0).
     An encoder-only config (``audio``) has no decode step and raises
-    ``ValueError``, as in ``repro``."""
+    ``ValueError``, as in ``repro``.
+
+    ``sharded=True`` (a ``DeviceMesh``, ``shape`` the global ``(batch,
+    cache length)``): the step of :func:`serve_specs`' ``"decode"``
+    specs, per rank: ``params`` this rank's blocks (tensor parallel, no
+    FSDP), ``caches`` its cache blocks (its rows, its slice of the
+    sequence, every K/V head; written in place by the slice that holds
+    the new position), ``token`` and a per-request ``cache_len`` its
+    rows, a scalar ``cache_len`` the same on every rank.  -> the next
+    token of its rows (:func:`sharded_argmax`), its logits rows over the
+    whole vocab (all-gathered over "model") and its cache blocks."""
     if sample != "greedy":
         raise ValueError(sample)
     if cfg.family == "audio":
         raise ValueError("encoder-only arch has no decode step")
+    if sharded:
+        if paged:
+            raise ValueError("the sharded decode step takes a dense cache")
+        return _sharded_decode(cfg, mesh, rules, shape)
 
     def _sample(logits):
         logits = logits[:, -1]
@@ -475,6 +641,29 @@ def make_decode_step(cfg: ModelConfig, mesh=None, rules=None,
         nxt, logits = _sample(logits)
         return nxt, logits, caches
 
+    return decode
+
+
+def _sharded_decode(cfg, mesh, rules, shape):
+    rules, specs = _specs_at(cfg, mesh, rules, "decode", shape)
+    pspecs, cspecs = specs["params"], specs["caches"]
+    gather = _vocab_sharded(cfg, pspecs)
+
+    @torch.no_grad()
+    def decode(params, caches, token, cache_len):
+        with bound(mesh):
+            logits, _, caches = M.forward(
+                params, cfg, {"tokens": token}, caches=caches,
+                cache_len=cache_len, mesh=mesh, rules=rules, specs=pspecs,
+                cspecs=cspecs)
+            logits = logits[:, -1]
+            if gather:
+                nxt = sharded_argmax(logits)
+                logits = all_gather(logits, "model", dim=-1)
+            else:
+                nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        return nxt[:, None], logits, caches
+    decode.specs = specs
     return decode
 
 

@@ -59,7 +59,6 @@ import math
 from typing import Any, Callable, Dict, Optional
 
 import torch
-import torch.distributed as dist
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -69,7 +68,7 @@ from ..dist.sharding import (MeshRules, P, batch_spec, bound, data_shards,
 from ..ft.checkpoint import tree_flatten, tree_unflatten
 from ..models import model as M
 from ..models.common import ModelConfig
-from ..serving.steps import jit_step
+from ..serving.steps import jit_mesh_step
 from .optimizer import OptimizerConfig, adamw_update, adamw_update_
 
 _aten = torch.ops.aten
@@ -232,26 +231,9 @@ def train_specs(cfg: ModelConfig, rules: MeshRules, mesh):
     by ``param_specs``, ``{"m", "v"}`` by ``zero1_specs`` and ``"step"``
     replicated.  Raises ``NotImplementedError`` naming each layout of
     ``cfg``/``rules`` the step does not execute yet."""
-    missing = []
-    if cfg.family not in M._SHARDED_FAMILIES:
-        missing.append(f"the {cfg.family} stack's dense leaves")
-    if rules.attn_impl != "flash":
-        missing.append(f"{rules.attn_impl} attention")
-    if rules.residual_seq:
-        missing.append("residual_seq (the sequence-sharded residual)")
     pshape = M.init_params(0, cfg, device="meta")
     pspecs = param_specs(pshape, rules, mesh)
-    if not missing:
-        n = mesh_view(mesh).shape.get("model", 1)
-        attn = pspecs["layers"]["attn"]
-        for leaf, heads in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads)):
-            if "model" in spec_axes(attn[leaf]) and heads % n:
-                missing.append(f"{leaf} split inside a head ({heads} "
-                               f"heads over model={n})")
-    if missing:
-        raise NotImplementedError(
-            f"sharded=True for {cfg.name}: {'; '.join(missing)} "
-            f"(ROADMAP Queue 1)")
+    M.refuse_layouts("sharded=True", cfg, rules, mesh, pspecs)
     mspecs = zero1_specs(pspecs, pshape, mesh)
     return pspecs, {"m": mspecs, "v": mspecs, "step": P()}
 
@@ -362,9 +344,6 @@ def jit_train_step(cfg: ModelConfig, opt: OptimizerConfig, mesh=None,
     :func:`make_train_step`'s, updated in place (the ZeRO-1 slices'
     all-gathers inside the graph)."""
     specs, compute_grads = _grads(cfg, tcfg, mesh, rules, sharded)
-    group = None
-    if mesh is not None and math.prod(mesh_view(mesh).sizes) > 1:
-        group = dist.new_group(backend="gloo")
 
     def train_step_(params, opt_state, batch):
         l, grads = compute_grads(params, batch)
@@ -372,7 +351,7 @@ def jit_train_step(cfg: ModelConfig, opt: OptimizerConfig, mesh=None,
         return params, opt_state, {"loss": l, "grad_norm": gnorm,
                                    "step": opt_state["step"]}
 
-    graph = jit_step(train_step_, donate_argnums=(0, 1), group=group)
+    graph = jit_mesh_step(train_step_, mesh, donate_argnums=(0, 1))
 
     @functools.wraps(train_step_)
     def train_step(params, opt_state, batch):

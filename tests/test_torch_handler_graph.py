@@ -111,7 +111,7 @@ def test_handler_prefill_copies_out_its_logits_only(fake_graphs):
                            slots_per_handler=2, device="cpu")
     hs = eng._handler_steps(0, 2)
     batch = {"tokens": torch.arange(1, 7, dtype=torch.int32).view(2, 3)}
-    want = TM.forward(tp, ct, batch)[0][:, -1]
+    want = TM.forward(tp, ct, batch, last_only=True)[0][:, -1]
     for _ in range(3):                   # warm-up, capture, replay
         out = hs.prefill(tp, batch)
         assert torch.equal(out, want)

@@ -9,8 +9,11 @@ over "model" and the train step at each of ``_mesh_shapes``' meshes
 (expert-parallel where "model" is above 1), eager and graphed, and the
 sharded train step (one rank: bit for bit the unsharded step; two: at
 (data, model) = (2, 1) against the unsharded step at float32 and bf16
-compute, then eager and graphed at more layers); across ranks the
-tokens, graph stats, losses and sampled parameters must be equal.  On
+compute, then eager and graphed at more layers), and the sharded serving
+steps (one rank: bit for bit the unsharded steps; two: against the
+unsharded steps at both precisions, the decode step eager and graphed,
+the long prefill); across ranks the tokens, graph stats, losses and
+sampled parameters must be equal.  On
 the card the same functions run over NCCL, one rank a card."""
 
 import os
@@ -96,3 +99,24 @@ def test_phase_sharded_step(phase):
             < deep["whole_state_bytes"]["params_m_v"]
         assert {"all_gather", "reduce_scatter", "all_reduce"} <= set(
             sh["collectives"])
+
+
+def test_phase_sharded_serving_steps(phase):
+    """One rank: the sharded prefill and decode steps equal the unsharded
+    ones bit for bit, eager and graphed.  More: both precisions' checks
+    held, the graphed decode step equals the eager one with the cache
+    blocks' bytes the specs' count, the long prefill's cache blocks
+    likewise, and the path launched none of the port's kernels."""
+    world, recs, _ = phase
+    for r in recs:
+        sv = r["sharded_serve"]
+        assert not any(sv["kernel_launches"].values())
+        if world == 1:
+            assert sv["differ"] == []
+            continue
+        assert {"check_float32", "check_bfloat16"} <= set(sv)
+        full, long = sv["decode_32k"], sv["prefill_32k"]
+        assert full["graph_equals_eager"] and full["finite"]
+        assert full["stored_cache_bytes"] == full["spec_cache_bytes"] \
+            < full["whole_cache_bytes"]
+        assert long["stored_cache_bytes"] == long["spec_cache_bytes"]

@@ -758,9 +758,10 @@ def rank_engine_swaps(rank, world, seed):
 
 def rank_mesh_phase(rank, world):
     """``chip_smoke._mesh_checks`` on this gloo rank at the smoke configs
-    (float32), the graphs on the CPU stand-in and the card's counters
-    stubbed, the store, the revokes' holders, the train batches, the
-    sharded step's depth and the swap period cut to the smoke size."""
+    (float32), the graphs on the CPU stand-in and the card's counters and
+    events stubbed, the store, the revokes' holders, the train batches,
+    the sharded step's depth, the sharded serving steps' shapes and the
+    swap period cut to the smoke size."""
     import dataclasses
 
     root = os.path.dirname(SRC)
@@ -787,4 +788,25 @@ def rank_mesh_phase(rank, world):
     CS.MESH_ONE_BATCH, CS.MESH_SHARDED_BATCH = (2, 16), (4, 16)
     CS.MESH_SHARDED_LAYERS = 4
     CS.MESH_SWAP_S = 0.03        # swaps land within the smoke engine's run
+    torch.cuda.Event = _NoEvent
+    CS.MESH_SERVE_ONE = {"layers": 2, "prefill": (2, 16), "rows": 2,
+                         "cache": 32, "steps": 3}
+    CS.MESH_SERVE_CHECK = {"prefill": (4, 16), "rows": 4, "cache": 32,
+                           "steps": 4}
+    CS.MESH_SERVE_DECODE = {"rows": 8, "cache": 64, "steps": 3}
+    CS.MESH_SERVE_PREFILL = (4, 64)
     return CS._mesh_checks(torch.device("cpu"), 0)
+
+
+class _NoEvent:
+    """``torch.cuda.Event``'s stand-in on the CPU: the step's host clock
+    is the reading there."""
+
+    def __init__(self, **_):
+        pass
+
+    def record(self):
+        pass
+
+    def elapsed_time(self, other):
+        return 0.0
