@@ -267,7 +267,17 @@ non-zero exit and no result line:
    = (2, N / 2) ((1, 1) on one card) against its bare steps in turns,
    hot swaps on and then off (tokens teacher-forced within 0.05, K1/K2/
    K5/K6 launched, warm-ups, captures, replays and the swaps' ticks the
-   same on every rank, the no-swap tokens equal); ``make_distributed_
+   same on every rank, the no-swap tokens equal); the same engine with
+   the latency controller on (``mesh.controller``: the ``slo`` twin's
+   burst trace at the least speed that overloads it, one static and one
+   closed-loop replay, rank 0's controller deciding, at least one
+   decision, every rank's decision log and tokens equal, none dropped);
+   handler mode on the mesh (``mesh.handler``: phi3.5-moe at 16 of 32
+   layers at (1, N) and rwkv6-7b at 4 of 32 at (2, N / 2); at one card
+   phi3.5-moe at 2; 2 handlers x 4 slots taking turns, graphed and bare under swaps
+   and without, tokens, graph decisions and swap turns equal on every
+   rank, K1-K4 launched, the B = 4 decode step on the mesh and off it in
+   turns); ``make_distributed_
    revoke`` and ``make_sharded_revoke`` on ("data",) = N and ("pod",
    "data") = (2, N / 2), a registry's 16 KB table with 1000 readers
    holding one lock (counts equal to K3's and numpy's, only that lock's
@@ -2405,18 +2415,45 @@ def decode_step_ms(cfg, params, dev, batch, max_seq) -> dict:
     call (gate)."""
     import dataclasses
 
-    import numpy as np
-    import torch
-
     from repro_torch.benchmarks import smoke as SM
     from repro_torch.serving.engine import ServingEngine
 
     eng = ServingEngine(cfg, params, handlers=1, slots_per_handler=batch,
                         max_seq=max_seq, device=dev)
-    arms = {"graph": eng._handler_steps(0, batch)}
-    arms["eager"] = SM.eager_steps(eng)._handler_steps(1, batch)
+    graph = eng._handler_steps(0, batch)
+    # the windows' order starts with the first arm: eager, graph, graph, ...
+    arms = {"eager": SM.eager_steps(eng)._handler_steps(1, batch),
+            "graph": graph}
+    out, one, tokens = _decode_in_turns(arms, params, dev, batch, cfg.vocab)
+    for arm in ("graph", "eager"):
+        out[arm]["profile"] = _profile(functools.partial(one, arm))
+    toks = tokens()
+    out["tokens_equal"] = toks["graph"] == toks["eager"]
+    out["graph_steps"] = dataclasses.asdict(arms["graph"].decode.stats)
+    eng.stop()
+    calls = len(toks["graph"][0])
+    g = out["graph_steps"]
+    if not out["tokens_equal"] or (dev.type == "cuda" and (
+            g["warmups"], g["captures"], g["replays"]) != (1, 1, calls - 1)):
+        raise AssertionError(f"handler decode step, graph against eager: "
+                             f"{out} {toks}")
+    return out
+
+
+def _decode_in_turns(arms, params, dev, batch, vocab) -> tuple:
+    """Handler decode steps (``HandlerSteps``, by arm name) timed in turns:
+    after each arm's first two calls (a graph's warm-up and capture),
+    ``HANDLER_WINDOWS`` windows of ``HANDLER_WINDOW_STEPS`` synchronized
+    steps, the arms in the order first, second, second, first, ...  Each
+    arm feeds its own tokens back from the same seeded first tokens.  ->
+    (the record, the one-step function of an arm name, each arm's tokens
+    as (batch, calls) lists so far, a function)."""
+    import numpy as np
+    import torch
+
+    names = list(arms)
     rng = np.random.default_rng(0)
-    first = torch.from_numpy(rng.integers(1, cfg.vocab, (batch, 1)).astype(
+    first = torch.from_numpy(rng.integers(1, vocab, (batch, 1)).astype(
         np.int32)).to(dev)
     state = {a: {"cur": first, "pos": 0, "tokens": []} for a in arms}
 
@@ -2428,11 +2465,10 @@ def decode_step_ms(cfg, params, dev, batch, max_seq) -> dict:
         st["cur"], _, _ = hs.decode(params, hs.caches, st["cur"], clen)
         st["tokens"].append(st["cur"])
 
-    for arm in arms:
+    for arm in names:
         for _ in range(2):
             one(arm)
-    order = [("eager", "graph")[(w + 1) // 2 % 2]
-             for w in range(HANDLER_WINDOWS)]
+    order = [names[(w + 1) // 2 % 2] for w in range(HANDLER_WINDOWS)]
     times = {a: [] for a in arms}
     for arm in order:
         for _ in range(HANDLER_WINDOW_STEPS):
@@ -2443,22 +2479,14 @@ def decode_step_ms(cfg, params, dev, batch, max_seq) -> dict:
             times[arm].append((time.perf_counter() - t0) * 1e3)
     out = {"batch": batch, "windows": HANDLER_WINDOWS,
            "steps_a_window": HANDLER_WINDOW_STEPS, "order": order}
-    for arm in ("graph", "eager"):
+    for arm in names:
         out[arm] = {"median_ms": statistics.median(times[arm]),
                     "min_ms": min(times[arm]), "max_ms": max(times[arm]),
-                    "steps": len(times[arm]),
-                    "profile": _profile(functools.partial(one, arm))}
-    toks = {a: torch.cat(state[a]["tokens"], 1).cpu().tolist() for a in arms}
-    out["tokens_equal"] = toks["graph"] == toks["eager"]
-    out["graph_steps"] = dataclasses.asdict(arms["graph"].decode.stats)
-    eng.stop()
-    calls = len(state["graph"]["tokens"])
-    g = out["graph_steps"]
-    if not out["tokens_equal"] or (dev.type == "cuda" and (
-            g["warmups"], g["captures"], g["replays"]) != (1, 1, calls - 1)):
-        raise AssertionError(f"handler decode step, graph against eager: "
-                             f"{out} {toks}")
-    return out
+                    "steps": len(times[arm])}
+    def tokens():
+        return {a: torch.cat(state[a]["tokens"], 1).cpu().tolist()
+                for a in arms}
+    return out, one, tokens
 
 
 def _profile(fn, steps=4, cpu=True) -> dict:
@@ -4795,6 +4823,9 @@ def _mesh_checks(dev, seed) -> dict:
     params["embed"].mul_(EMBED_SCALE)
     DS.reset_collective_counts()
     out["engine"] = _mesh_engine(cfg, params, dev, mesh, seed)
+    out["controller"] = _mesh_controller(
+        *((cfg, params) if world > 1 else
+          _first_layers(cfg, params, MESH_HANDLER_ONE_LAYERS)), dev, mesh)
     data = make_mesh(*shapes["data"], device=dev)
     out["revokes"] = {
         "data": _mesh_revokes(dev, data, ("data",)),
@@ -4805,6 +4836,11 @@ def _mesh_checks(dev, seed) -> dict:
     out["twins"] = _mesh_twins(cfg, params, dev)
     del params
     torch.cuda.empty_cache()
+    out["handler"] = [
+        _mesh_handler(dev, make_mesh(*shapes[key], device=dev), arch,
+                      depth if world > 1 else MESH_HANDLER_ONE_LAYERS, seed)
+        for arch, depth, key in MESH_HANDLER
+        if world > 1 or arch in MESH_HANDLER_ONE]
     out["moe"] = _mesh_moe(dev, make_mesh(*shapes["moe"], device=dev),
                            seed)
     out["train"] = [_mesh_train(dev, make_mesh(*s, device=dev), seed)
@@ -4840,6 +4876,15 @@ def _mesh_across(recs) -> dict:
                     raise AssertionError(
                         f"mesh: the train step's {k} at {a['mesh']} differ "
                         f"between rank 0 and rank {r['rank']}")
+        _handler_across(first, r)
+        a, b = first["controller"]["replays"], r["controller"]["replays"]
+        for x, y in zip(a, b):
+            for k in ("decisions", "outputs", "final_slot_cap"):
+                if x[k] != y[k]:
+                    raise AssertionError(
+                        f"mesh.controller: the {x['label']} replay's {k} "
+                        f"differ between rank 0 and rank {r['rank']}: "
+                        f"{x[k]} / {y[k]}")
         for k in ("losses", "grad_norms"):
             if "deep" not in first["sharded"]:
                 break
@@ -4866,11 +4911,32 @@ def _mesh_across(recs) -> dict:
         rec.pop("outputs", None)
     out["train"] = [{k: v for k, v in t.items() if k != "samples"}
                     for t in first["train"]]
+    out["handler"] = [{**h, "runs": [{k: v for k, v in run.items()
+                                      if k != "outputs"}
+                                     for run in h["runs"]],
+                       "float32": {k: v for k, v in h["float32"].items()
+                                   if k != "outputs"}}
+                      for h in first["handler"]]
+    out["controller"] = {**first["controller"], "replays": [
+        {k: v for k, v in x.items() if k != "outputs"}
+        for x in first["controller"]["replays"]]}
     out["ranks_equal"] = True
     out["per_rank"] = [{"rank": r["rank"], "collectives": r["collectives"],
                         "engine_tokens_per_s": [x["tokens_per_s"] for x in
                                                 r["engine"]["runs"]],
                         "train_ms": [t["ms"] for t in r["train"]],
+                        "handler": [{
+                            "config": h["config"],
+                            "tokens_per_s": [x["tokens_per_s"]
+                                             for x in h["runs"]],
+                            "decode_step_ms": {
+                                a: h["decode_step"][a]["median_ms"]
+                                for a in ("mesh", "one")},
+                            "seconds": h["seconds"]} for h in r["handler"]],
+                        "controller": {
+                            "p99_ttft_ms": [x["p99_ttft_ms"] for x in
+                                            r["controller"]["replays"]],
+                            "seconds": r["controller"]["seconds"]},
                         "sharded": _sharded_rank_summary(r["sharded"]),
                         "sharded_serve": _serve_rank_summary(
                             r["sharded_serve"])}
@@ -4881,6 +4947,32 @@ def _mesh_across(recs) -> dict:
             k: v for k, v in first["sharded_serve"]["decode_32k"].items()
             if k != "tokens"}
     return out
+
+
+def _handler_across(first, r) -> None:
+    """``mesh.handler`` across ranks: each run's tokens, graph decisions
+    (warm-ups, captures, replays and the calls they came on) and the
+    turn at which each swap landed, the same on rank 0 and ``r``."""
+    def graphs(run):
+        g = run["graphs"]
+        return g and {name: {kind: {k: v for k, v in st.items()
+                                    if k != "capture_ms"}
+                             for kind, st in steps.items()}
+                      for name, steps in g["steps"].items()}
+    for h0, h1 in zip(first["handler"], r["handler"]):
+        if h0["float32"]["outputs"] != h1["float32"]["outputs"]:
+            raise AssertionError(
+                f"mesh.handler: {h0['config']}'s float32 run: the outputs "
+                f"differ between rank 0 and rank {r['rank']}")
+        for a, b in zip(h0["runs"], h1["runs"]):
+            for k, x, y in (("outputs", a["outputs"], b["outputs"]),
+                            ("swap turns", a["swap_turns"], b["swap_turns"]),
+                            ("graph decisions", graphs(a), graphs(b))):
+                if x != y:
+                    raise AssertionError(
+                        f"mesh.handler: {h0['config']}'s {a['arm']} run "
+                        f"(swaps {a['swaps']}): the {k} differ between rank "
+                        f"0 and rank {r['rank']}: {x} / {y}")
 
 
 def _sharded_rank_summary(rec) -> dict:
@@ -5002,6 +5094,343 @@ def _mesh_engine(cfg, params, dev, mesh, seed) -> dict:
             "tokens_held": True, "near_tie_rel": BF16_VS_F32_REL,
             "max_deficit_rel": hold["max_deficit_rel"],
             "flips": sum(hold["flips"]), "runs": runs}
+
+
+# the meshed engine's handler mode (``_mesh_handler``): (config, layers on
+# N cards, the mesh of ``_mesh_shapes``).  phi3.5-moe at full width and
+# half its depth (~42 GB of bf16, whole on each rank, as ``repro``'s
+# handler mode holds the tree; the families phase's reading at 16 layers
+# was taken at this depth), its 16 experts over "model"; rwkv6-7b, whose
+# handler path issues no collective, checks the agreement alone, so it
+# runs only across cards.  On one card phi3.5-moe runs at
+# MESH_HANDLER_ONE_LAYERS (8.4 s there on an H100 80GB HBM3 at 700 W,
+# rwkv6-7b 10.4)
+MESH_HANDLER = (("phi3.5-moe-42b-a6.6b", 16, "moe"), ("rwkv6-7b", 4, "engine"))
+MESH_HANDLER_ONE = ("phi3.5-moe-42b-a6.6b",)
+MESH_HANDLER_ONE_LAYERS = 2
+# (arm, swaps), in order: graphed and then bare under swaps, then once
+# each without
+MESH_HANDLER_ARMS = (("graph", True), ("bare", True), ("graph", False),
+                     ("bare", False))
+MESH_HANDLER_SWAP_S = 0.25
+MESH_HANDLER_LOAD = dict(n_req=8, prompt_len=16, max_new=16, handlers=2,
+                         slots=4, max_seq=64)
+# the latency controller on a mesh (``_mesh_controller``): the requests of
+# each replay held to the dense loop
+MESH_CTRL_HELD = 4
+MESH_CTRL_KERNELS = ["fused_publish_multi", "fused_publish",
+                     "paged_attention", "paged_chunk_attention"]
+
+
+def _mesh_handler(dev, mesh, arch, depth, seed) -> dict:
+    """``arch`` at full width and ``depth`` layers in handler mode on
+    ``mesh`` under its config's rules: ``MESH_HANDLER_LOAD`` (2 handlers
+    x 4 slots, 8 requests of 16 + 16 tokens) for each arm of
+    ``MESH_HANDLER_ARMS``, under swaps of the final norm every
+    ``MESH_HANDLER_SWAP_S`` s (``_swap_final_norm``) or none; then the
+    same load graphed without swaps at float32 compute; then the B = 4
+    decode step on the mesh and the same tree's unmeshed step on this
+    card in turns (``_mesh_decode_step``).  Gates: K1-K4 launched in
+    every run (K4 by the drain check after ``stop()``: nothing held, every
+    page free); every graphed handler call a warm-up or a replay
+    (``_handler_graphs``) and, under swaps, one landed; without swaps the
+    graphed tokens equal the bare ones; the float32 run's tokens
+    teacher-forced within ``MESH_MOE_REL`` of the unmeshed greedy loop at
+    float32 compute on this card (``_handler_forced``: at the engine's
+    batches, so that only the mesh changes the computation); without an
+    MoE layer, every bf16 run's tokens teacher-forced within
+    ``BF16_VS_F32_REL`` of it.  With one, the bf16 runs' deficit is
+    recorded, not gated: a top-k routing decision flips on a rounding, so
+    bf16 sums in another order can stand further from the loop's best
+    than the near-tie of a dense model (on four H100 80GB HBM3 at 700 W,
+    phi3.5-moe at 16 layers on (1, 4): 0.052 against the loop one
+    request at a time, the unmeshed engine 0.021).
+    ``_mesh_across`` holds the tokens, graph stats and each swap's turn
+    equal on every rank."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+
+    t0 = time.monotonic()
+    cfg, params, init_s = _family_params(arch, depth, dev, seed)
+    rules = configs.get(arch)[1]
+    load = MESH_HANDLER_LOAD
+    prompts = _prompts(seed, load["n_req"], load["prompt_len"], cfg.vocab)
+    runs = [_handler_run(cfg, params, dev, mesh, rules, prompts, arm, swaps)
+            for arm, swaps in MESH_HANDLER_ARMS]
+    still = [r["outputs"] for r in runs if not r["swaps"]]
+    if still[0] != still[1]:
+        raise AssertionError(f"mesh.handler: {cfg.name}: without swaps the "
+                             f"graphed tokens differ from the bare ones")
+
+    moe = cfg.family == "moe"
+    hold = _handler_forced(cfg, params, dev, prompts,
+                           [r["outputs"] for r in runs])
+    if not moe and hold["max_deficit_rel"] > BF16_VS_F32_REL:
+        raise AssertionError(f"mesh.handler: {cfg.name}: the tokens: {hold}")
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    f32 = _handler_run(cfg32, params, dev, mesh, rules, prompts, "graph",
+                       False)
+    hold32 = _handler_forced(cfg32, params, dev, prompts, [f32["outputs"]])
+    if hold32["max_deficit_rel"] > MESH_MOE_REL:
+        raise AssertionError(f"mesh.handler: {cfg.name} at float32 "
+                             f"compute: the tokens: {hold32}")
+    step = _mesh_decode_step(cfg, params, dev, mesh, rules,
+                             batch=load["slots"], max_seq=load["max_seq"])
+    del params
+    torch.cuda.empty_cache()
+    return {"config": cfg.name, "layers": cfg.n_layers,
+            "published_layers": configs.get(arch)[0].n_layers,
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            "rules": repr(rules), "init_s": init_s, **load,
+            "swap_period_s": MESH_HANDLER_SWAP_S,
+            "bf16": {"gated": not moe, "near_tie_rel": BF16_VS_F32_REL,
+                     **hold},
+            "float32": {"near_tie_rel": MESH_MOE_REL, **hold32,
+                        "tokens_per_s": f32["tokens_per_s"],
+                        "outputs": f32["outputs"]},
+            "runs": runs, "decode_step": step,
+            "seconds": time.monotonic() - t0}
+
+
+def _handler_forced(cfg, params, dev, prompts, runs) -> dict:
+    """The unmeshed greedy loop on this card fed each run's tokens
+    (``runs``: each a list of outputs for ``prompts``): the requests cut in
+    queue order into ``MESH_HANDLER_LOAD``'s batches, as the engine deals
+    them, each batch through an unmeshed handler decode step and cache
+    tree as the engine makes them (bare), its prompts left-padded and fed
+    token by token, then the run's tokens.  -> the steps whose token is not
+    the loop's best (``flips``) and the largest ``smoke.deficit_rel``."""
+    import torch
+
+    from repro_torch.benchmarks import smoke as SM
+    from repro_torch.serving.engine import ServingEngine
+
+    load = MESH_HANDLER_LOAD
+    B = load["slots"]
+    eng = SM.eager_steps(ServingEngine(cfg, params, handlers=1,
+                                       slots_per_handler=B,
+                                       max_seq=load["max_seq"], device=dev))
+    flips, worst = 0, 0.0
+    for outs in runs:
+        for i in range(0, len(prompts), B):
+            ps, got = prompts[i:i + B], outs[i:i + B]
+            hs = eng._handler_steps(0, len(ps))
+            S = max(len(p) for p in ps)
+            toks = torch.zeros((len(ps), S), dtype=torch.int32)
+            for j, p in enumerate(ps):
+                toks[j, S - len(p):] = torch.as_tensor(p)   # left-pad
+            toks = toks.to(dev)
+            cur = toks[:, :1]
+            for step in range(S - 1 + max(len(g) for g in got)):
+                clen = torch.full((len(ps),), step + 1, dtype=torch.int32,
+                                  device=dev)
+                _, lg, hs.caches = hs.decode(params, hs.caches, cur, clen)
+                if step + 1 < S:
+                    cur = toks[:, step + 1:step + 2]
+                    continue
+                k = step + 1 - S
+                forced = [g[k] for g in got]
+                lg = lg.float().cpu()
+                for j, t in enumerate(forced):
+                    flips += int(lg[j].argmax()) != t
+                    worst = max(worst, SM.deficit_rel(lg[j], t))
+                cur = torch.tensor(forced, dtype=torch.int32,
+                                   device=dev)[:, None]
+    eng.stop()
+    return {"flips": flips, "max_deficit_rel": worst}
+
+
+def _handler_run(cfg, params, dev, mesh, rules, prompts, arm, swaps) -> dict:
+    """One run of ``_mesh_handler``: ``MESH_HANDLER_LOAD`` on ``prompts``
+    through the graphed (``arm="graph"``) or bare steps on ``mesh``
+    (None: this card alone), hot swaps on or off; the launch counts set to
+    0 just before the engine starts and read after the drain check."""
+    import torch
+
+    from repro_torch.benchmarks import smoke as SM
+    from repro_torch.kernels import ops as K
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    load = MESH_HANDLER_LOAD
+    eng = ServingEngine(cfg, params, handlers=load["handlers"],
+                        slots_per_handler=load["slots"],
+                        max_seq=load["max_seq"], device=dev, mesh=mesh,
+                        rules=rules)
+    if arm == "bare":
+        SM.eager_steps(eng)
+    reqs = [Request(rid=i, prompt=p, max_new=load["max_new"])
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t = time.monotonic()
+    eng.start(swap_period_s=MESH_HANDLER_SWAP_S if swaps else 0.0,
+              perturb=_swap_final_norm)
+    try:
+        _wait_requests(eng, reqs, t, "mesh.handler")
+        wall = time.monotonic() - t
+    finally:
+        eng.stop()
+    # the table drained (K4 over the model lock and the page stripes) and
+    # every page free, as ``run_engine`` holds them
+    held = eng.registry.held_multi([eng.store.leases] + eng.kv_pool.locks)
+    counts = K.launch_counts()
+    st = eng.lock_stats()
+    if held.any() or len(eng.pages.free) != eng.kv_pool.n_pages:
+        raise AssertionError(f"mesh.handler: {cfg.name}: leases held "
+                             f"{held.tolist()} or pages not free")
+    run = {"arm": arm, "swaps": swaps, "wall_s": wall,
+           "tokens_per_s": load["max_new"] * len(reqs) / wall,
+           "weight_swaps": eng.stats.weight_swaps,
+           "swap_turns": list(eng.swap_at),
+           "launches": {k: counts[k] for k in TABLE_KERNELS},
+           "graphs": _handler_graphs(st, dev) if arm == "graph" else None,
+           "outputs": [r.out.tolist() for r in reqs]}
+    if dev.type == "cuda" and not (
+            all(run["launches"].values())
+            and (arm == "bare" or (run["weight_swaps"] >= 1) == swaps)):
+        raise AssertionError(f"mesh.handler: {cfg.name}: {run}")
+    return run
+
+
+def _first_layers(cfg, params, n):
+    """A dense config cut to its first ``n`` layers, and its parameters'
+    views of them."""
+    import dataclasses
+
+    return (dataclasses.replace(cfg, n_layers=n),
+            {**params, "layers": {k: {name: x[:n] for name, x in v.items()}
+                                  for k, v in params["layers"].items()}})
+
+
+def _wait_requests(eng, reqs, t, what) -> None:
+    """Wait for every request of a run started at ``t``, raising a
+    worker's death at once."""
+    for r in reqs:
+        while not r.done.wait(timeout=1.0):
+            eng.check_health()
+            if time.monotonic() - t > 600:
+                raise AssertionError(f"{what}: request {r.rid} timed out")
+
+
+def _mesh_decode_step(cfg, params, dev, mesh, rules, batch, max_seq) -> dict:
+    """Handler mode's decode step at ``batch`` rows on ``mesh`` (a handler
+    thread's graphed step, its decisions agreed across the ranks) and the
+    same tree's unmeshed graphed step on this card, timed in turns as
+    ``decode_step_ms`` times its arms (``_decode_in_turns``: the order
+    one, mesh, mesh, one, ...).  Whether their tokens stay equal is
+    recorded (the expert-parallel MoE sums its experts in another
+    order)."""
+    import dataclasses
+
+    from repro_torch.serving.engine import ServingEngine
+
+    engs = {"one": ServingEngine(cfg, params, handlers=1,
+                                 slots_per_handler=batch, max_seq=max_seq,
+                                 device=dev),
+            "mesh": ServingEngine(cfg, params, handlers=1,
+                                  slots_per_handler=batch, max_seq=max_seq,
+                                  device=dev, mesh=mesh, rules=rules)}
+    arms = {a: e._handler_steps(0, batch) for a, e in engs.items()}
+    out, _, tokens = _decode_in_turns(arms, params, dev, batch, cfg.vocab)
+    toks = tokens()
+    for a, hs in arms.items():
+        out[a]["graph_steps"] = dataclasses.asdict(hs.decode.stats)
+    for e in engs.values():
+        e.stop()
+    out["tokens_equal"] = toks["mesh"] == toks["one"]
+    return out
+
+
+def _mesh_controller(cfg, params, dev, mesh) -> dict:
+    """llama3.2-1b's graphed scheduler engine on ``mesh`` with the latency
+    controller on: the ``slo`` twin's seeded burst trace, calibrated and
+    replayed as the twin replays it (``SLO.controller_config`` on this
+    mesh's uncontended readings), its arrivals compressed by the least of
+    ``SLO.OVERLOAD_SPEEDS`` at which a static replay on the mesh is
+    overloaded (rank 0's reading decides, agreed over a gloo group), then
+    one static and one closed-loop replay in turns.  Rank 0's controller
+    decides, on rank 0's clock.  Gates: at least one decision; no request
+    dropped; K1, K2, K5 and K6 launched in each replay; the first
+    ``MESH_CTRL_HELD`` requests of each replay teacher-forced within
+    ``BF16_VS_F32_REL`` of the dense loop.  ``_mesh_across`` holds every
+    rank's decision log (tick, decision, slot cap, watermark) and tokens
+    equal.  p99 TTFT, goodput and the band are recorded, not gated."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.benchmarks import slo as SLO
+    from repro_torch.benchmarks import smoke as SM
+    from repro_torch.dist.sharding import MeshRules
+    from repro_torch.kernels import ops as K
+
+    t0 = time.monotonic()
+    rules = MeshRules()
+    many = math.prod(mesh.shape) > 1
+    group = dist.new_group(backend="gloo") if many else None
+    cc = SLO.controller_config(*SLO.calibrate_targets_ms(
+        cfg, params, dev, mesh=mesh, rules=rules))
+    _, trace = SLO._trace(cfg, True)
+    last = max(t.at_s for t in trace.requests)
+    probes, speed = [], None
+    for s in SLO.OVERLOAD_SPEEDS:
+        run = SLO._run(cfg, params, dev, trace, None, label="overload probe",
+                       speed=s, mesh=mesh, rules=rules)
+        over = [run["wall_s"] >= SLO.OVERLOAD_RATIO * last / s]
+        if many:
+            dist.broadcast_object_list(over, src=0, group=group)
+        probes.append({"speed": s, "span_s": last / s,
+                       "wall_s": run["wall_s"], "overloaded": over[0]})
+        if over[0]:
+            speed = s
+            break
+    if speed is None:
+        raise AssertionError(f"mesh.controller: no speed overloads the "
+                             f"meshed engine: {probes}")
+    replays = []
+    for arm, ctrl in (("static", None), ("closed_loop", cc)):
+        K.reset_launch_counts()
+        run = SLO._run(cfg, params, dev, trace, ctrl, label=arm, speed=speed,
+                       mesh=mesh, rules=rules)
+        counts = K.launch_counts()
+        eng = run["engine"]
+        rec = {**SLO._summary(run, arm),
+               "launches": {k: counts[k] for k in MESH_CTRL_KERNELS},
+               "decisions": [list(d) for d in eng.ctrl_log],
+               "final_slot_cap": eng.scheduler.stats().get("slot_cap"),
+               "outputs": [r.out.tolist() for r in run["reqs"]]}
+        replays.append(rec)
+        if rec["dropped"] or (dev.type == "cuda"
+                              and not all(rec["launches"].values())):
+            raise AssertionError(f"mesh.controller: the {arm} replay: "
+                                 f"{ {k: rec[k] for k in ('dropped', 'launches')} }")
+    if not replays[1]["decisions"]:
+        raise AssertionError("mesh.controller: the controller made no "
+                             "decision")
+    holds = [SM.hold_tokens(cfg, params, dev, [tr.prompt], [r["outputs"][i]],
+                            tr.max_new, BF16_VS_F32_REL, max_seq=64)
+             for r in replays
+             for i, tr in enumerate(trace.requests[:MESH_CTRL_HELD])]
+    if not all(h["ok"] for h in holds):
+        raise AssertionError(f"mesh.controller: the tokens: {holds}")
+    st, cl = replays
+    return {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            "controller": dataclasses.asdict(cc), "speed": speed,
+            "probes": probes, "requests": len(trace.requests),
+            "replays": replays, "decisions": len(cl["decisions"]),
+            "band_held": SLO.band_held(st["p99_ttft_ms"], cl["p99_ttft_ms"],
+                                       st["goodput_tok_per_s"],
+                                       cl["goodput_tok_per_s"]),
+            "band_gated": False, "clock": "rank 0",
+            "tokens_held": True, "held": len(holds),
+            "near_tie_rel": BF16_VS_F32_REL,
+            "max_deficit_rel": max(h["max_deficit_rel"] for h in holds),
+            "seconds": time.monotonic() - t0}
 
 
 def _mesh_revokes(dev, mesh, axes) -> dict:

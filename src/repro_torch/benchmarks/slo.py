@@ -81,21 +81,24 @@ OVERLOAD_RATIO = 1.5
 
 
 def _engine(cfg, params, dev, controller=None, n_pages=128,
-            prefix_cache=True):
+            prefix_cache=True, mesh=None, rules=None):
     sc = SchedulerConfig(max_slots=MAX_SLOTS, page_size=8, max_seq=64,
                          prefill_chunk=8, prefill_rows=2, token_budget=16,
                          controller=controller, prefix_cache=prefix_cache)
     ecfg = EngineConfig(idle_poll_s=0.01)
     return ServingEngine(cfg, params, n_pages=n_pages, scheduler=sc,
-                         engine_cfg=ecfg, device=dev)
+                         engine_cfg=ecfg, device=dev, mesh=mesh,
+                         rules=rules)
 
 
-def calibrate_targets_ms(cfg, params, dev):
+def calibrate_targets_ms(cfg, params, dev, mesh=None, rules=None):
     """Uncontended decode p50 and TTFT on this device (requests run back
     to back, alone on the engine): the knee references the controller's
     targets are set against.  The first requests absorb the warm-up; the
-    histogram's low quantile then isolates the clean uncontended TTFT."""
-    eng = _engine(cfg, params, dev)
+    histogram's low quantile then isolates the clean uncontended TTFT.
+    ``mesh``/``rules``: the engine's (on a mesh of more than one rank,
+    every rank calibrates alike and reads its own clock)."""
+    eng = _engine(cfg, params, dev, mesh=mesh, rules=rules)
     eng.start()
     oks = []
     for rid in range(4):
@@ -115,6 +118,22 @@ def calibrate_targets_ms(cfg, params, dev):
     return step_p50_ns / 1e6, ttft_lo_ns / 1e6
 
 
+def controller_config(step_p50_ms: float, ttft_ms: float
+                      ) -> ControllerConfig:
+    """The closed loop's controller on :func:`calibrate_targets_ms`'s
+    readings.  The TTFT sensor (target a fixed factor over the
+    uncontended first token) drives the loop when batched decode costs
+    about what a batch of one does; the step sensor rides along as the
+    safety net."""
+    return ControllerConfig(
+        step_p99_target_ms=round(step_p50_ms * 3.0, 3),
+        ttft_p99_target_ms=round(max(ttft_ms * KNEE_FACTOR, 20.0), 3),
+        period_s=0.05, window_s=1.0, slices=8,
+        min_samples=2, min_slots=1, decrease=0.5,
+        recover_after=2, cooldown=2, probe_after=6,
+        watermark_step=0.05, watermark_max=0.5)
+
+
 def trace_config(smoke: bool) -> LoadgenConfig:
     return LoadgenConfig(
         duration_s=2.5 if smoke else 8.0,
@@ -127,13 +146,15 @@ def trace_config(smoke: bool) -> LoadgenConfig:
 
 
 def _run(cfg, params, dev, trace, controller, *, label: str,
-         speed: float = 1.0):
+         speed: float = 1.0, mesh=None, rules=None):
     """Replay the trace against a fresh engine (``speed`` > 1 compresses
-    its arrivals); fold the SLO report."""
+    its arrivals; ``mesh``/``rules``: the engine's); fold the SLO
+    report."""
     TRACER.clear()
     TRACER.enable()
     try:
-        eng = _engine(cfg, params, dev, controller=controller)
+        eng = _engine(cfg, params, dev, controller=controller, mesh=mesh,
+                      rules=rules)
         eng.start()
         t0 = time.monotonic()
         reqs = replay(eng, trace, speed=speed, timeout_s=600.0)
@@ -315,16 +336,7 @@ def bench_closed_loop(cfg, params, dev, smoke: bool, *,
     way :func:`prefix_witness` serves the first sampled request again
     without the prefix cache and at float32 compute."""
     step_p50_ms, ttft_ms = calibrate_targets_ms(cfg, params, dev)
-    # The TTFT sensor (target a fixed factor over the uncontended first
-    # token) drives the loop when batched decode costs about what a batch
-    # of one does; the step sensor rides along as the safety net.
-    cc = ControllerConfig(
-        step_p99_target_ms=round(step_p50_ms * 3.0, 3),
-        ttft_p99_target_ms=round(max(ttft_ms * KNEE_FACTOR, 20.0), 3),
-        period_s=0.05, window_s=1.0, slices=8,
-        min_samples=2, min_slots=1, decrease=0.5,
-        recover_after=2, cooldown=2, probe_after=6,
-        watermark_step=0.05, watermark_max=0.5)
+    cc = controller_config(step_p50_ms, ttft_ms)
 
     tcfg, trace = _trace(cfg, smoke)
     check(len(trace.requests) >= 8,

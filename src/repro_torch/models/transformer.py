@@ -713,6 +713,14 @@ def _moe_sharded(p: Params, h: torch.Tensor, cfg: ModelConfig, mesh,
                     P(model_axis, None, None), P(model_axis, None, None))
         out_specs = (P(token_axes, None), P())
 
+    # the token rows split over these axes' ranks, as ``repro``'s
+    # shard_map splits them: rows they do not divide are refused
+    row_axes = data_axes if decode_tp else token_axes
+    n_rows = math.prod(view.shape.get(a, 1) for a in row_axes)
+    if h.shape[0] % n_rows:
+        raise ValueError(
+            f"moe_forward: {n_rows} ranks over {row_axes} do not evenly "
+            f"divide {h.shape[0]} token rows (ROADMAP R17)")
     return shard_map_compat(body, mesh, in_specs, out_specs)(
         h, p["router"], p["wi"], p.get("wg"), p["wo"])
 
@@ -736,7 +744,9 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, mesh=None,
     over "model", weights resident where the rules say so) the backward
     runs through the same collectives and ``shard_map_compat``.
     ``decode_tp`` on a mesh where a data axis other than "data" is above 1
-    raises ``NotImplementedError`` (ROADMAP R15).  ``mesh=None`` is one
+    raises ``NotImplementedError`` (ROADMAP R15); token rows (B * S) that
+    the ranks they split over do not divide raise ``ValueError``, as
+    ``repro``'s ``shard_map`` does (ROADMAP R17).  ``mesh=None`` is one
     device, where the flags change nothing."""
     B, S, d = x.shape
     h = rms_norm(x, p["ln"], cfg.norm_eps).reshape(B * S, d)

@@ -61,21 +61,41 @@ taken.
 On a mesh (``mesh=`` from ``launch.mesh``, ``rules=`` a
 ``dist.sharding.MeshRules``) the steps are ``repro``'s meshed steps: each
 rank runs the engine, and the paged attention and the MoE layers run per
-rank with their collectives.  The ranks' collectives must come in one
-order, so a mesh of more than one rank serves in scheduler mode without
-the latency controller (both of which would let each rank's clock decide
-its own batches), and each tick starts with one all-reduce over a gloo
-group by which the ranks agree on how many queued requests to admit,
-whether a staged hot swap is ready on every rank, and whether to stop;
-every rank is given the same requests (and swaps) in the same order.  A
-hot swap is staged on each rank and installed by the scheduler thread at
-the tick the ranks agree on, so every rank's parameter tree, and with it
-its graphs' key, changes on the same tick; revocation stays per rank
-(each rank's lease table is its own).  The paged steps' graphs hold the
-rows' collectives (NCCL on the card) and agree each call's warm-up,
-capture or replay over the same group (``steps.GraphedStep.decide``), so
-every rank warms up, captures and replays on the same ticks.  A mesh of
-one rank (the card's smoke run) changes nothing else.
+rank with their collectives.  On a mesh of more than one rank every rank
+is given the same requests (and swaps) in the same order, and the ranks'
+collectives must come in one order, so no rank's clock may decide its own
+batches.  The engine's agreeing thread (the scheduler thread; in handler
+mode the dealer thread) starts each round with one all-reduce over a gloo
+group, by which the ranks agree on how many queued requests to take,
+whether a staged hot swap is ready on every rank, and whether to stop.
+
+* Scheduler mode admits the agreed requests at that tick.  With the
+  latency controller, rank 0's controller decides: its windows and its
+  clock are the sensors, so the band is measured on rank 0's clock, and
+  its decision, slot cap, watermark and sensor readings ride the same
+  all-reduce, so every rank applies the same limits at the same tick
+  (``ctrl_log``).
+* Handler mode cuts the agreed requests, in queue order, into batches of
+  up to ``slots_per_handler`` and deals them to the idle handler threads
+  in thread order.  The busy threads' steps (a batch's prefill, then its
+  ``S - 1 + max_new`` decode steps) then take turns, one step a thread in
+  thread order, one round of turns between two agreement rounds, so every
+  rank issues its collectives, its steps' graph decisions and its swap
+  installs in one order.  This gives up the overlap of handler threads on
+  a mesh; a batch whose rows the live data axes do not divide fails in
+  the MoE layer on every rank alike (ROADMAP R17), and ends the rank's
+  serving (``EngineFailure`` at ``stop()``).
+
+A hot swap is staged on each rank and installed by the agreeing thread at
+the round the ranks agree on, between two turns in handler mode, so every
+rank's parameter tree, and with it its graphs' key, changes on the same
+step call; revocation stays per rank (each rank's lease table is its
+own).  The steps' graphs hold their collectives (NCCL on the card) and
+agree each call's warm-up, capture or replay over the same group
+(``steps.GraphedStep.decide``), so every rank warms up, captures and
+replays on the same calls.  A mesh of one rank (the card's smoke run)
+changes nothing else: on one card and on a one-rank mesh both modes run
+as they do without a mesh.
 
 Not ported: ``repro``'s host-only mode (``device_leases=False``); every
 lock here mirrors its readers on the device.
@@ -84,9 +104,11 @@ lock here mirrors its readers on the device.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import math
 import queue
+import struct
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Union
@@ -197,6 +219,23 @@ class EngineStats:
 
 
 Lease = Optional[Union[LeaseHandle, RegistryHandle]]
+
+# an agreement round's controller fields (``ServingEngine._ctrl_propose``)
+_CTRL_DECISIONS = ("shrink", "grow")
+_INT64_MAX = 2 ** 63 - 1
+
+
+def _f64_bits(x: float) -> int:
+    """A float64's bits as an int64 (order-keeping for x >= 0)."""
+    return struct.unpack("<q", struct.pack("<d", x))[0]
+
+
+def _f64_of(bits: int) -> float:
+    return struct.unpack("<d", struct.pack("<q", bits))[0]
+
+
+class _TurnsClosed(Exception):
+    """A handler's turn will not come: the rank's serving has ended."""
 
 
 class ModelStore:
@@ -452,18 +491,27 @@ class ServingEngine:
         # module docstring) over a host group
         self._host_group = None
         self._pending: collections.deque = collections.deque()
-        # a mesh of more than one rank: hot swaps wait here for the tick
+        # a mesh of more than one rank: hot swaps wait here for the round
         # the ranks agree on (``_agree``)
         self._staged: Optional[dict] = None
         self._staged_mu = threading.Lock()
         self._swap_serial = threading.Lock()
         if mesh is not None and math.prod(mesh.shape) > 1:
-            if scheduler is None or scheduler.controller is not None:
-                raise ValueError(
-                    "a mesh of more than one rank serves in scheduler mode "
-                    "without the latency controller: the ranks' "
-                    "collectives must come in one order")
             self._host_group = dist.new_group(backend="gloo")
+        # handler mode on a mesh of more than one rank: each thread's
+        # batches, and the turn its steps wait for (``_deal_loop``)
+        self._hq: List["queue.Queue[Optional[List[Request]]]"] = []
+        self._turn_cv = threading.Condition()
+        self._turn: Optional[int] = None
+        self._turn_ok = True
+        self._turns_closed = False
+        # step calls so far (handler turns given, scheduler ticks), the
+        # count at which each agreed hot swap was installed on a mesh of
+        # more than one rank, and the controller's decisions as (tick,
+        # decision, slot cap, admission watermark)
+        self._turns = self._ticks = 0
+        self.swap_at: List[int] = []
+        self.ctrl_log: List[tuple] = []
         self.ecfg = engine_cfg or EngineConfig()
         self.env = env or LockEnv(LiveMem())
         self.metrics = MetricsRegistry()
@@ -501,6 +549,7 @@ class ServingEngine:
                                 arg=1, out=2)
         self._graph_handlers = True    # False: bare (smoke.eager_steps)
         self._hsteps: Dict[tuple, HandlerSteps] = {}
+        self._controller = None
 
         # ---- scheduler mode (continuous batching over the paged pool) ----
         self.sched_cfg = scheduler
@@ -565,7 +614,6 @@ class ServingEngine:
         # over the scheduler's runtime limits.  The engine observes into
         # the windows next to the histograms and lets the controller read
         # them at tick top level, never inside a lease window
-        self._controller = None
         self._w_step = self._w_ttft = None
         self._h_ttft = self.metrics.histogram("engine.ttft_ns")
         if sc.controller is not None:
@@ -605,6 +653,96 @@ class ServingEngine:
                     break
             self._serve_batch(hid, reqs)
 
+    def _mesh_handler(self, hid: int) -> None:
+        """Handler ``hid`` on a mesh of more than one rank: it serves the
+        batches the dealer deals it, each step in its turn.  A batch that
+        fails closes the turns, which ends the rank's serving."""
+        while True:
+            reqs = self._hq[hid].get()
+            if reqs is None:
+                return
+            try:
+                self._serve_batch(hid, reqs)
+            except _TurnsClosed:
+                return
+            except BaseException:
+                self._close_turns()
+                raise
+
+    def _deal_loop(self) -> None:
+        """Handler mode's agreeing thread on a mesh of more than one rank
+        (module docstring): an agreement round, the agreed requests dealt
+        to the idle handlers as batches, then one turn to each busy
+        handler in thread order; after an agreed stop, the batches in
+        flight are served to their end.  Every rank computes the same deal
+        and the same turns from the agreed counts.  A failed turn ends the
+        loop at once."""
+        B = self.slots
+        left = [0] * self.handlers       # turns left of each batch in flight
+        stopping = False
+        try:
+            while True:
+                taken: List[Request] = []
+                if not stopping:
+                    idle = [h for h in range(self.handlers) if not left[h]]
+                    taken, stopping = self._agree(cap=len(idle) * B)
+                    for h, i in zip(idle, range(0, len(taken), B)):
+                        batch = taken[i:i + B]
+                        S = max(len(r.prompt) for r in batch)
+                        left[h] = S + max(r.max_new for r in batch)
+                        self._hq[h].put(batch)
+                busy = [h for h in range(self.handlers) if left[h]]
+                if not busy:
+                    if stopping:
+                        return
+                    self._stop.wait(self.ecfg.idle_poll_s)
+                    continue
+                for h in busy:
+                    if not self._give_turn(h):
+                        return
+                    left[h] -= 1
+        finally:
+            self._close_turns()
+            for q in self._hq:
+                q.put(None)
+
+    def _give_turn(self, hid: int) -> bool:
+        """Let handler ``hid`` run one step and wait for it.  -> whether
+        the step ran without an error (False also once the turns close)."""
+        self._turns += 1
+        with self._turn_cv:
+            self._turn = hid
+            self._turn_cv.notify_all()
+            while self._turn is not None and not self._turns_closed:
+                self._turn_cv.wait()
+            return self._turn is None and self._turn_ok
+
+    @contextlib.contextmanager
+    def _turn_of(self, hid: int):
+        """One step of handler ``hid``: in its turn on a mesh of more than
+        one rank (``_deal_loop``), at once otherwise."""
+        if self._host_group is None:
+            yield
+            return
+        with self._turn_cv:
+            while self._turn != hid:
+                if self._turns_closed:
+                    raise _TurnsClosed()
+                self._turn_cv.wait()
+        ok = False
+        try:
+            yield
+            ok = True
+        finally:
+            with self._turn_cv:
+                self._turn, self._turn_ok = None, ok
+                self._turn_cv.notify_all()
+
+    def _close_turns(self) -> None:
+        with self._turn_cv:
+            self._turns_closed = True
+            self._turn_cv.notify_all()
+
     def _decode_caches(self, batch: int) -> Any:
         """Zero decode caches for ``batch`` rows, each leaf in the dtype
         the decode step returns for it (found by running the step on the
@@ -631,11 +769,12 @@ class ServingEngine:
         tree zeroed (made on first use, and again after ``stop()``)."""
         hs = self._hsteps.get((hid, batch))
         if hs is None:
-            g = self._graph_handlers
+            g, grp = self._graph_handlers, self._host_group
             hs = self._hsteps[(hid, batch)] = HandlerSteps(
-                prefill=jit_step(self._prefill) if g else self._prefill,
-                decode=(jit_step(self._decode, donate_argnums=(1,)) if g
-                        else self._decode),
+                prefill=(jit_step(self._prefill, group=grp) if g
+                         else self._prefill),
+                decode=(jit_step(self._decode, donate_argnums=(1,),
+                                 group=grp) if g else self._decode),
                 caches=None)
         if hs.caches is None:
             hs.caches = self._decode_caches(batch)
@@ -670,11 +809,12 @@ class ServingEngine:
 
         hs = self._handler_steps(hid, B)
         # prefill under a read lock (one epoch for the whole batch)
-        tok, params, _ = self.store.read_batch(rid_dev)
-        try:
-            hs.prefill(params, {"tokens": toks_dev})
-        finally:
-            self.store.done_read_batch(tok, rid_dev)
+        with self._turn_of(hid):
+            tok, params, _ = self.store.read_batch(rid_dev)
+            try:
+                hs.prefill(params, {"tokens": toks_dev})
+            finally:
+                self.store.done_read_batch(tok, rid_dev)
         self.stats.inc("prefills")
 
         caches = hs.caches
@@ -687,16 +827,17 @@ class ServingEngine:
             clen = torch.full((B,), step + 1, dtype=torch.int32, device=dev)
             # page-map read held across the step: the stripe leases (and
             # host read lock) pin the batch's pages until the step is in
-            ptok, _page_mask = self.pages.read_batch(rid_dev)
-            try:
-                rtok, params_now, _ = self.store.read_batch(rid_dev)
+            with self._turn_of(hid):
+                ptok, _page_mask = self.pages.read_batch(rid_dev)
                 try:
-                    nxt, _logits, caches = hs.decode(params_now, caches,
-                                                     cur, clen)
+                    rtok, params_now, _ = self.store.read_batch(rid_dev)
+                    try:
+                        nxt, _logits, caches = hs.decode(params_now, caches,
+                                                         cur, clen)
+                    finally:
+                        self.store.done_read_batch(rtok, rid_dev)
                 finally:
-                    self.store.done_read_batch(rtok, rid_dev)
-            finally:
-                self.pages.done_read_batch(ptok)
+                    self.pages.done_read_batch(ptok)
             self.stats.inc("decode_steps")
             self.stats.inc("read_acquires")
             if step + 1 < S:
@@ -1055,16 +1196,30 @@ class ServingEngine:
         period.  Reads the windowed sensors (host aggregates, at tick top
         level, never inside a lease window) and applies a decision through
         ``scheduler.set_limits``."""
+        due = self._ctrl_update()
+        if due:
+            self._ctrl_apply(due[0])
+
+    def _ctrl_update(self) -> tuple:
+        """One controller update if its period is due by this rank's
+        clock: -> ``(decision,)``, or ``()`` when not due."""
         now = time.monotonic_ns()
         if now < self._ctrl_next_ns:
-            return
+            return ()
         ctrl = self._controller
         self._ctrl_next_ns = now + int(ctrl.ccfg.period_s * 1e9)
-        decision = ctrl.update(now)
+        return (ctrl.update(now),)
+
+    def _ctrl_apply(self, decision: Optional[str]) -> None:
+        """One controller update's effect: a decision's new limits through
+        ``scheduler.set_limits``, the gauges, ``ctrl_log`` and the trace."""
+        ctrl = self._controller
         if decision is not None:
             self.scheduler.set_limits(ctrl.slot_cap, ctrl.free_frac)
             self._g_slot_cap.set(ctrl.slot_cap)
             self._g_free_frac.set(ctrl.free_frac)
+            self.ctrl_log.append((self._ticks, decision, ctrl.slot_cap,
+                                  ctrl.free_frac))
             if _TR.enabled:
                 _TR.emit("sched", f"ctrl_{decision}", cap=ctrl.slot_cap,
                          watermark_pct=round(ctrl.free_frac * 100, 1),
@@ -1080,6 +1235,38 @@ class ServingEngine:
                      p99_step_us=round(ctrl.last_step_p99_ns / 1e3, 1),
                      p99_ttft_us=round(ctrl.last_ttft_p99_ns / 1e3, 1))
 
+    def _ctrl_propose(self) -> List[int]:
+        """The controller's part of an agreement round: on rank 0, when
+        its period is due by rank 0's clock, one update, as ``[kind, slot
+        cap, watermark's float64 bits, step p99 ns, TTFT p99 ns]`` (kind
+        0: not due, 1: no decision, 2 + i: ``_CTRL_DECISIONS[i]``); the
+        largest int64 on every other rank, so the round's MIN carries rank
+        0's."""
+        none = [_INT64_MAX] * 5
+        ctrl = self._controller
+        if ctrl is None or dist.get_rank(group=self._host_group) != 0:
+            return none
+        due = self._ctrl_update()
+        if not due:
+            return [0] + none[1:]
+        kind = 1 if due[0] is None else 2 + _CTRL_DECISIONS.index(due[0])
+        return [kind, ctrl.slot_cap, _f64_bits(ctrl.free_frac),
+                round(ctrl.last_step_p99_ns), round(ctrl.last_ttft_p99_ns)]
+
+    def _ctrl_agreed(self, kind, cap, frac_bits, step_p99, ttft_p99) -> None:
+        """Apply rank 0's controller update, agreed in the round, on this
+        rank: every other rank's controller takes rank 0's limits and
+        sensor readings first."""
+        if kind == 0 or self._controller is None:
+            return
+        ctrl = self._controller
+        decision = None if kind == 1 else _CTRL_DECISIONS[kind - 2]
+        if dist.get_rank(group=self._host_group) != 0:
+            ctrl.slot_cap, ctrl.free_frac = cap, _f64_of(frac_bits)
+            ctrl.last_step_p99_ns = float(step_p99)
+            ctrl.last_ttft_p99_ns = float(ttft_p99)
+        self._ctrl_apply(decision)
+
     def _schedule_tick(self) -> bool:
         """One policy round: service compaction, admit, run the plan.
         Returns False when idle (the loop then blocks on the queue)."""
@@ -1092,10 +1279,11 @@ class ServingEngine:
             self.stats.inc("compactions")
             if _TR.enabled:
                 _TR.emit("engine", "compact")
-        if self._controller is not None:
-            self._ctrl_tick()
+        if self._controller is not None and self._host_group is None:
+            self._ctrl_tick()        # on a mesh: in the agreement round
         self._admit()
         plan = self.scheduler.plan()
+        self._ticks += 1
         if plan.kind == "prefill":
             self._run_prefill(plan)
             return True
@@ -1104,13 +1292,14 @@ class ServingEngine:
             return True
         return False
 
-    def _agree(self) -> bool:
-        """One round of the ranks' agreement: queue what has arrived, admit
-        the number of requests every rank holds (all ranks are given the
-        same requests in the same order), install the staged hot swap
-        once every rank has staged one (all ranks are given the same
-        swaps in the same order), stop once any rank stops.  -> whether
-        to stop."""
+    def _agree(self, cap: Optional[int] = None):
+        """One round of the ranks' agreement: queue what has arrived, take
+        the number of requests every rank holds (at most ``cap``; all
+        ranks are given the same requests in the same order), apply rank
+        0's controller update, install the staged hot swap once every rank
+        has staged one (all ranks are given the same swaps in the same
+        order), stop once any rank stops.  -> (the requests taken, in
+        queue order; whether to stop)."""
         while True:
             try:
                 r = self.inq.get_nowait()
@@ -1119,15 +1308,20 @@ class ServingEngine:
             if r is not None:
                 self._pending.append(r)
         t = torch.tensor([len(self._pending), -int(self._stop.is_set()),
-                          int(self._staged is not None)], dtype=torch.int64)
+                          int(self._staged is not None)]
+                         + self._ctrl_propose(), dtype=torch.int64)
         dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self._host_group)
-        for _ in range(int(t[0])):
-            self._submit_slot(self._pending.popleft())
+        t = t.tolist()
+        n = t[0] if cap is None else min(t[0], cap)
+        taken = [self._pending.popleft() for _ in range(n)]
         if t[1] < 0:
-            return True
+            return taken, True
+        self._ctrl_agreed(*t[3:])
         if t[2]:
             with self._staged_mu:
                 slot = self._staged
+            self.swap_at.append(self._turns if self.scheduler is None
+                                else self._ticks)
             try:
                 slot["ok"] = self._install(slot["params"], slot["retries"],
                                            slot["backoff_s"])
@@ -1135,21 +1329,18 @@ class ServingEngine:
                 with self._staged_mu:
                     self._staged = None
                 slot["done"].set()
-        return False
+        return taken, False
 
     def _schedule_loop(self) -> None:
         if self._host_group is not None:
-            try:
-                while not self._agree():
-                    if not self._schedule_tick():
-                        self._stop.wait(self.ecfg.idle_poll_s)
-            finally:
-                # a swap staged when the ranks stop is not installed
-                with self._staged_mu:
-                    slot, self._staged = self._staged, None
-                if slot is not None:
-                    slot["done"].set()
-            return
+            while True:
+                taken, stop = self._agree()
+                for r in taken:
+                    self._submit_slot(r)
+                if stop:
+                    return
+                if not self._schedule_tick():
+                    self._stop.wait(self.ecfg.idle_poll_s)
         while not self._stop.is_set():
             if not self._schedule_tick():
                 try:
@@ -1158,6 +1349,21 @@ class ServingEngine:
                     continue
                 if r is not None:
                     self._submit_slot(r)
+
+    def _agreeing(self) -> None:
+        """The agreeing thread's loop on a mesh of more than one rank
+        (``_schedule_loop`` or ``_deal_loop``); a swap still staged when
+        the ranks stop is not installed."""
+        try:
+            if self.scheduler is not None:
+                self._schedule_loop()
+            else:
+                self._deal_loop()
+        finally:
+            with self._staged_mu:
+                slot, self._staged = self._staged, None
+            if slot is not None:
+                slot["done"].set()
 
     # ------------------------------------------------------- background ops
     def _updater(self, period_s: float, perturb: Callable[[Any], Any]):
@@ -1198,7 +1404,7 @@ class ServingEngine:
         degrade instead of crashing and retry with doubling backoff.
         Returns True once the swap lands; False if all retries drained
         out (serving continues on the old weights).  On a mesh of more
-        than one rank the swap is staged and lands at the tick every rank
+        than one rank the swap is staged and lands at the round every rank
         agrees on (module docstring); False also if the ranks stop
         first."""
         if (new_params is None) == (checkpoint is None):
@@ -1210,9 +1416,12 @@ class ServingEngine:
             return self._stage_swap(new_params, retries, backoff_s)
         return self._install(new_params, retries, backoff_s)
 
+    def _agreeing_name(self) -> str:
+        return "scheduler" if self.scheduler is not None else "dealer"
+
     def _stage_swap(self, new_params, retries, backoff_s) -> bool:
         """On a mesh of more than one rank: stage ``new_params`` for the
-        scheduler thread, which installs it at the tick every rank agrees
+        agreeing thread, which installs it at the round every rank agrees
         on (:meth:`_agree`), and wait for that.  -> the install's result;
         False if the ranks stop first.  One swap is staged at a time."""
         slot = {"params": new_params, "retries": retries,
@@ -1223,7 +1432,7 @@ class ServingEngine:
                 self._staged = slot
             while not slot["done"].wait(self.ecfg.idle_poll_s):
                 if self._stop.is_set() and not any(
-                        t.name == "scheduler" and t.is_alive()
+                        t.name == self._agreeing_name() and t.is_alive()
                         for t in self._threads):
                     with self._staged_mu:
                         if self._staged is slot:
@@ -1297,7 +1506,13 @@ class ServingEngine:
     def start(self, *, swap_period_s: float = 0.0,
               perturb: Optional[Callable[[Any], Any]] = None,
               compact_period_s: float = 0.0) -> None:
-        if self.scheduler is not None:
+        if self._host_group is not None:
+            if self.scheduler is None:
+                self._hq = [queue.Queue() for _ in range(self.handlers)]
+                for h in range(self.handlers):
+                    self._spawn(f"handler-{h}", self._mesh_handler, h)
+            self._spawn(self._agreeing_name(), self._agreeing)
+        elif self.scheduler is not None:
             self._spawn("scheduler", self._schedule_loop)
         else:
             for h in range(self.handlers):

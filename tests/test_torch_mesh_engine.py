@@ -169,23 +169,3 @@ def test_meshed_train_step_is_the_same_on_every_rank(kind, ranks):
         for path, x in r["train"][kind]["params"].items():
             np.testing.assert_array_equal(x, first[path], err_msg=path)
 
-
-def test_engine_refuses_a_multi_rank_mesh_with_the_controller_on_cuda():
-    """A mesh of more than one rank on CUDA serves in scheduler mode
-    without the latency controller (each rank's clock would decide its own
-    batches): refused before anything is placed or any group is made.  The
-    stand-in mesh carries what the constructor reads of a ``DeviceMesh``,
-    so no card is needed."""
-    from repro_torch.serving.engine import ServingEngine
-    from repro_torch.serving.scheduler import (ControllerConfig,
-                                               SchedulerConfig)
-
-    class TwoRanks:
-        shape = (2, 1)
-        mesh_dim_names = ("data", "model")
-
-    with pytest.raises(ValueError, match="controller"):
-        ServingEngine(C.smoke_f32("llama3.2-1b"), None, device="cuda:0",
-                      scheduler=SchedulerConfig(
-                          controller=ControllerConfig()),
-                      mesh=TwoRanks())

@@ -120,3 +120,52 @@ def test_phase_sharded_serving_steps(phase):
         assert full["stored_cache_bytes"] == full["spec_cache_bytes"] \
             < full["whole_cache_bytes"]
         assert long["stored_cache_bytes"] == long["spec_cache_bytes"]
+
+
+def test_phase_handler_mode_on_the_mesh(phase):
+    """``mesh.handler``: phi3.5-moe on the ("data", "model") = (1, N)
+    mesh and, on more than one rank, rwkv6 on the engine's mesh, each
+    graphed and bare under swaps and without, the graphed calls'
+    decisions agreed on every rank (``_mesh_across``), without swaps each
+    handler thread's graphed decode step captured once and replayed, and
+    the B = 4 decode step timed on the mesh and off it."""
+    world, recs, out = phase
+    shapes = CS._mesh_shapes(world)
+    assert [h["mesh"] for h in out["handler"]] == [
+        dict(zip(shapes[key][1], shapes[key][0]))
+        for arch, _, key in CS.MESH_HANDLER
+        if world > 1 or arch in CS.MESH_HANDLER_ONE]
+    for h in out["handler"]:
+        assert [(r["arm"], r["swaps"]) for r in h["runs"]] == list(
+            CS.MESH_HANDLER_ARMS)
+        for r in h["runs"]:
+            assert (r["weight_swaps"] >= 1) == r["swaps"]
+            assert len(r["swap_turns"]) == (
+                r["weight_swaps"] if world > 1 else 0)
+            if r["arm"] == "graph":
+                assert r["graphs"]["decode"]["warmups"] >= 1
+            if r["arm"] == "graph" and not r["swaps"]:
+                assert r["graphs"]["decode"]["captures"] == 2
+                assert r["graphs"]["decode"]["replays"] >= 1
+        step = h["decode_step"]
+        assert step["mesh"]["steps"] == step["one"]["steps"] > 0
+    for r in recs:
+        assert [h["config"] for h in r["handler"]] == [
+            h["config"] for h in out["handler"]]
+
+
+def test_phase_controller_on_the_mesh(phase):
+    """``mesh.controller``: the closed-loop replay on the engine's mesh
+    made at least one decision, rank 0's, logged alike on every rank;
+    neither replay dropped a request."""
+    world, recs, out = phase
+    ctrl = out["controller"]
+    assert ctrl["mesh"] == out["engine"]["mesh"]
+    assert ctrl["decisions"] >= 1 and ctrl["clock"] == "rank 0"
+    assert [x["label"] for x in ctrl["replays"]] == ["static",
+                                                     "closed_loop"]
+    assert all(x["dropped"] == 0 for x in ctrl["replays"])
+    assert ctrl["replays"][0]["decisions"] == []
+    for r in recs:
+        assert r["controller"]["replays"][1]["decisions"] == \
+            ctrl["replays"][1]["decisions"]

@@ -760,8 +760,8 @@ def rank_mesh_phase(rank, world):
     """``chip_smoke._mesh_checks`` on this gloo rank at the smoke configs
     (float32), the graphs on the CPU stand-in and the card's counters and
     events stubbed, the store, the revokes' holders, the train batches,
-    the sharded step's depth, the sharded serving steps' shapes and the
-    swap period cut to the smoke size."""
+    the sharded step's depth, the sharded serving steps' shapes, the
+    handler runs' depth and the swap periods cut to the smoke size."""
     import dataclasses
 
     root = os.path.dirname(SRC)
@@ -788,6 +788,9 @@ def rank_mesh_phase(rank, world):
     CS.MESH_ONE_BATCH, CS.MESH_SHARDED_BATCH = (2, 16), (4, 16)
     CS.MESH_SHARDED_LAYERS = 4
     CS.MESH_SWAP_S = 0.03        # swaps land within the smoke engine's run
+    CS.MESH_HANDLER = tuple((arch, 2, key)
+                            for arch, _, key in CS.MESH_HANDLER)
+    CS.MESH_HANDLER_SWAP_S = 0.03
     torch.cuda.Event = _NoEvent
     CS.MESH_SERVE_ONE = {"layers": 2, "prefill": (2, 16), "rows": 2,
                          "cache": 32, "steps": 3}
